@@ -1,0 +1,452 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's `.xz` decode once on one CUDA card, and check it.
+
+Run from the root of a checkout, on a machine with a CUDA card, the CUDA
+toolkit (nvcc) and g++:
+
+    python3 chip_smoke.py
+
+It builds the segment-decoder kernel from ``lzma_rs_tpu_torch/csrc`` into
+``lzma_rs_tpu_torch/build/`` and the native host library, then runs:
+
+1. device: the card's name and power limit (``nvidia-smi``);
+2. build: the kernel (nvcc, ptxas summary) and the native host library;
+3. kernel against plain version: ~32 lanes of <= 4 KiB segments (stdlib
+   ``lzma`` raw LZMA2 at presets 1/6/9 and several lc/lp/pb, a multi-
+   segment stream, a multi-chunk segment, a stored chunk mid-segment, the
+   lc=0 distance-capped profile, flipped bytes, truncated inputs) through
+   ``decode_segments`` and ``decode_segments_reference`` on the card;
+4. the main path at full size: ``xz_decompress`` with
+   ``LZMA_RS_TPU_BACKEND=cuda`` on 16,000,000 bytes of the interpreter's
+   stdlib sources (cycled if the installation holds fewer), as (a) the
+   tpu_profile archive (8 KiB blocks, lc=0) and (b) a stock-shaped archive (stdlib ``lzma`` preset 6
+   per 64 KiB block, CRC64); end-to-end, kernel-only and native MB/s; the
+   kernel against its plain version in each archive's own bucket: (a)'s
+   whole batch, and four lanes of (b) (its tail block whole, three lanes
+   cut to that length: the plain version's time is its longest lane's);
+   then the default ``auto`` engine: the card for (a), the host for a
+   64 KiB archive (the small-workload gate);
+5. a corrupt archive: the same exception and message as the native engine.
+
+Every phase checks its result; any failure exits nonzero before the result
+lines. The last two lines are the kernel JSON line and the device JSON line.
+Nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import glob
+import hashlib
+import json
+import lzma
+import os
+import subprocess
+import sys
+import sysconfig
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CORPUS_BYTES = 16_000_000
+T0 = time.perf_counter()
+
+
+def fail(msg: str):
+    raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def say(phase: str, msg: str) -> None:
+    print(f"[{phase} +{time.perf_counter() - T0:.1f}s] {msg}", flush=True)
+
+
+def stdlib_corpus() -> tuple:
+    """CORPUS_BYTES of the interpreter's stdlib ``.py`` sources, files in
+    sorted path order (installed packages left out), cycled when the
+    installation holds fewer bytes: blocks decode independently, so a
+    repeat changes no block's work. Returns (corpus, distinct bytes)."""
+    root = sysconfig.get_paths()["stdlib"]
+    parts, n = [], 0
+    for path in sorted(glob.glob(os.path.join(root, "**", "*.py"),
+                                 recursive=True)):
+        rel = os.path.relpath(path, root)
+        if "site-packages" in rel or "dist-packages" in rel:
+            continue
+        with open(path, "rb") as f:
+            parts.append(f.read())
+        n += len(parts[-1])
+        if n >= CORPUS_BYTES:
+            break
+    data = b"".join(parts)
+    check(len(data) >= 1 << 20, f"stdlib sources hold only {len(data)} B")
+    return (data * -(-CORPUS_BYTES // len(data)))[:CORPUS_BYTES], len(data)
+
+
+def raw_lzma2(data: bytes, preset: int = 6, **props) -> bytes:
+    filt = {"id": lzma.FILTER_LZMA2, "preset": preset, **props}
+    return lzma.compress(data, format=lzma.FORMAT_RAW, filters=[filt])
+
+
+def stock_archive(data: bytes) -> bytes:
+    """stdlib ``lzma`` raw LZMA2 (preset 6, lc=3) per 64 KiB block, in an
+    `.xz` container with CRC64 checks, written by the repo's writers."""
+    from lzma_rs_tpu.formats import xz as fmt
+    from lzma_rs_tpu.utils.cursor import ByteWriter
+
+    blocks = [data[i:i + 65536] for i in range(0, len(data), 65536)]
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        payloads = list(pool.map(raw_lzma2, blocks))
+    flags = fmt.StreamFlags(check_method=fmt.CHECK_CRC64)
+    w = ByteWriter()
+    fmt.write_stream_header(w, flags)
+    records = [fmt.write_block(w, p, b, check_method=fmt.CHECK_CRC64)
+               for p, b in zip(payloads, blocks)]
+    fmt.write_footer(w, flags, fmt.write_index(w, records))
+    return w.getvalue()
+
+
+def cuda_ms(torch, fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn()`` over ``reps`` calls."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def best_seconds(fn, reps: int = 3) -> float:
+    best = float("inf")
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t)
+    return best
+
+
+def held_equal(got, want, where: str) -> int:
+    """Fail unless the kernel's outputs equal the plain version's; returns
+    the largest absolute difference (0)."""
+    worst = 0
+    for what, g, w in zip(("win", "err", "outp", "steps"), got, want):
+        diff = (g.long() - w.long()).abs().max().item()
+        worst = max(worst, diff)
+        check(diff == 0, f"{where}: kernel and plain version differ in "
+              f"{what}")
+    return worst
+
+
+def cut_lanes(torch, staged, dev):
+    """Lanes of a staged batch in the batch's own bucket, at a size the
+    plain version runs in minutes (its time is the longest lane's steps):
+    the shortest lane whole, then three lanes spread over the batch with
+    their first chunk ending at that lane's length and later chunks
+    dropped. Returns (config, inputs on ``dev``, picked lane indices)."""
+    import dataclasses
+
+    import numpy as np
+
+    L = staged.config.L
+    tail = int(np.argmin(staged.seg_lens))
+    n = int(staged.seg_lens[tail])
+    picks = [tail] + [i for i in (0, L // 3, 2 * L // 3) if i != tail][:3]
+    sub = np.array(picks)
+    ins, ine, outs, oute, meta = (t[sub] for t in staged.tables)
+    oute[1:, 0] = np.minimum(oute[1:, 0], n)
+    meta[1:, 1:] = 0  # no valid chunk after the first: the lane ends
+    win = (np.zeros((len(picks), staged.config.W), dtype=np.uint8)
+           if staged.win_init is None else staged.win_init[sub])
+    arrays = (staged.inbuf[sub], win, ins, ine, outs, oute, meta)
+    return (dataclasses.replace(staged.config, L=len(picks)),
+            tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                  for a in arrays), picks)
+
+
+def phase3_lanes(corpus: bytes, runtime):
+    """Streams for the kernel-against-plain check, planned into one blob.
+    Returns (blob, plans, expected output, corrupted seg_bases,
+    truncations {seg_base: new in_end relative to in_start or -n})."""
+    from lzma_rs_tpu.encode.lzma2_enc import lzma2_compress
+
+    def piece(k: int, n: int = 4096) -> bytes:
+        off = (k * 389_017) % (len(corpus) - n)
+        return corpus[off:off + n]
+
+    entries = []  # (stream, original data, flip fraction, truncation)
+    k = 0
+    for preset in (1, 6, 9):
+        for lc, lp, pb in ((3, 0, 2), (0, 0, 2), (1, 2, 1), (2, 1, 3)):
+            d = piece(k)
+            k += 1
+            entries.append((raw_lzma2(d, preset, lc=lc, lp=lp, pb=pb), d,
+                            None, None))
+    for lc, lp, pb in ((3, 0, 4), (0, 3, 0)):
+        d = piece(k)
+        k += 1
+        entries.append((raw_lzma2(d, 6, lc=lc, lp=lp, pb=pb), d, None, None))
+    segs = [piece(k + i, 1365) for i in range(3)]  # one stream, 3 segments
+    k += 3
+    entries.append((raw_lzma2(segs[0])[:-1] + raw_lzma2(segs[1])[:-1]
+                    + raw_lzma2(segs[2]), b"".join(segs), None, None))
+    d = piece(k)
+    k += 1
+    entries.append((lzma2_compress(d, level=6, chunk_size=1024), d,
+                    None, None))  # one segment of four LZMA chunks
+    rnd = b"".join(hashlib.sha256(bytes([i])).digest() for i in range(32))
+    d = piece(k, 1024) + rnd + piece(k + 1, 1024)
+    k += 2
+    entries.append((lzma2_compress(d, level=6, chunk_size=1024), d,
+                    None, None))  # a stored chunk inside the segment
+    d = piece(k)
+    k += 1
+    entries.append((lzma2_compress(d, level=6, props=90, dist_cap=2048),
+                    d, None, None))  # lc=0 distance-capped profile
+    for frac in (0.02, 0.2, 0.4, 0.6, 0.8, 0.97):
+        d = piece(k)
+        k += 1
+        entries.append((raw_lzma2(d), d, frac, None))
+    for cut in (-40, -200, 4, 0, 600, 1200):
+        d = piece(k)
+        k += 1
+        entries.append((raw_lzma2(d), d, None, cut))
+
+    blob, plans, expected = bytearray(), [], bytearray()
+    flips, cuts = {}, {}
+    for stream, data, frac, cut in entries:
+        plan, _ = runtime.plan_lzma2_stream(bytes(blob) + stream, len(blob),
+                                            len(expected))
+        base = plan.lanes[0].seg_base
+        if frac is not None:
+            lane = plan.lanes[0]
+            span = lane.in_end[0] - lane.in_start[0]
+            flips[base] = lane.in_start[0] + 5 + int(frac * (span - 6))
+        if cut is not None:
+            cuts[base] = cut
+        blob += stream
+        expected += data
+        plans.append(plan)
+    check(sum(len(p.lanes) for p in plans) == 32, "phase-3 lane count")
+    check(any(p.prefill and p.lanes for p in plans), "no stored chunk lane")
+    corrupted = set(flips) | set(cuts)
+    for pos in flips.values():
+        blob[pos] ^= 0x5A
+    return bytes(blob), plans, bytes(expected), corrupted, cuts
+
+
+def main() -> None:
+    import torch
+
+    # -- 1. device -----------------------------------------------------
+    if not torch.cuda.is_available():
+        fail("no CUDA device: torch.cuda.is_available() is False")
+    sys.path.insert(0, ROOT)
+    import lzma_rs_tpu_torch
+    from lzma_rs_tpu.native import loader as native_loader
+    from lzma_rs_tpu.utils import stats
+    from lzma_rs_tpu_torch.ops import build
+    from lzma_rs_tpu_torch.ops import segment_decoder as sd
+    from lzma_rs_tpu_torch.parallel import runtime
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    smi_line = smi.stdout.strip().splitlines()[0]
+    say("1 device", f"{name}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}; python {sys.version.split()[0]}")
+    print(smi_line, flush=True)
+
+    # -- 2. build ------------------------------------------------------
+    built = build.build_library()
+    build.load()
+    regs = [ln.strip() for ln in built.log.splitlines() if "registers" in ln]
+    say("2 build", f"decode_segments.cu -> {os.path.relpath(built.path, ROOT)}"
+        f" in {built.seconds:.2f} s; {'; '.join(regs) or 'cached build'}")
+    t = time.perf_counter()
+    check(native_loader.load() is not None,
+          "the native host library did not build or load (g++?)")
+    say("2 build", f"native host library ready in "
+        f"{time.perf_counter() - t:.1f} s")
+
+    corpus, distinct = stdlib_corpus()
+    say("4 corpus", f"{len(corpus)} B of stdlib sources ({distinct} B "
+        f"distinct, cycled), sha256 {hashlib.sha256(corpus).hexdigest()}")
+
+    # -- 3. kernel against plain version on the card ------------------
+    blob, plans, expected, corrupted, cuts = phase3_lanes(
+        corpus, runtime)
+    staged = runtime.stage_plans(blob, plans)
+    cfg = staged.config
+    index = {lane.seg_base: i for i, lane in enumerate(staged.lanes)}
+    for base, cut in cuts.items():
+        i = index[base]
+        ins, ine = staged.tables[0], staged.tables[1]
+        ine[i, 0] = ine[i, 0] + cut if cut < 0 else ins[i, 0] + cut
+    inputs = staged.tensors(dev)
+    got = sd.decode_segments(*inputs, config=cfg)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter()
+    want = sd.decode_segments_reference(*inputs, config=cfg)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t_plain) * 1e3
+    max_abs_err = held_equal(got, want, "phase 3")
+    win_h, err_h, outp_h = (t.cpu().numpy() for t in got[:3])
+    for i, lane in enumerate(staged.lanes):
+        n = int(staged.seg_lens[i])
+        if lane.seg_base in corrupted:
+            continue
+        check(err_h[i] == 0 and outp_h[i] == n,
+              f"phase 3: clean lane {i} err {err_h[i]} outp {outp_h[i]}")
+        check(win_h[i, :n].tobytes()
+              == expected[lane.seg_base:lane.seg_base + n],
+              f"phase 3: clean lane {i} decoded wrong bytes")
+    cut_err = [int(err_h[index[b]]) for b in cuts]
+    check(all(cut_err), f"phase 3: a truncated lane decoded clean {cut_err}")
+    kernel_ms = cuda_ms(torch, lambda: sd.decode_segments(*inputs,
+                                                         config=cfg), 20)
+    flip_err = [int(err_h[i]) for i, lane in enumerate(staged.lanes)
+                if lane.seg_base in corrupted and lane.seg_base not in cuts]
+    say("3 kernel", f"{cfg.L} lanes (W={cfg.W}, W_IN={cfg.W_IN}, "
+        f"NLIT={cfg.NLIT}, NPS={cfg.NPS}): kernel == plain version bit for "
+        f"bit (win, err, outp, steps); clean lanes == stdlib; err codes "
+        f"flipped {flip_err} truncated {cut_err}; kernel {kernel_ms:.3f} ms,"
+        f" plain {plain_ms:.1f} ms ({int(want[3].max())} lockstep steps)")
+
+    # -- 4. the main path at full size --------------------------------
+    t = time.perf_counter()
+    xa = lzma_rs_tpu_torch.xz_compress(corpus, tpu_profile=True,
+                                       check_method=1)
+    xb = stock_archive(corpus)
+    say("4 archives", f"(a) tpu_profile {len(xa)} B, (b) stock-shaped "
+        f"{len(xb)} B, encoded in {time.perf_counter() - t:.1f} s")
+    archives = {"a": xa, "b": xb}
+
+    def decode(x, backend):
+        os.environ["LZMA_RS_TPU_BACKEND"] = backend
+        try:
+            return lzma_rs_tpu_torch.xz_decompress(x)
+        finally:
+            del os.environ["LZMA_RS_TPU_BACKEND"]
+
+    sd.decode_segments.launches = 0  # count the main path's launches only
+    e2e = {}
+    for key, x in archives.items():
+        with stats.collect() as st:
+            out = decode(x, "cuda")
+        check(out == corpus, f"phase 4 ({key}): output differs from corpus")
+        check(st.engine == "cuda", f"phase 4 ({key}): engine {st.engine!r}")
+        check(st.fallbacks == [], f"phase 4 ({key}): fallbacks "
+              f"{st.fallbacks}")
+        e2e[key] = (best_seconds(lambda: decode(x, "cuda")), st.lanes,
+                    st.kernel_iters)
+    launches = sd.decode_segments.launches
+    check(launches >= 8, f"phase 4: {launches} kernel launches on the "
+          "main path")
+
+    for key, x in archives.items():
+        staged_x = runtime.stage_plans(x, runtime.plan_xz(x)[0])
+        inputs_x = staged_x.tensors(dev)
+        run = lambda: sd.decode_segments(*inputs_x, config=staged_x.config)
+        run()
+        k_ms = cuda_ms(torch, run, 3)
+        n_s = best_seconds(lambda: decode(x, "native"))
+        secs, lanes, steps = e2e[key]
+        c = staged_x.config
+        say(f"4 main ({key})", f"bit-exact, engine cuda, no fallbacks; "
+            f"{lanes} lanes, W={c.W} W_IN={c.W_IN} NLIT={c.NLIT}, longest "
+            f"lane {steps} steps; end-to-end {len(corpus) / 1e6 / secs:.2f} "
+            f"MB/s (best of 3, {secs * 1e3:.1f} ms); kernel-only "
+            f"{len(corpus) / 1e3 / k_ms:.2f} MB/s ({k_ms:.1f} ms); native "
+            f"host engine {len(corpus) / 1e6 / n_s:.2f} MB/s "
+            f"({os.cpu_count()} host cores)")
+        # the kernel against its plain version in the main path's bucket
+        if key == "a":
+            cfg_x, inputs_c, picks = c, inputs_x, range(c.L)
+            what_x = f"the whole batch ({c.L} lanes)"
+        else:
+            cfg_x, inputs_c, picks = cut_lanes(torch, staged_x, dev)
+            what_x = (f"{cfg_x.L} lanes in the W={c.W} bucket (the "
+                      f"{int(staged_x.seg_lens[picks[0]])} B tail block "
+                      "whole, three lanes cut to its length)")
+        got_x = sd.decode_segments(*inputs_c, config=cfg_x)
+        t = time.perf_counter()
+        want_x = sd.decode_segments_reference(*inputs_c, config=cfg_x)
+        torch.cuda.synchronize()
+        x_plain_s = time.perf_counter() - t
+        max_abs_err = max(max_abs_err, held_equal(got_x, want_x,
+                                                  f"phase 4 ({key})"))
+        win_h, err_h, outp_h = (t.cpu().numpy() for t in got_x[:3])
+        for r, i in enumerate(picks):
+            base, n = staged_x.lanes[i].seg_base, int(outp_h[r])
+            check(win_h[r, :n].tobytes() == corpus[base:base + n],
+                  f"phase 4 ({key}): lane {i} decoded wrong bytes")
+        check(err_h[0] == 0 and outp_h[0] == staged_x.seg_lens[picks[0]],
+              f"phase 4 ({key}): lane {picks[0]} err {err_h[0]}")
+        say(f"4 main ({key})", f"kernel == plain version bit for bit on "
+            f"{what_x}; err {sorted(set(err_h.tolist()))}, longest lane "
+            f"{int(want_x[3].max())} steps; plain {x_plain_s:.1f} s")
+        del inputs_x, inputs_c, staged_x
+        torch.cuda.empty_cache()
+
+    # -- 4. auto: the card for a large archive, the host for a small one
+    small = lzma_rs_tpu_torch.xz_compress(corpus[:65536], check_method=1)
+    for what, x, engine in (("(a)", xa, "cuda"), ("small", small, "native")):
+        with stats.collect() as st:
+            out = decode(x, "auto")
+        check(out == corpus[:len(out)] and len(out) in (65536, len(corpus)),
+              f"phase 4 auto {what}: output differs from corpus")
+        check(st.engine == engine, f"phase 4 auto {what}: engine "
+              f"{st.engine!r}, fallbacks {st.fallbacks}")
+        say("4 auto", f"{what}: engine {st.engine}, fallbacks "
+            f"{st.fallbacks}")
+
+    # -- 5. a corrupt archive -----------------------------------------
+    plans_a = runtime.plan_xz(xa)[0]
+    lane = plans_a[len(plans_a) // 2].lanes[0]
+    bad = bytearray(xa)
+    bad[(lane.in_start[0] + lane.in_end[0]) // 2] ^= 0x5A
+    bad = bytes(bad)
+    errors = {}
+    for backend in ("cuda", "native"):
+        with stats.collect() as st:
+            try:
+                decode(bad, backend)
+            except Exception as e:  # the error itself is what is compared
+                errors[backend] = (type(e), str(e), st.fallbacks)
+    check(set(errors) == {"cuda", "native"}, "phase 5: corrupt archive "
+          f"decoded without an error on {set(errors) ^ {'cuda', 'native'}}")
+    check(errors["cuda"][:2] == errors["native"][:2],
+          f"phase 5: cuda {errors['cuda'][:2]} != native "
+          f"{errors['native'][:2]}")
+    say("5 corrupt", f"{errors['cuda'][0].__name__}: {errors['cuda'][1]!r} "
+        f"on both engines; cuda fallbacks {errors['cuda'][2]}")
+
+    check("jax" not in sys.modules, "jax was imported")
+    print(json.dumps({"kernels": [{
+        "name": "decode_segments",
+        "route": "cuda",
+        "source": "lzma_rs_tpu_torch/csrc/decode_segments.cu",
+        "replaces": "lzma_rs_tpu/ops/vmem2_decoder.py:2121",
+        "launches": launches,
+        "max_abs_err": max_abs_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+    }]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
+    }}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

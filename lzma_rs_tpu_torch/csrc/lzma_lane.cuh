@@ -1,0 +1,397 @@
+// One lane of the segment decoder: decodes one LZMA2 dict-reset segment
+// (a schedule of LZMA chunks) to completion in scalar code.
+//
+// Compiled for the card by decode_segments.cu (one thread per lane) and,
+// as a test aid, for the host by g++ (-x c++ -DLZL_HOST_ENTRY), so the
+// decoder's logic is checked on the CPU against the plain PyTorch version
+// (ops/segment_decoder.py::decode_segments_reference).
+//
+// Semantics are those of the JAX package's gen-2 kernel
+// (lzma_rs_tpu/ops/vmem2_decoder.py::decode_segments_vmem2), which follow
+// the native decoder (lzma_rs_tpu/native/lzma_native.cpp RangeDecoder,
+// DecoderState, lrt_lzma2_decode_segment):
+//   - chunk setup from the chunk tables: reset (meta & 3) == 1 refills the
+//     probabilities and clears state and reps; range-coder init skips one
+//     byte and reads a big-endian u32, and needs 5 bytes (ERR_SHORT);
+//   - the range coder needs a byte past the chunk's input: ERR_EOF;
+//   - a match runs past the chunk's unpacked end: ERR_SIZE;
+//   - a matched literal whose rep0 + 1 exceeds the output so far:
+//     ERR_MATCHDIST; a match distance beyond it: ERR_DIST_OUT (prefilled
+//     stored-chunk bytes count as output);
+//   - an end-of-stream marker inside a sized chunk: ERR_EOS_EXTRA, or
+//     ERR_SIZE when the coder is otherwise finished.
+// Every micro-op (a range-coder bit, a copied byte, a chunk setup) counts
+// one step, exactly as the plain version's lockstep iterations do, and a
+// lane stops with ERR_STEP_CAP when its step budget is spent.
+//
+// The probability table uses models/state.py's flat layout for
+// lc + lp <= log2(nlit): literals first, then is_match, is_rep, ... .
+#ifndef LZMA_RS_TPU_TORCH_LZMA_LANE_CUH_
+#define LZMA_RS_TPU_TORCH_LZMA_LANE_CUH_
+
+#include <stddef.h>
+#include <stdint.h>
+
+#if defined(__CUDACC__)
+#define LZL_FN __host__ __device__ inline
+#else
+#define LZL_FN inline
+#endif
+
+namespace lzl {
+
+constexpr int ERR_NONE = 0;
+constexpr int ERR_EOF = 1;
+constexpr int ERR_DIST_OUT = 2;
+constexpr int ERR_SIZE = 4;
+constexpr int ERR_EOS_EXTRA = 5;
+constexpr int ERR_SHORT = 6;
+constexpr int ERR_MATCHDIST = 7;
+constexpr int ERR_STEP_CAP = 1;
+
+constexpr uint16_t PROB_INIT = 0x400;
+constexpr int LIT_ROW = 0x300;
+constexpr int LEN_LOW = 2;
+constexpr int LEN_MID = 2 + 16 * 8;
+constexpr int LEN_HIGH = 2 + 16 * 8 * 2;
+
+// Offsets of models/state.py's make_layout(log2(nlit)).
+struct Layout {
+  int is_match, is_rep, is_rep_g0, is_rep_g1, is_rep_g2, is_rep_0long,
+      pos_slot, spec_pos, align, len, rep_len, total;
+  LZL_FN explicit Layout(int nlit) {
+    int o = nlit * LIT_ROW;
+    is_match = o;     o += 192;
+    is_rep = o;       o += 12;
+    is_rep_g0 = o;    o += 12;
+    is_rep_g1 = o;    o += 12;
+    is_rep_g2 = o;    o += 12;
+    is_rep_0long = o; o += 192;
+    pos_slot = o;     o += 4 * 64;
+    spec_pos = o;     o += 115;
+    align = o;        o += 16;
+    len = o;          o += 514;
+    rep_len = o;      o += 514;
+    total = o;
+  }
+};
+
+// Range decoder over the lane's staged input, with the lane's step budget.
+struct Coder {
+  const uint8_t* in;
+  uint32_t range, code;
+  int pos, end;
+  int steps, max_steps;
+  int err;
+
+  // Count one micro-op; false (err set) once the budget is spent.
+  LZL_FN bool step() {
+    if (steps >= max_steps) {
+      err = ERR_STEP_CAP;
+      return false;
+    }
+    ++steps;
+    return true;
+  }
+
+  LZL_FN bool normalize() {
+    if (range < (1u << 24)) {
+      if (pos >= end) {
+        err = ERR_EOF;
+        return false;
+      }
+      range <<= 8;
+      code = (code << 8) | in[pos++];
+    }
+    return true;
+  }
+
+  // One adaptive bit: 0 or 1, or -1 with err set.
+  LZL_FN int bit(uint16_t* p) {
+    if (!step()) return -1;
+    const uint32_t pv = *p;
+    const uint32_t bound = (range >> 11) * pv;
+    int b;
+    if (code < bound) {
+      range = bound;
+      *p = uint16_t(pv + ((0x800u - pv) >> 5));
+      b = 0;
+    } else {
+      code -= bound;
+      range -= bound;
+      *p = uint16_t(pv - (pv >> 5));
+      b = 1;
+    }
+    return normalize() ? b : -1;
+  }
+
+  // One fixed-probability ("direct") bit.
+  LZL_FN int direct_bit() {
+    if (!step()) return -1;
+    range >>= 1;
+    const int b = code >= range;
+    if (b) code -= range;
+    return normalize() ? b : -1;
+  }
+
+  // MSB-first bit tree of nbits: value in [0, 2^nbits), or -1.
+  LZL_FN int tree(uint16_t* p, int nbits) {
+    uint32_t m = 1;
+    for (int i = 0; i < nbits; ++i) {
+      const int b = bit(&p[m]);
+      if (b < 0) return -1;
+      m = (m << 1) | uint32_t(b);
+    }
+    return int(m - (1u << nbits));
+  }
+
+  // LSB-first (reverse) bit tree of nbits, or -1.
+  LZL_FN int rtree(uint16_t* p, int nbits) {
+    uint32_t m = 1, r = 0;
+    for (int i = 0; i < nbits; ++i) {
+      const int b = bit(&p[m]);
+      if (b < 0) return -1;
+      m = (m << 1) | uint32_t(b);
+      r |= uint32_t(b) << i;
+    }
+    return int(r);
+  }
+};
+
+// Match length minus 2 (0..271), or -1.
+LZL_FN int decode_len(Coder& c, uint16_t* base, int pos_state) {
+  int b = c.bit(&base[0]);
+  if (b < 0) return -1;
+  if (!b) return c.tree(base + LEN_LOW + pos_state * 8, 3);
+  b = c.bit(&base[1]);
+  if (b < 0) return -1;
+  if (!b) {
+    const int v = c.tree(base + LEN_MID + pos_state * 8, 3);
+    return v < 0 ? -1 : v + 8;
+  }
+  const int v = c.tree(base + LEN_HIGH, 8);
+  return v < 0 ? -1 : v + 16;
+}
+
+// Distance field (rep0 to be) of a new match; false on error.
+LZL_FN bool decode_distance(Coder& c, uint16_t* P, const Layout& lay,
+                            int len, uint32_t* out) {
+  const int len_state = len < 3 ? len : 3;
+  const int slot = c.tree(P + lay.pos_slot + len_state * 64, 6);
+  if (slot < 0) return false;
+  if (slot < 4) {
+    *out = uint32_t(slot);
+    return true;
+  }
+  const int ndirect = (slot >> 1) - 1;
+  const uint32_t base = (2u | uint32_t(slot & 1)) << ndirect;
+  if (slot < 14) {
+    const int r = c.rtree(P + lay.spec_pos + (base - slot), ndirect);
+    if (r < 0) return false;
+    *out = base + uint32_t(r);
+    return true;
+  }
+  uint32_t acc = 0;
+  for (int i = 0; i < ndirect - 4; ++i) {
+    const int b = c.direct_bit();
+    if (b < 0) return false;
+    acc = (acc << 1) | uint32_t(b);
+  }
+  const int r = c.rtree(P + lay.align, 4);
+  if (r < 0) return false;
+  *out = base + (acc << 4) + uint32_t(r);
+  return true;
+}
+
+// Copy len bytes from dist back (dist <= outp checked by the caller), one
+// step per byte; stops with ERR_SIZE at the chunk's end.
+LZL_FN bool copy_match(Coder& c, uint8_t* win, int& outp, int outend,
+                       uint32_t dist, int len) {
+  for (int i = 0; i < len; ++i) {
+    if (!c.step()) return false;
+    if (outp >= outend) {
+      c.err = ERR_SIZE;
+      return false;
+    }
+    win[outp] = win[outp - int(dist)];
+    ++outp;
+  }
+  return true;
+}
+
+struct LaneResult {
+  int32_t err, outp, steps;
+};
+
+// Decode one lane. in: w_in staged bytes; win: w bytes, prefilled with the
+// segment's stored chunks; P: Layout(nlit).total probabilities; chunk
+// tables: k entries each (lane-local offsets, pack_chunk_meta fields).
+LZL_FN LaneResult decode_lane(const uint8_t* in, int w_in, uint8_t* win,
+                              int w, uint16_t* P, int nlit,
+                              const int32_t* in_start, const int32_t* in_end,
+                              const int32_t* out_start,
+                              const int32_t* out_end, const int32_t* meta,
+                              int k, int max_steps) {
+  const Layout lay(nlit);
+  for (int i = 0; i < lay.total; ++i) P[i] = PROB_INIT;
+  Coder c{in, 0xFFFFFFFFu, 0u, 0, 0, 0, max_steps, ERR_NONE};
+  int outp = 0, state = 0, lc = 0, lp = 0, pb = 0;
+  uint32_t rep0 = 0, rep1 = 0, rep2 = 0, rep3 = 0;
+
+  for (int ci = 0;; ++ci) {
+    if (!c.step()) break;  // the chunk-setup micro-op
+    const int m = ci < k ? meta[ci] : 0;
+    if (!((m >> 12) & 1)) break;  // no further chunk: the lane is done
+    const int s = in_start[ci], e = in_end[ci];
+    const int os = out_start[ci], oe = out_end[ci];
+    if (s < 0 || e > w_in || os < 0 || os > oe || oe > w || e - s < 5) {
+      c.err = ERR_SHORT;
+      break;
+    }
+    if ((m & 3) == 1) {
+      for (int i = 0; i < lay.total; ++i) P[i] = PROB_INIT;
+      state = 0;
+      rep0 = rep1 = rep2 = rep3 = 0;
+    }
+    lc = (m >> 2) & 15;
+    lc = lc < 8 ? lc : 8;
+    lp = (m >> 6) & 7;
+    pb = (m >> 9) & 7;
+    c.range = 0xFFFFFFFFu;
+    c.code = (uint32_t(in[s + 1]) << 24) | (uint32_t(in[s + 2]) << 16) |
+             (uint32_t(in[s + 3]) << 8) | uint32_t(in[s + 4]);
+    c.pos = s + 5;
+    c.end = e;
+    outp = os;
+
+    while (outp < oe) {  // one symbol per pass
+      const int ps = outp & ((1 << pb) - 1) & 15;
+      int b = c.bit(&P[lay.is_match + (state << 4) + ps]);
+      if (b < 0) goto done;
+      if (!b) {
+        // literal, context from the previous byte (0 at the segment start)
+        const uint32_t prev = outp > 0 ? win[outp - 1] : 0u;
+        const int ctx =
+            (((outp & ((1 << lp) - 1)) << lc) + int(prev >> (8 - lc))) &
+            (nlit - 1);
+        uint16_t* lit = P + ctx * LIT_ROW;
+        uint32_t sym = 1;
+        if (state >= 7) {
+          if (uint64_t(rep0) + 1 > uint64_t(outp)) {
+            c.err = ERR_MATCHDIST;
+            goto done;
+          }
+          uint32_t mb = win[outp - 1 - int(rep0)];
+          do {
+            const uint32_t mbit = (mb >> 7) & 1;
+            mb = (mb << 1) & 0xFF;
+            b = c.bit(&lit[((1 + mbit) << 8) + sym]);
+            if (b < 0) goto done;
+            sym = (sym << 1) | uint32_t(b);
+            if (mbit != uint32_t(b)) break;
+          } while (sym < 0x100);
+        }
+        while (sym < 0x100) {
+          b = c.bit(&lit[sym]);
+          if (b < 0) goto done;
+          sym = (sym << 1) | uint32_t(b);
+        }
+        win[outp++] = uint8_t(sym);
+        state = state < 4 ? 0 : (state < 10 ? state - 3 : state - 6);
+        continue;
+      }
+
+      int len;
+      b = c.bit(&P[lay.is_rep + state]);
+      if (b < 0) goto done;
+      if (b) {
+        b = c.bit(&P[lay.is_rep_g0 + state]);
+        if (b < 0) goto done;
+        if (!b) {
+          b = c.bit(&P[lay.is_rep_0long + (state << 4) + ps]);
+          if (b < 0) goto done;
+          if (!b) {  // short rep: one byte from rep0
+            state = state < 7 ? 9 : 11;
+            if (uint64_t(rep0) + 1 > uint64_t(outp)) {
+              c.err = ERR_DIST_OUT;
+              goto done;
+            }
+            if (!copy_match(c, win, outp, oe, rep0 + 1, 1)) goto done;
+            continue;
+          }
+        } else {
+          uint32_t d;
+          b = c.bit(&P[lay.is_rep_g1 + state]);
+          if (b < 0) goto done;
+          if (!b) {
+            d = rep1;
+          } else {
+            b = c.bit(&P[lay.is_rep_g2 + state]);
+            if (b < 0) goto done;
+            if (!b) {
+              d = rep2;
+            } else {
+              d = rep3;
+              rep3 = rep2;
+            }
+            rep2 = rep1;
+          }
+          rep1 = rep0;
+          rep0 = d;
+        }
+        len = decode_len(c, P + lay.rep_len, ps);
+        if (len < 0) goto done;
+        state = state < 7 ? 8 : 11;
+      } else {
+        rep3 = rep2;
+        rep2 = rep1;
+        rep1 = rep0;
+        len = decode_len(c, P + lay.len, ps);
+        if (len < 0) goto done;
+        state = state < 7 ? 7 : 10;
+        uint32_t d;
+        if (!decode_distance(c, P, lay, len, &d)) goto done;
+        if (d == 0xFFFFFFFFu) {
+          // end marker: symbols run only while outp < the chunk's end, so
+          // a finished coder here still leaves the chunk short
+          c.err = (c.code == 0 && c.pos >= c.end) ? ERR_SIZE : ERR_EOS_EXTRA;
+          goto done;
+        }
+        rep0 = d;
+      }
+      if (uint64_t(rep0) + 1 > uint64_t(outp)) {
+        c.err = ERR_DIST_OUT;
+        goto done;
+      }
+      if (!copy_match(c, win, outp, oe, rep0 + 1, len + 2)) goto done;
+    }
+  }
+done:
+  return LaneResult{c.err, outp, c.steps};
+}
+
+}  // namespace lzl
+
+#if defined(LZL_HOST_ENTRY) && !defined(__CUDACC__)
+// Host loop over lanes with the kernel's buffer layout (tests only).
+extern "C" int lzl_decode_segments_host(
+    const uint8_t* inbuf, uint8_t* win, uint16_t* probs,
+    const int32_t* in_start, const int32_t* in_end, const int32_t* out_start,
+    const int32_t* out_end, const int32_t* chunk_meta, int32_t* err,
+    int32_t* outp, int32_t* steps, int L, int w_in, int w, int nprobs,
+    int nlit, int k, int max_steps) {
+  for (int l = 0; l < L; ++l) {
+    const size_t t = size_t(l) * size_t(k);
+    const lzl::LaneResult r = lzl::decode_lane(
+        inbuf + size_t(l) * size_t(w_in), w_in, win + size_t(l) * size_t(w),
+        w, probs + size_t(l) * size_t(nprobs), nlit, in_start + t, in_end + t,
+        out_start + t, out_end + t, chunk_meta + t, k, max_steps);
+    err[l] = r.err;
+    outp[l] = r.outp;
+    steps[l] = r.steps;
+  }
+  return 0;
+}
+#endif
+
+#endif  // LZMA_RS_TPU_TORCH_LZMA_LANE_CUH_
