@@ -6,8 +6,9 @@ toolkit (nvcc) and g++:
 
     python3 chip_smoke.py
 
-It builds the segment-decoder kernel from ``lzma_rs_tpu_torch/csrc`` into
-``lzma_rs_tpu_torch/build/`` and the native host library, then runs:
+It imports only ``lzma_rs_tpu_torch`` (no JAX, nothing of ``lzma_rs_tpu``),
+builds the segment-decoder kernel from ``lzma_rs_tpu_torch/csrc`` and the
+port's native host library into ``lzma_rs_tpu_torch/build/``, then runs:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: the kernel (nvcc, ptxas summary) and the native host library;
@@ -19,18 +20,26 @@ It builds the segment-decoder kernel from ``lzma_rs_tpu_torch/csrc`` into
 4. the main path at full size: ``xz_decompress`` with
    ``LZMA_RS_TPU_BACKEND=cuda`` on 16,000,000 bytes of the interpreter's
    stdlib sources (cycled if the installation holds fewer), as (a) the
-   tpu_profile archive (8 KiB blocks, lc=0) and (b) a stock-shaped archive (stdlib ``lzma`` preset 6
-   per 64 KiB block, CRC64); end-to-end, kernel-only and native MB/s; the
-   kernel against its plain version in each archive's own bucket: (a)'s
-   whole batch, and four lanes of (b) (its tail block whole, three lanes
-   cut to that length: the plain version's time is its longest lane's);
-   then the default ``auto`` engine: the card for (a), the host for a
-   64 KiB archive (the small-workload gate);
-5. a corrupt archive: the same exception and message as the native engine.
+   tpu_profile archive (8 KiB blocks, lc=0) and (b) a stock-shaped archive
+   (stdlib ``lzma`` preset 6 per 64 KiB block, CRC64); end-to-end,
+   kernel-only and native MB/s; the kernel against its plain version in
+   each archive's own bucket: (a)'s whole batch, and four lanes of (b)
+   (its tail block whole, three lanes cut to that length: the plain
+   version's time is its longest lane's); then the default ``auto``
+   engine: the card for (a), the host for a 64 KiB archive (the
+   small-workload gate);
+5. a corrupt archive: the same exception and message as the native engine;
+6. the gen-1 configuration: (a) through ``xz_decompress`` under
+   ``LZMA_RS_TPU_VMEM_GEN=1`` (one bucket for window and staged input,
+   W == W_IN); the kernel at that bucket against the gen-2 bucket (time,
+   and the whole batch's outputs) and against its plain version on 32
+   lanes of it (the tail block whole, 31 lanes cut to its length).
 
 Every phase checks its result; any failure exits nonzero before the result
-lines. The last two lines are the kernel JSON line and the device JSON line.
-Nothing here imports JAX.
+lines. The last three lines are the card's name and power limit, the
+kernel JSON line (one entry per TPU kernel the port replaces, with the
+least time the card could take for the same work, ``bound_ms``) and the
+device JSON line.
 """
 
 from __future__ import annotations
@@ -48,6 +57,13 @@ from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CORPUS_BYTES = 16_000_000
+# Peaks of one H100 SXM (the card's data sheet, at its full 700 W)
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+# A range-coder bit, the cheapest micro-op: a multiply, a compare, two
+# subtracts or a move, the probability's shift and add, the step count and
+# the normalisation test.
+OPS_PER_STEP = 8
 T0 = time.perf_counter()
 
 
@@ -94,8 +110,8 @@ def raw_lzma2(data: bytes, preset: int = 6, **props) -> bytes:
 def stock_archive(data: bytes) -> bytes:
     """stdlib ``lzma`` raw LZMA2 (preset 6, lc=3) per 64 KiB block, in an
     `.xz` container with CRC64 checks, written by the repo's writers."""
-    from lzma_rs_tpu.formats import xz as fmt
-    from lzma_rs_tpu.utils.cursor import ByteWriter
+    from lzma_rs_tpu_torch.formats import xz as fmt
+    from lzma_rs_tpu_torch.utils.cursor import ByteWriter
 
     blocks = [data[i:i + 65536] for i in range(0, len(data), 65536)]
     with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
@@ -142,11 +158,11 @@ def held_equal(got, want, where: str) -> int:
     return worst
 
 
-def cut_lanes(torch, staged, dev):
+def cut_lanes(torch, staged, dev, spread: int = 3):
     """Lanes of a staged batch in the batch's own bucket, at a size the
     plain version runs in minutes (its time is the longest lane's steps):
-    the shortest lane whole, then three lanes spread over the batch with
-    their first chunk ending at that lane's length and later chunks
+    the shortest lane whole, then ``spread`` lanes spread over the batch
+    with their first chunk ending at that lane's length and later chunks
     dropped. Returns (config, inputs on ``dev``, picked lane indices)."""
     import dataclasses
 
@@ -155,7 +171,8 @@ def cut_lanes(torch, staged, dev):
     L = staged.config.L
     tail = int(np.argmin(staged.seg_lens))
     n = int(staged.seg_lens[tail])
-    picks = [tail] + [i for i in (0, L // 3, 2 * L // 3) if i != tail][:3]
+    spaced = dict.fromkeys(i * L // spread for i in range(spread))
+    picks = [tail] + [i for i in spaced if i != tail][:spread]
     sub = np.array(picks)
     ins, ine, outs, oute, meta = (t[sub] for t in staged.tables)
     oute[1:, 0] = np.minimum(oute[1:, 0], n)
@@ -168,11 +185,48 @@ def cut_lanes(torch, staged, dev):
                   for a in arrays), picks)
 
 
+def check_lanes(got, staged, picks, corpus: bytes, where: str) -> None:
+    """Every picked lane's bytes equal the corpus up to its ``outp``, and
+    the first (a whole lane) decoded clean to its end."""
+    win_h, err_h, outp_h = (t.cpu().numpy() for t in got[:3])
+    for r, i in enumerate(picks):
+        base, n = staged.lanes[i].seg_base, int(outp_h[r])
+        check(win_h[r, :n].tobytes() == corpus[base:base + n],
+              f"{where}: lane {i} decoded wrong bytes")
+    check(err_h[0] == 0 and outp_h[0] == staged.seg_lens[picks[0]],
+          f"{where}: lane {picks[0]} err {err_h[0]}")
+
+
+def bound(staged, steps) -> tuple:
+    """The least time (ms) the card could take for one ``decode_segments``
+    call on a staged batch, what sets it ("bytes" or "operations"), and
+    the two times (ms) it is the larger of.
+    Bytes: each lane's compressed input read once, its chunk tables read
+    once, its decoded bytes and three result words written once, over the
+    HBM3 peak. Operations: OPS_PER_STEP integer operations for every
+    micro-op the lanes ran (``steps``, this run's data), over the scalar
+    peak (the float32 rate outside the tensor cores; the card's data sheet
+    gives no int32 rate)."""
+    L, K = staged.config.L, staged.config.K
+    packed = int(staged.tables[1].max(axis=1).sum())  # lane-local in_end
+    nbytes = packed + int(staged.seg_lens.sum()) + L * K * 4 * 5 + L * 12
+    ops = OPS_PER_STEP * int(steps.long().sum())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations",
+            t_bytes * 1e3, t_ops * 1e3)
+
+
+def bound_text(b) -> str:
+    return (f"bound {b[0] * 1e3:.2f} us ({b[1]}; bytes {b[2] * 1e3:.2f} us,"
+            f" operations {b[3] * 1e3:.2f} us)")
+
+
 def phase3_lanes(corpus: bytes, runtime):
     """Streams for the kernel-against-plain check, planned into one blob.
     Returns (blob, plans, expected output, corrupted seg_bases,
     truncations {seg_base: new in_end relative to in_start or -n})."""
-    from lzma_rs_tpu.encode.lzma2_enc import lzma2_compress
+    from lzma_rs_tpu_torch.encode.lzma2_enc import lzma2_compress
 
     def piece(k: int, n: int = 4096) -> bytes:
         off = (k * 389_017) % (len(corpus) - n)
@@ -247,11 +301,11 @@ def main() -> None:
         fail("no CUDA device: torch.cuda.is_available() is False")
     sys.path.insert(0, ROOT)
     import lzma_rs_tpu_torch
-    from lzma_rs_tpu.native import loader as native_loader
-    from lzma_rs_tpu.utils import stats
+    from lzma_rs_tpu_torch.native import loader as native_loader
     from lzma_rs_tpu_torch.ops import build
     from lzma_rs_tpu_torch.ops import segment_decoder as sd
     from lzma_rs_tpu_torch.parallel import runtime
+    from lzma_rs_tpu_torch.utils import stats
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -276,7 +330,8 @@ def main() -> None:
     t = time.perf_counter()
     check(native_loader.load() is not None,
           "the native host library did not build or load (g++?)")
-    say("2 build", f"native host library ready in "
+    say("2 build", f"native host library "
+        f"{os.path.relpath(native_loader._so_path(), ROOT)} ready in "
         f"{time.perf_counter() - t:.1f} s")
 
     corpus, distinct = stdlib_corpus()
@@ -354,11 +409,12 @@ def main() -> None:
     check(launches >= 8, f"phase 4: {launches} kernel launches on the "
           "main path")
 
+    main_a = {}  # the gen-2 entry: the kernel on (a)'s whole batch
     for key, x in archives.items():
         staged_x = runtime.stage_plans(x, runtime.plan_xz(x)[0])
         inputs_x = staged_x.tensors(dev)
         run = lambda: sd.decode_segments(*inputs_x, config=staged_x.config)
-        run()
+        b_x = bound(staged_x, run()[3])  # this run's steps, whole batch
         k_ms = cuda_ms(torch, run, 3)
         n_s = best_seconds(lambda: decode(x, "native"))
         secs, lanes, steps = e2e[key]
@@ -367,9 +423,10 @@ def main() -> None:
             f"{lanes} lanes, W={c.W} W_IN={c.W_IN} NLIT={c.NLIT}, longest "
             f"lane {steps} steps; end-to-end {len(corpus) / 1e6 / secs:.2f} "
             f"MB/s (best of 3, {secs * 1e3:.1f} ms); kernel-only "
-            f"{len(corpus) / 1e3 / k_ms:.2f} MB/s ({k_ms:.1f} ms); native "
-            f"host engine {len(corpus) / 1e6 / n_s:.2f} MB/s "
-            f"({os.cpu_count()} host cores)")
+            f"{len(corpus) / 1e3 / k_ms:.2f} MB/s ({k_ms:.1f} ms), "
+            f"{bound_text(b_x)}; native host engine "
+            f"{len(corpus) / 1e6 / n_s:.2f} MB/s ({os.cpu_count()} host "
+            "cores)")
         # the kernel against its plain version in the main path's bucket
         if key == "a":
             cfg_x, inputs_c, picks = c, inputs_x, range(c.L)
@@ -386,17 +443,16 @@ def main() -> None:
         x_plain_s = time.perf_counter() - t
         max_abs_err = max(max_abs_err, held_equal(got_x, want_x,
                                                   f"phase 4 ({key})"))
-        win_h, err_h, outp_h = (t.cpu().numpy() for t in got_x[:3])
-        for r, i in enumerate(picks):
-            base, n = staged_x.lanes[i].seg_base, int(outp_h[r])
-            check(win_h[r, :n].tobytes() == corpus[base:base + n],
-                  f"phase 4 ({key}): lane {i} decoded wrong bytes")
-        check(err_h[0] == 0 and outp_h[0] == staged_x.seg_lens[picks[0]],
-              f"phase 4 ({key}): lane {picks[0]} err {err_h[0]}")
+        check_lanes(got_x, staged_x, picks, corpus, f"phase 4 ({key})")
         say(f"4 main ({key})", f"kernel == plain version bit for bit on "
-            f"{what_x}; err {sorted(set(err_h.tolist()))}, longest lane "
+            f"{what_x}; err {sorted(set(got_x[1].tolist()))}, longest lane "
             f"{int(want_x[3].max())} steps; plain {x_plain_s:.1f} s")
-        del inputs_x, inputs_c, staged_x
+        if key == "a":
+            main_a = {"ms": k_ms, "plain_ms": x_plain_s * 1e3,
+                      "plain_lanes": c.L, "bound_ms": b_x[0],
+                      "bound_by": b_x[1], "win": got_x[0].cpu(),
+                      "res": [t.cpu() for t in got_x[1:]]}
+        del inputs_x, inputs_c, staged_x, got_x, want_x
         torch.cuda.empty_cache()
 
     # -- 4. auto: the card for a large archive, the host for a small one
@@ -432,17 +488,87 @@ def main() -> None:
     say("5 corrupt", f"{errors['cuda'][0].__name__}: {errors['cuda'][1]!r} "
         f"on both engines; cuda fallbacks {errors['cuda'][2]}")
 
+    # -- 6. the gen-1 configuration: (a) under LZMA_RS_TPU_VMEM_GEN=1 --
+    os.environ["LZMA_RS_TPU_VMEM_GEN"] = "1"
+    try:
+        sd.decode_segments.launches = 0  # count the gen-1 path's launches
+        with stats.collect() as st:
+            out = decode(xa, "cuda")
+        check(out == corpus, "phase 6: output differs from corpus")
+        check(st.engine == "cuda", f"phase 6: engine {st.engine!r}")
+        check(st.fallbacks == [], f"phase 6: fallbacks {st.fallbacks}")
+        secs1 = best_seconds(lambda: decode(xa, "cuda"))
+        launches1 = sd.decode_segments.launches
+        check(launches1 >= 1, "phase 6: no kernel launch on the gen-1 path")
+        staged1 = runtime.stage_plans(xa, plans_a)
+    finally:
+        del os.environ["LZMA_RS_TPU_VMEM_GEN"]
+    c1 = staged1.config
+    check(c1.W == c1.W_IN, f"phase 6: bucket W={c1.W} W_IN={c1.W_IN}")
+    say("6 gen-1", f"(a) through xz_decompress: bit-exact, engine cuda, no "
+        f"fallbacks, {launches1} launches; bucket W={c1.W} == W_IN="
+        f"{c1.W_IN}, NLIT={c1.NLIT}, {c1.L} lanes; end-to-end "
+        f"{len(corpus) / 1e6 / secs1:.2f} MB/s (best of 3, "
+        f"{secs1 * 1e3:.1f} ms)")
+    # the kernel at the gen-1 bucket against the gen-2 bucket, in turns
+    staged2 = runtime.stage_plans(xa, plans_a)
+    in1, in2 = staged1.tensors(dev), staged2.tensors(dev)
+    run1 = lambda: sd.decode_segments(*in1, config=c1)
+    run2 = lambda: sd.decode_segments(*in2, config=staged2.config)
+    got1 = run1()
+    run2()
+    t2a, t1a, t1b, t2b = (cuda_ms(torch, f, 3)
+                          for f in (run2, run1, run1, run2))
+    gen1_ms = (t1a + t1b) / 2
+    # the whole gen-1 batch equals the gen-2 batch that phase 4 held
+    # against the plain version (same lane order, same outputs)
+    check(torch.equal(got1[0].cpu(), main_a["win"])
+          and all(torch.equal(g.cpu(), w)
+                  for g, w in zip(got1[1:], main_a["res"])),
+          "phase 6: the kernel at the gen-1 bucket differs from gen-2's")
+    b1 = bound(staged1, got1[3])
+    say("6 gen-1", f"kernel on the whole batch == the gen-2 bucket's "
+        f"(win, err, outp, steps); kernel {t1a:.2f} / {t1b:.2f} ms at "
+        f"W_IN={c1.W_IN} against {t2a:.2f} / {t2b:.2f} ms at W_IN="
+        f"{staged2.config.W_IN} (gen-2, gen-1, gen-1, gen-2); "
+        f"{bound_text(b1)}")
+    del in1, in2, got1, staged2
+    torch.cuda.empty_cache()
+    cfg_c, inputs_c, picks = cut_lanes(torch, staged1, dev, spread=31)
+    got_c = sd.decode_segments(*inputs_c, config=cfg_c)
+    t = time.perf_counter()
+    want_c = sd.decode_segments_reference(*inputs_c, config=cfg_c)
+    torch.cuda.synchronize()
+    gen1_plain_s = time.perf_counter() - t
+    gen1_err = held_equal(got_c, want_c, "phase 6")
+    check_lanes(got_c, staged1, picks, corpus, "phase 6")
+    say("6 gen-1", f"kernel == plain version bit for bit on {cfg_c.L} lanes "
+        f"of the W={c1.W} W_IN={c1.W_IN} bucket (the "
+        f"{int(staged1.seg_lens[picks[0]])} B tail block whole, {cfg_c.L - 1}"
+        f" lanes cut to its length); err "
+        f"{sorted(set(got_c[1].tolist()))}, longest lane "
+        f"{int(want_c[3].max())} steps; plain {gen1_plain_s:.1f} s")
+
     check("jax" not in sys.modules, "jax was imported")
-    print(json.dumps({"kernels": [{
-        "name": "decode_segments",
-        "route": "cuda",
-        "source": "lzma_rs_tpu_torch/csrc/decode_segments.cu",
-        "replaces": "lzma_rs_tpu/ops/vmem2_decoder.py:2121",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+    jax_pkg = sorted(m for m in sys.modules
+                     if m == "lzma_rs_tpu" or m.startswith("lzma_rs_tpu."))
+    check(not jax_pkg, f"the JAX package was imported: {jax_pkg}")
+    print(smi_line, flush=True)
+    common = {"route": "cuda",
+              "source": "lzma_rs_tpu_torch/csrc/decode_segments.cu",
+              "library_ms": None}  # no PyTorch call decodes LZMA
+    print(json.dumps({"kernels": [
+        {"name": "decode_segments", **common,
+         "replaces": "lzma_rs_tpu/ops/vmem2_decoder.py:2121",
+         "launches": launches, "max_abs_err": max_abs_err,
+         **{k: main_a[k] for k in ("ms", "plain_ms", "plain_lanes",
+                                   "bound_ms", "bound_by")}},
+        {"name": "decode_segments (gen-1 bucket)", **common,
+         "replaces": "lzma_rs_tpu/ops/vmem_decoder.py:1087",
+         "launches": launches1, "max_abs_err": gen1_err, "ms": gen1_ms,
+         "plain_ms": gen1_plain_s * 1e3, "plain_lanes": cfg_c.L,
+         "bound_ms": b1[0], "bound_by": b1[1]},
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -20,11 +20,15 @@ from __future__ import annotations
 
 import os
 
-from lzma_rs_tpu.formats.lzma_header import read_header
-from lzma_rs_tpu.models.codecs import Lzma2Decoder, LzmaDecoder, xz_decode_stream
-from lzma_rs_tpu.parallel.runtime import _record_fallback
-from lzma_rs_tpu.utils.cursor import ByteCursor
-from lzma_rs_tpu.utils.options import Options
+from lzma_rs_tpu_torch.formats.lzma_header import read_header
+from lzma_rs_tpu_torch.models.codecs import (
+    Lzma2Decoder,
+    LzmaDecoder,
+    xz_decode_stream,
+)
+from lzma_rs_tpu_torch.parallel.runtime import _record_fallback
+from lzma_rs_tpu_torch.utils.cursor import ByteCursor
+from lzma_rs_tpu_torch.utils.options import Options
 
 BACKENDS = ("auto", "cuda", "native", "spec")
 
@@ -40,7 +44,7 @@ def _backend() -> str:
 
 def _native():
     try:
-        from lzma_rs_tpu.native import loader
+        from lzma_rs_tpu_torch.native import loader
 
         return loader.load()
     except Exception:

@@ -2,7 +2,12 @@
 // dict-reset segments ("lanes") to completion, one thread per lane.
 //
 // Replaces the TPU kernel lzma_rs_tpu/ops/vmem2_decoder.py::
-// decode_segments_vmem2 (gen-2 Pallas, pallas_call at :2121). Same
+// decode_segments_vmem2 (gen-2 Pallas, pallas_call at :2121) and, launched
+// at gen-1's bucket (W_IN == W, LZMA_RS_TPU_VMEM_GEN=1), lzma_rs_tpu/ops/
+// vmem_decoder.py::decode_segments_vmem (gen-1, pallas_call at :1087): the
+// two compute one function and differ only in Mosaic layout. Nothing here
+// assumes W_IN < W: a lane reads only [in_start, in_end) of its own W_IN
+// bytes, checked against w_in at chunk setup. Same
 // contract in a lane-major layout: staged input [L, W_IN] u8, window
 // [L, W] u8 (pre-filled with the segment's stored chunks), chunk tables
 // [L, K] i32; outputs the window in place and err / outp / steps [L] i32.

@@ -15,7 +15,7 @@ import dataclasses
 
 import torch
 
-from lzma_rs_tpu.models.state import PROB_INIT, ProbLayout, make_layout
+from lzma_rs_tpu_torch.models.state import PROB_INIT, ProbLayout, make_layout
 
 __all__ = [
     "PROB_INIT",

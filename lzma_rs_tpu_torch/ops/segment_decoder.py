@@ -1,6 +1,12 @@
 """Segment decoder: L independent LZMA2 dict-reset segments to completion.
 
-The port of ``lzma_rs_tpu/ops/vmem2_decoder.py::decode_segments_vmem2``:
+The port of ``lzma_rs_tpu/ops/vmem2_decoder.py::decode_segments_vmem2``
+(gen-2) and, at gen-1's bucket (``W_IN == W``), of
+``lzma_rs_tpu/ops/vmem_decoder.py::decode_segments_vmem`` (gen-1): the two
+TPU kernels compute one function with one contract and differ only in
+Mosaic layout and workarounds, which a kernel of one CUDA thread per lane
+has neither of. Gen-1's ring mode (``ERR_RING`` and its full-window retry)
+is such a workaround and has no counterpart here.
 
 - :func:`decode_segments` is the wrapper. On a CUDA tensor it launches the
   hand-written kernel (``csrc/decode_segments.cu``, one thread per lane)
@@ -505,8 +511,11 @@ def from_jax_layout(
 ):
     """The JAX kernel's numpy inputs as the port's config and tensors.
 
-    ``[W/4, L]`` int32 words (little-endian bytes) become ``[L, W]`` u8;
-    ``[K, L]`` tables become ``[L, K]``. Returns
+    ``config2`` is a gen-2 ``KernelConfig2`` or a gen-1 ``KernelConfig``
+    (``lzma_rs_tpu/ops/vmem_decoder.py``) as it is: only their shared
+    budget fields ``W, W_IN, NLIT, K, NPS`` are read (``L`` comes from the
+    arrays). ``[W/4, L]`` int32 words (little-endian bytes) become
+    ``[L, W]`` u8; ``[K, L]`` tables become ``[L, K]``. Returns
     ``(config, inbuf, win_init, in_start, in_end, out_start, out_end,
     chunk_meta)``."""
     device = torch.device("cpu") if device is None else device

@@ -1,14 +1,18 @@
 """Parallel decode runtime of the port: segments -> lanes -> the CUDA kernel.
 
-The host side is the JAX package's, imported as it is
-(``lzma_rs_tpu/parallel/runtime.py``, whose top level imports no JAX): the
-container walk and chunk scan (``plan_xz``, ``plan_lzma2_stream``), the
-eligibility gate, the native host engines, the host replays that give the
-reference's exact errors, and the host block checks. What this module adds
-is the device path: :func:`choose_config` picks the shape bucket with the
-JAX package's rules, and :func:`execute_plan_device` stages every lane of the
-plans into one batch on a torch device and runs
-``ops/segment_decoder.decode_segments`` on it.
+Two halves:
+
+- The host half is a copy of the JAX package's JAX-free host code
+  (``lzma_rs_tpu/parallel/runtime.py``), each block marked with the lines it
+  was copied from and changed only in its imports: the container walk and
+  chunk scan (``plan_xz``, ``plan_lzma2_stream``), the eligibility gate,
+  the native host engines, and the host replays that give the reference's
+  exact errors.
+- The device half: :func:`choose_config` picks the shape bucket with the
+  JAX package's rules (gen-2's by default, gen-1's under
+  ``LZMA_RS_TPU_VMEM_GEN=1``), and :func:`execute_plan_device` stages every
+  lane of the plans into one batch on a torch device and runs
+  ``ops/segment_decoder.decode_segments`` on it.
 
 Engines: ``cuda`` (the kernel on ``device``, by default the current CUDA
 device; it raises when there is none or the kernel does not build),
@@ -29,29 +33,536 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from lzma_rs_tpu.formats import xz as xz_fmt
-from lzma_rs_tpu.parallel.runtime import (  # the shared, JAX-free host side
-    DecodePlan,
-    LanePlan,
-    UnparallelizableStream,
-    VmemIneligible,
-    _KernelError,
-    _bounded_error_replay,
-    _execute_native_blockwise,
-    _host_lzma2,
-    _record_fallback,
-    _sequential_xz_replay,
-    check_vmem_eligibility,
-    execute_plan_native,
-    plan_lzma2_stream,
-    plan_xz,
-)
-from lzma_rs_tpu.utils import stats as stats_mod
-from lzma_rs_tpu.utils.cursor import ByteCursor
-from lzma_rs_tpu.utils.errors import IoError, LzmaError, XzError
+from lzma_rs_tpu_torch.formats import lzma2 as lzma2_fmt
+from lzma_rs_tpu_torch.formats import xz as xz_fmt
 from lzma_rs_tpu_torch.ops import build
 from lzma_rs_tpu_torch.ops import segment_decoder as sd
 from lzma_rs_tpu_torch.ops.lzma_consts import SegmentConfig, pack_chunk_meta
+from lzma_rs_tpu_torch.utils import logging as log
+from lzma_rs_tpu_torch.utils import stats as stats_mod
+from lzma_rs_tpu_torch.utils.cursor import ByteCursor
+from lzma_rs_tpu_torch.utils.errors import IoError, LzmaError, XzError
+
+
+# -- copied from lzma_rs_tpu/parallel/runtime.py:38-137
+
+@dataclasses.dataclass
+class LanePlan:
+    """One lane = one dict-reset segment (or one raw-LZMA stream)."""
+
+    in_start: List[int]
+    in_end: List[int]
+    out_start: List[int]
+    out_end: List[int]
+    reset_state: List[int]
+    lc: List[int]
+    lp: List[int]
+    pb: List[int]
+    seg_base: int
+    size_known: int
+    dict_size: int
+
+
+@dataclasses.dataclass
+class DecodePlan:
+    lanes: List[LanePlan]
+    prefill: List[Tuple[int, int, int]]  # (src_off, dst_off, length)
+    total_out: int
+    # Chunk-header error deferred by the scanner (formats/lzma2.py): the
+    # reference's sequential loop decodes the recorded prefix before
+    # reaching the broken header, so plan executors must not surface
+    # this ahead of prefix decode errors — they replay sequentially.
+    pending_error: Optional[Exception] = None
+
+
+class UnparallelizableStream(Exception):
+    """The stream carries probability state across a dict-reset boundary
+    (legal per the reference: an uncompressed dict-reset chunk does not
+    touch the probability model, decode/lzma2.rs:195-228, and a following
+    reset_mode-0 chunk continues it). Segments are then not independent
+    and the stream must decode sequentially."""
+
+
+def plan_lzma2_stream(
+    data: bytes, start: int, out_base: int
+) -> Tuple[DecodePlan, int]:
+    """Plan one LZMA2 chunk stream; returns (plan, consumed_bytes).
+
+    Output offsets are absolute (``out_base`` + position in this stream).
+
+    Raises :class:`UnparallelizableStream` when a non-initial segment's
+    first LZMA chunk does not reset the probability model — parallel
+    engines fall back to the sequential host decoder for exactness.
+    """
+    cursor = ByteCursor(data, start)
+    table = lzma2_fmt.scan(cursor)
+
+    lanes: List[LanePlan] = []
+    prefill: List[Tuple[int, int, int]] = []
+    lane: Optional[LanePlan] = None
+
+    # Props inheritance: LZMA2 starts from lc=0, lp=0, pb=0
+    # (decode/lzma2.rs:23-34).
+    lc, lp, pb = 0, 0, 0
+    abs_out = out_base
+
+    for chunk in table.chunks:
+        if chunk.reset_dict or lane is None:
+            lane = LanePlan(
+                in_start=[], in_end=[], out_start=[], out_end=[],
+                reset_state=[], lc=[], lp=[], pb=[],
+                seg_base=abs_out, size_known=1,
+                dict_size=0xFFFFFFFF,  # LZMA2 has no distance cap per se
+            )
+            lanes.append(lane)
+        if (
+            chunk.kind == lzma2_fmt.KIND_LZMA
+            and not chunk.reset_state
+            and not lane.in_start
+            and len(lanes) > 1
+        ):
+            # first LZMA chunk of a later segment continues the previous
+            # segment's probability model: segments are not independent
+            raise UnparallelizableStream()
+        if chunk.kind == lzma2_fmt.KIND_UNCOMPRESSED:
+            prefill.append((chunk.data_off, abs_out, chunk.unpacked_size))
+        else:
+            if chunk.reset_props:
+                lc, lp, pb = chunk.props.lc, chunk.props.lp, chunk.props.pb
+            lane.in_start.append(chunk.data_off)
+            lane.in_end.append(chunk.data_off + chunk.packed_size)
+            lane.out_start.append(abs_out)
+            lane.out_end.append(abs_out + chunk.unpacked_size)
+            lane.reset_state.append(1 if chunk.reset_state else 0)
+            lane.lc.append(lc)
+            lane.lp.append(lp)
+            lane.pb.append(pb)
+        abs_out += chunk.unpacked_size
+
+    plan = DecodePlan(
+        lanes=[l for l in lanes if l.in_start],  # drop all-uncompressed lanes
+        prefill=prefill,
+        total_out=abs_out - out_base,
+        pending_error=table.pending_error,
+    )
+    return plan, table.end_off - start
+
+
+# -- copied from lzma_rs_tpu/parallel/runtime.py:265-436
+
+def execute_plan_native(
+    data: bytes, plans: List[DecodePlan], threads: Optional[int] = None
+) -> bytes:
+    """Segment-parallel decode on the host: a thread pool drives the native
+    C++ flat decoder, one call per dict-reset segment, all writing disjoint
+    ranges of one shared output buffer (ctypes releases the GIL, so threads
+    scale across cores). This is the CPU twin of the TPU lane kernel."""
+    import ctypes
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from lzma_rs_tpu_torch.native import loader
+
+    lib = loader.load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+
+    total_out = sum(p.total_out for p in plans)
+    lanes: List[LanePlan] = []
+    prefill: List[Tuple[int, int, int]] = []
+    for p in plans:
+        lanes.extend(p.lanes)
+        prefill.extend(p.prefill)
+
+    out = bytearray(total_out)
+    src = np.frombuffer(data, dtype=np.uint8)
+    outv = np.frombuffer(out, dtype=np.uint8)
+    for src_off, dst_off, n in prefill:
+        outv[dst_off : dst_off + n] = src[src_off : src_off + n]
+
+    from lzma_rs_tpu_torch.utils import stats as stats_mod
+
+    st = stats_mod.current()
+    if st is not None:
+        st.engine = "native"
+        st.lanes += len(lanes)
+        st.chunks += sum(len(l.in_start) for l in lanes)
+        st.prefill_bytes += sum(n for _, _, n in prefill)
+        st.packed_bytes += len(data)
+        st.unpacked_bytes += total_out
+
+    if not lanes:
+        return bytes(out)
+
+    base_addr = ctypes.addressof(ctypes.c_char.from_buffer(out))
+
+    def run(lane: LanePlan):
+        seg_cap = lane.out_end[-1] - lane.seg_base
+        chunks = [
+            (
+                lane.in_start[i],
+                lane.in_end[i],
+                lane.out_start[i] - lane.seg_base,
+                lane.out_end[i] - lane.seg_base,
+                lane.reset_state[i],
+                lane.lc[i],
+                lane.lp[i],
+                lane.pb[i],
+            )
+            for i in range(len(lane.in_start))
+        ]
+        lib.lzma2_decode_segment(
+            data, chunks, base_addr + lane.seg_base, seg_cap
+        )
+
+    nthreads = threads or min(32, (os.cpu_count() or 1))
+    with stats_mod.launch_timer(st):
+        if nthreads <= 1 or len(lanes) == 1:
+            for lane in lanes:
+                run(lane)
+        else:
+            with ThreadPoolExecutor(max_workers=nthreads) as pool:
+                for f in [pool.submit(run, lane) for lane in lanes]:
+                    f.result()
+    return bytes(out)
+
+
+def _execute_native_blockwise(
+    data: bytes,
+    plans: List[DecodePlan],
+    block_spans: List[Tuple[int, int, int, int]],
+    header_flags,
+) -> bytes:
+    """Decode + verify per block in one fused task pipeline."""
+    import ctypes
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from lzma_rs_tpu_torch.native import loader
+    from lzma_rs_tpu_torch.utils import stats as stats_mod
+
+    lib = loader.load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+
+    total_out = sum(p.total_out for p in plans)
+    out = bytearray(total_out)
+    outv_np = np.frombuffer(out, dtype=np.uint8)
+    src = np.frombuffer(data, dtype=np.uint8)
+    for p in plans:
+        for src_off, dst_off, n in p.prefill:
+            outv_np[dst_off : dst_off + n] = src[src_off : src_off + n]
+
+    base_addr = ctypes.addressof(ctypes.c_char.from_buffer(out))
+    outv = memoryview(out)
+
+    st = stats_mod.current()
+    if st is not None:
+        st.engine = "native"
+        st.lanes += sum(len(p.lanes) for p in plans)
+        st.chunks += sum(len(l.in_start) for p in plans for l in p.lanes)
+        st.prefill_bytes += sum(n for p in plans for _, _, n in p.prefill)
+        st.packed_bytes += len(data)
+        st.unpacked_bytes += total_out
+
+    def run_block(plan: DecodePlan, span):
+        _, check_off, out0, outn = span
+        for lane in plan.lanes:
+            seg_cap = lane.out_end[-1] - lane.seg_base
+            chunks = [
+                (
+                    lane.in_start[i], lane.in_end[i],
+                    lane.out_start[i] - lane.seg_base,
+                    lane.out_end[i] - lane.seg_base,
+                    lane.reset_state[i], lane.lc[i], lane.lp[i], lane.pb[i],
+                )
+                for i in range(len(lane.in_start))
+            ]
+            lib.lzma2_decode_segment(
+                data, chunks, base_addr + lane.seg_base, seg_cap
+            )
+        xz_fmt.validate_block_check(
+            ByteCursor(data, check_off),
+            outv[out0 : out0 + outn],
+            header_flags.check_method,
+        )
+
+    nthreads = min(32, os.cpu_count() or 1)
+    with stats_mod.launch_timer(st):
+        if nthreads <= 1 or len(plans) == 1:
+            for plan, span in zip(plans, block_spans):
+                run_block(plan, span)
+        else:
+            with ThreadPoolExecutor(max_workers=nthreads) as pool:
+                futures = [
+                    pool.submit(run_block, plan, span)
+                    for plan, span in zip(plans, block_spans)
+                ]
+                for f in futures:  # stream order: first error wins
+                    f.result()
+    return bytes(out)
+
+
+class VmemIneligible(Exception):
+    """The plan does not fit the VMEM kernel's static budget (segment or
+    staged input larger than the window bucket, too many chunks per
+    segment, or literal contexts beyond the table size). Carries the
+    specific reason; runtimes record it in stats so fallbacks are never
+    silent."""
+
+    def __init__(self, reason: str):
+        super().__init__(reason)
+        self.reason = reason
+
+
+def _record_fallback(reason: str) -> None:
+    from lzma_rs_tpu_torch.utils import stats as stats_mod
+
+    st = stats_mod.current()
+    if st is not None:
+        st.fallbacks.append(reason)
+    log.debug("fallback: %s", reason)
+
+
+# -- copied from lzma_rs_tpu/parallel/runtime.py:606-614
+
+def _lane_gap_free(lane: LanePlan) -> bool:
+    """True when the lane's chunks are output-contiguous from seg_base —
+    no mid-segment stored chunks (prefill) the ring would never learn."""
+    pos = lane.seg_base
+    for s, e in zip(lane.out_start, lane.out_end):
+        if s != pos:
+            return False
+        pos = e
+    return True
+
+
+# -- copied from lzma_rs_tpu/parallel/runtime.py:703-742
+
+def check_vmem_eligibility(lanes: List[LanePlan], cfg) -> None:
+    """Raise :class:`VmemIneligible` if any lane exceeds the VMEM kernel's
+    static budget under ``cfg``. Shared by the staging path and the
+    ``auto`` engine router (which must know eligibility before committing
+    to a device launch)."""
+    import math
+
+    max_lclp = int(math.log2(cfg.NLIT))
+    for lane in lanes:
+        seg_len = lane.out_end[-1] - lane.seg_base
+        packed = sum(e - s for s, e in zip(lane.in_start, lane.in_end))
+        if seg_len > cfg.W:
+            raise VmemIneligible(
+                f"segment {seg_len} B > window bucket {cfg.W} B"
+            )
+        if packed > cfg.W_IN:
+            raise VmemIneligible(
+                f"segment packed input {packed} B > input bucket {cfg.W_IN} B"
+            )
+        if len(lane.in_start) > cfg.K:
+            raise VmemIneligible(
+                f"segment has {len(lane.in_start)} chunks > K={cfg.K}"
+            )
+        for lc, lp in zip(lane.lc, lane.lp):
+            if lc + lp > max_lclp:
+                raise VmemIneligible(
+                    f"lc+lp={lc + lp} > literal-table budget {max_lclp} "
+                    f"(NLIT={cfg.NLIT})"
+                )
+        for pb in lane.pb:
+            if (1 << pb) > cfg.NPS:
+                raise VmemIneligible(
+                    f"pb={pb} exceeds the pos-state table width NPS="
+                    f"{cfg.NPS}"
+                )
+        if cfg.RING and not _lane_gap_free(lane):
+            raise VmemIneligible(
+                "ring mode needs gap-free segments (mid-segment stored "
+                "chunks present)"
+            )
+
+
+# -- copied from lzma_rs_tpu/parallel/runtime.py:1033-1040
+
+class _KernelError(Exception):
+    """Internal: a lane flagged an error; host replay produces the exact
+    reference error."""
+
+    def __init__(self, lane: int, code: int):
+        super().__init__(f"lane {lane} error code {code}")
+        self.lane = lane
+        self.code = code
+
+
+# -- copied from lzma_rs_tpu/parallel/runtime.py:1049-1057
+
+def _host_lzma2(data: bytes) -> bytes:
+    from lzma_rs_tpu_torch.native import loader
+
+    lib = loader.load()
+    if lib is not None:
+        return lib.lzma2_decode(data)
+    from lzma_rs_tpu_torch.models.codecs import Lzma2Decoder
+
+    return Lzma2Decoder().decompress(ByteCursor(data))
+
+
+# -- copied from lzma_rs_tpu/parallel/runtime.py:1377-1528
+
+def plan_xz(data: bytes, stop_on_error: bool = False):
+    """Pass 1 of `.xz` decode: walk the container (headers + chunk tables,
+    no payload decoding) and return
+    ``(plans, block_spans, header_flags, records, cursor)`` with the
+    cursor parked at the index. Each block's plan carries absolute output
+    offsets, so placement is known before any decode.
+
+    ``stop_on_error`` (the bounded corrupt-archive path): block-scope
+    errors — a malformed block header, size mismatches, or a deferred
+    chunk-header error behind decodable chunks — stop the walk instead
+    of raising, and a SIXTH element carries the deferred exception. The
+    returned plans then cover exactly what the reference's sequential
+    decoder would decode before hitting the error (complete prefix
+    blocks, plus the erroring block's decodable chunk prefix whose span
+    has check_off=None); the caller decodes/verifies that prefix and
+    re-raises. An adversarial input no longer costs a full sequential
+    replay unless the prefix itself fails (VERDICT r4 weak #8)."""
+    from lzma_rs_tpu_torch.utils.errors import IoError
+
+    cursor = ByteCursor(data)
+    header_flags = xz_fmt.parse_stream_header(cursor)
+
+    plans: List[DecodePlan] = []
+    block_spans: List[Tuple[int, int, int, int]] = []  # start, payload, out0, outn
+    records: List[xz_fmt.Record] = []
+    out_base = 0
+    deferred: Optional[Exception] = None
+
+    while True:
+        block_start = cursor.pos
+        try:
+            info = xz_fmt.read_block_header_at(cursor)
+            if info is None:
+                break
+            filt = info.header.filters[0]
+            if len(filt.props) != 1:
+                raise XzError("Invalid properties for filter Lzma2")
+            payload_start = cursor.pos
+            plan, consumed = plan_lzma2_stream(data, payload_start, out_base)
+            if plan.pending_error is not None:
+                # A chunk-header error behind decodable chunks: the
+                # reference surfaces prefix decode errors (then this
+                # error) before any container-level size validation.
+                if not stop_on_error:
+                    raise UnparallelizableStream()
+                deferred = plan.pending_error
+                if plan.lanes or plan.prefill:
+                    plans.append(plan)
+                    block_spans.append(
+                        (block_start, None, out_base, plan.total_out)
+                    )
+                break
+            cursor.pos = payload_start + consumed
+            if (
+                info.header.packed_size is not None
+                and consumed != info.header.packed_size
+            ):
+                raise XzError(
+                    f"Invalid compressed size: expected "
+                    f"{info.header.packed_size} but got {consumed}"
+                )
+            if (
+                info.header.unpacked_size is not None
+                and plan.total_out != info.header.unpacked_size
+            ):
+                raise XzError(
+                    f"Invalid decompressed size: expected "
+                    f"{info.header.unpacked_size} but got {plan.total_out}"
+                )
+            count = cursor.pos - block_start
+            pad = xz_fmt.padding_size(count)
+            xz_fmt.read_padding(cursor, pad, "block")
+            check_off = cursor.pos
+            cursor.skip(xz_fmt.check_size(header_flags.check_method))
+        except UnparallelizableStream:
+            raise
+        except (LzmaError, XzError, IoError) as e:
+            if not stop_on_error:
+                raise
+            deferred = e
+            break
+        plans.append(plan)
+        block_spans.append((block_start, check_off, out_base, plan.total_out))
+        records.append(
+            xz_fmt.Record(
+                unpadded_size=cursor.pos - block_start - pad,
+                unpacked_size=plan.total_out,
+            )
+        )
+        out_base += plan.total_out
+
+    if stop_on_error:
+        return plans, block_spans, header_flags, records, cursor, deferred
+    return plans, block_spans, header_flags, records, cursor
+
+
+def _sequential_xz_replay(data: bytes) -> bytes:
+    """Reference-ordered sequential `.xz` decode for error replay.
+
+    Uses the spec container walk (exact reference errors) with the
+    NATIVE sequential LZMA2 chunk loop as the payload decoder when
+    available — pure-Python payload decode is ~0.1 MB/s, which made
+    replaying a large corrupt archive take minutes."""
+    from lzma_rs_tpu_torch.models.codecs import xz_decode_stream
+    from lzma_rs_tpu_torch.native import loader
+
+    lib = loader.load()
+    hook = None
+    if lib is not None:
+        buf = data
+
+        def hook(cursor):
+            out, consumed = lib.lzma2_decode_at(buf, cursor.pos)
+            cursor.pos += consumed
+            return out
+
+    return xz_decode_stream(ByteCursor(data), decode_lzma2=hook)
+
+
+def _bounded_error_replay(
+    data: bytes, plans, block_spans, header_flags, deferred: Exception
+) -> bytes:
+    """Bounded corrupt-archive path: the planner stopped at a block-scope
+    error with a clean prefix plan. Decode the prefix with the parallel
+    NATIVE engine and verify its checks in stream order; if everything
+    is clean the reference's first error IS the deferred one — raise it
+    without replaying the archive sequentially. Any prefix failure falls
+    back to the full sequential replay (exact reference ordering)."""
+    try:
+        if plans:
+            out = execute_plan_native(data, plans)
+            outv = memoryview(out)
+            for block_start, check_off, out0, outn in block_spans:
+                if check_off is None:
+                    continue  # the erroring block never reaches its check
+                xz_fmt.validate_block_check(
+                    ByteCursor(data, check_off), outv[out0 : out0 + outn],
+                    header_flags.check_method,
+                )
+    except (LzmaError, XzError) as e:
+        # a prefix error surfaces before the deferred one — but only the
+        # sequential decoder guarantees the reference's exact ordering
+        # for multi-error prefixes
+        _record_fallback(
+            f"host replay: prefix error before deferred ({e})"
+        )
+        return _sequential_xz_replay(data)
+    except Exception:
+        _record_fallback("host replay: prefix decode failed (bounded path)")
+        return _sequential_xz_replay(data)
+    _record_fallback("bounded replay: clean prefix, raising deferred error")
+    raise deferred
+
+
+# -- the device half ---------------------------------------------------------
 
 ENGINES = ("auto", "cuda", "native")
 
@@ -79,7 +590,13 @@ def choose_config(plans: List[DecodePlan]) -> SegmentConfig:
     (``choose_vmem_config``): the smallest window bucket (2-64 KiB) that
     holds every segment, an independent input bucket, ``NLIT`` from the
     largest lc+lp and ``NPS`` from the largest pb. One batch holds every
-    lane, so ``L`` is the lane count."""
+    lane, so ``L`` is the lane count.
+
+    Under ``LZMA_RS_TPU_VMEM_GEN=1`` the bucket is gen-1's
+    (``lzma_rs_tpu/parallel/runtime.py:500-510``): one bucket for window
+    and staged input, the window bucket grown while it is below the
+    longest lane's packed input (capped at 64 KiB). The same kernel runs
+    either bucket."""
     need_w = need_in = 1
     max_lclp = max_pb = n_lanes = 0
     for p in plans:
@@ -93,9 +610,14 @@ def choose_config(plans: List[DecodePlan]) -> SegmentConfig:
     bucket = 2048
     while bucket < need_w and bucket < 65536:
         bucket *= 2
-    bucket_in = 2048
-    while bucket_in < need_in and bucket_in < 65536:
-        bucket_in *= 2
+    if os.environ.get("LZMA_RS_TPU_VMEM_GEN") == "1":
+        while bucket < need_in and bucket < 65536:
+            bucket *= 2
+        bucket_in = bucket
+    else:
+        bucket_in = 2048
+        while bucket_in < need_in and bucket_in < 65536:
+            bucket_in *= 2
     return SegmentConfig(
         L=max(1, n_lanes), W=bucket, W_IN=bucket_in,
         NLIT=1 << min(max_lclp, 3), K=8, NPS=4 if max_pb <= 2 else 16,
@@ -336,8 +858,8 @@ def lzma_raw_decode_device(data: bytes, payload_off: int, params,
     plan = DecodePlan(lanes=[lane], prefill=[], total_out=total_out)
 
     def host_replay() -> bytes:
-        from lzma_rs_tpu.models.codecs import LzmaDecoder
-        from lzma_rs_tpu.native import loader
+        from lzma_rs_tpu_torch.models.codecs import LzmaDecoder
+        from lzma_rs_tpu_torch.native import loader
 
         lib = loader.load()
         if lib is not None:

@@ -11,8 +11,8 @@ the host build.
 This file also holds the segment-decoder cases (seeded numpy data through
 stdlib ``lzma`` and the repo's encoder) and their staging, which
 tests/test_torch_segment_decoder.py shares, and the on-card check of the
-real kernel (marked ``cuda``). It imports no JAX, so it runs on a machine
-without it.
+real kernel (marked ``cuda``). It imports only the port (no JAX, nothing
+of ``lzma_rs_tpu``), so it runs on a machine without them.
 """
 
 import ctypes
@@ -26,14 +26,14 @@ import numpy as np
 import pytest
 import torch
 
-from lzma_rs_tpu.encode import lzma2_enc
-from lzma_rs_tpu.parallel import runtime
+from lzma_rs_tpu_torch.encode import lzma2_enc
 from lzma_rs_tpu_torch.ops import segment_decoder as sd
 from lzma_rs_tpu_torch.ops.lzma_consts import (
     SegmentConfig,
     pack_chunk_meta,
     prob_layout,
 )
+from lzma_rs_tpu_torch.parallel import runtime
 
 CFG = SegmentConfig(L=8, W=4096, W_IN=4096, NLIT=8, K=4, NPS=16)
 HEADER = os.path.join(
