@@ -33,13 +33,26 @@ port's native host library into ``lzma_rs_tpu_torch/build/``, then runs:
    ``LZMA_RS_TPU_VMEM_GEN=1`` (one bucket for window and staged input,
    W == W_IN); the kernel at that bucket against the gen-2 bucket (time,
    and the whole batch's outputs) and against its plain version on 32
-   lanes of it (the tail block whole, 31 lanes cut to its length).
+   lanes of it (the tail block whole, 31 lanes cut to its length);
+7. the probe kernels (``csrc/probes.cu``): every row of the two probe
+   tools (``lzma_rs_tpu_torch/tools/probe_lane2d.py``, its three table
+   placements at 2,048 lanes included, and ``probe_state_in_ref.py``) on
+   the tool's input and on a seeded random one, timed at the tools' 256
+   iterations, at 8,192 and at 0 (the wrapper's table copy and state
+   set-up, ``setup_ms`` beside ``ms``; CUDA events, median of 5); then
+   every row's kernel against its plain version on both inputs, bit for
+   bit (output, final table, ring and state).
+
+The kernels build in parallel (one nvcc per library, with the native host
+library's g++) in phase 2.
 
 Every phase checks its result; any failure exits nonzero before the result
 lines. The last three lines are the card's name and power limit, the
 kernel JSON line (one entry per TPU kernel the port replaces, with the
-least time the card could take for the same work, ``bound_ms``) and the
-device JSON line.
+least time the card could take for the same work, ``bound_ms``: bytes
+over the memory rate or integer operations over the INT32 rate, SMs x 64
+INT32 lanes x the card's max SM clock, as ``tools/probe_rows.py`` reads
+it) and the device JSON line.
 """
 
 from __future__ import annotations
@@ -57,9 +70,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CORPUS_BYTES = 16_000_000
-# Peaks of one H100 SXM (the card's data sheet, at its full 700 W)
-HBM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12
+PROBE_SEED = 5
 # A range-coder bit, the cheapest micro-op: a multiply, a compare, two
 # subtracts or a move, the probability's shift and add, the step count and
 # the normalisation test.
@@ -197,21 +208,23 @@ def check_lanes(got, staged, picks, corpus: bytes, where: str) -> None:
           f"{where}: lane {picks[0]} err {err_h[0]}")
 
 
-def bound(staged, steps) -> tuple:
+def bound(staged, steps, peaks) -> tuple:
     """The least time (ms) the card could take for one ``decode_segments``
     call on a staged batch, what sets it ("bytes" or "operations"), and
     the two times (ms) it is the larger of.
     Bytes: each lane's compressed input read once, its chunk tables read
     once, its decoded bytes and three result words written once, over the
     HBM3 peak. Operations: OPS_PER_STEP integer operations for every
-    micro-op the lanes ran (``steps``, this run's data), over the scalar
-    peak (the float32 rate outside the tensor cores; the card's data sheet
-    gives no int32 rate)."""
+    micro-op the lanes ran (``steps``, this run's data), over the card's
+    INT32 rate (``peaks``: SMs x 64 INT32 lanes x the max SM clock; the
+    Hopper white paper gives an SM half as many INT32 lanes as FP32, and
+    the data sheet's 67 T/s counts an FP32 FMA as two operations)."""
     L, K = staged.config.L, staged.config.K
     packed = int(staged.tables[1].max(axis=1).sum())  # lane-local in_end
     nbytes = packed + int(staged.seg_lens.sum()) + L * K * 4 * 5 + L * 12
     ops = OPS_PER_STEP * int(steps.long().sum())
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+    t_bytes = nbytes / peaks.bytes_per_s
+    t_ops = ops / peaks.int32_ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations",
             t_bytes * 1e3, t_ops * 1e3)
@@ -220,6 +233,105 @@ def bound(staged, steps) -> tuple:
 def bound_text(b) -> str:
     return (f"bound {b[0] * 1e3:.2f} us ({b[1]}; bytes {b[2] * 1e3:.2f} us,"
             f" operations {b[3] * 1e3:.2f} us)")
+
+
+PROBE_REPLACES = {
+    "tinyops_chain": "tools/probe_lane2d.py:177,209",
+    "bitdecode_chain": "tools/probe_lane2d.py:97,145; "
+                       "tools/probe_state_in_ref.py:83,141",
+    "realweight_step": "tools/probe_state_in_ref.py:211",
+}
+# the row whose time, plain time and bound stand in the kernel line
+PROBE_MAIN_ROW = {
+    "tinyops_chain": "tinyops(150) 2d S=32 (4096 lanes)",
+    "bitdecode_chain": "bitdecode 2d S=16 (2048 lanes)",
+    "realweight_step": "y4 real-weight S=8 nops=500",
+}
+
+
+def probes_phase(torch, dev) -> list:
+    """Phase 7: the probe tools' rows on the card, then each row's kernel
+    against its plain version. Returns the kernel-line entries."""
+    from lzma_rs_tpu_torch.ops import probes
+    from lzma_rs_tpu_torch.tools import (probe_lane2d, probe_rows,
+                                         probe_state_in_ref)
+
+    rows = probe_lane2d.ROWS_OF_TOOL + probe_state_in_ref.ROWS_OF_TOOL
+    for w in probes.WRAPPERS:
+        w.launches = 0  # count the tools' runs only
+    results = probe_rows.run(rows, dev, seed=PROBE_SEED)
+    launches = {w.__name__: w.launches for w in probes.WRAPPERS}
+    check(all(launches.values()), f"phase 7: launches {launches}")
+    say("7 probes", f"{len(rows)} rows x 2 inputs through the tools; "
+        f"launches {launches}")
+
+    plain_ms, worst = {}, dict.fromkeys(launches, 0)
+    for i, (name, make) in enumerate(rows):
+        fn, args, lanes = make(dev)
+        kname = fn.wrapper.__name__
+        for what, x in (("tool", args[0]),
+                        ("seeded", fn.seeded_input(args[0], PROBE_SEED + i))):
+            got = fn(x, full=True)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            want = fn.plain(x, full=True)
+            torch.cuda.synchronize()
+            plain_ms[name, what] = (time.perf_counter() - t) * 1e3
+            pairs = [("out", got[0], want[0])] + [
+                (k, got[1][k], want[1][k]) for k in want[1]]
+            for k, g, w in pairs:
+                check(g.shape == w.shape, f"phase 7: {name} [{what}] {k} "
+                      f"shape {tuple(g.shape)} != {tuple(w.shape)}")
+                diff = int((g.long() - w.long()).abs().max())
+                worst[kname] = max(worst[kname], diff)
+                check(diff == 0, f"phase 7: {name} [{what}]: kernel and "
+                      f"plain version differ in {k} (max {diff})")
+        say("7 probes", f"{name}: kernel == plain version bit for bit on "
+            f"both inputs ({', '.join(k for k, _, _ in pairs)}); plain "
+            f"{plain_ms[name, 'tool']:.0f} / {plain_ms[name, 'seeded']:.0f}"
+            " ms")
+
+    by = {(r["name"], r["input"]): r for r in results}
+    for name, _ in rows:
+        t, z = by[name, "tool"], by[name, "seeded"]
+        say("7 probes", f"{name}: {t['ns_per_iter']:.2f} ns/iteration "
+            f"({t['cycles_per_iter']:.1f} cycles at the max SM clock) on "
+            f"the tool's input, {z['ns_per_iter']:.2f} "
+            f"({z['cycles_per_iter']:.1f}) on the seeded one; "
+            f"{t['cycles_per_op']:.2f} / {z['cycles_per_op']:.2f} cycles "
+            f"per counted op; a call at 256 iterations {t['ms'] * 1e3:.1f}"
+            f" us, of which set-up {t['setup_ms'] * 1e3:.1f} us")
+    entries = []
+    for kname, row in PROBE_MAIN_ROW.items():
+        r = by[row, "tool"]
+        entries.append({
+            "name": kname, "route": "cuda",
+            "source": "lzma_rs_tpu_torch/csrc/probes.cu",
+            "replaces": PROBE_REPLACES[kname],
+            "launches": launches[kname], "max_abs_err": worst[kname],
+            "ms": r["ms"], "setup_ms": r["setup_ms"],
+            "plain_ms": plain_ms[row, "tool"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None,  # no PyTorch call computes these chains
+            "row": row, "ms_per_iter_long": r["ns_per_iter"] / 1e6,
+        })
+    return entries
+
+
+def ptxas_summary(log: str) -> str:
+    """Each kernel's registers and spills from ``-Xptxas -v``."""
+    if not log:
+        return "cached build"
+    out, kernel, spills = [], "?", ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            kernel = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif "spill stores" in ln:
+            spills = ln.split(",", 1)[1].strip() if "," in ln else ln
+        elif "Used" in ln and "registers" in ln:
+            regs = ln.split("Used", 1)[1].split(",")[0].strip()
+            out.append(f"{kernel}: {regs}, {spills}")
+    return "; ".join(out) or log.strip()[-300:]
 
 
 def phase3_lanes(corpus: bytes, runtime):
@@ -305,6 +417,7 @@ def main() -> None:
     from lzma_rs_tpu_torch.ops import build
     from lzma_rs_tpu_torch.ops import segment_decoder as sd
     from lzma_rs_tpu_torch.parallel import runtime
+    from lzma_rs_tpu_torch.tools import probe_rows
     from lzma_rs_tpu_torch.utils import stats
 
     dev = torch.device("cuda", 0)
@@ -321,18 +434,33 @@ def main() -> None:
         f"{torch.version.cuda}; python {sys.version.split()[0]}")
     print(smi_line, flush=True)
 
-    # -- 2. build ------------------------------------------------------
-    built = build.build_library()
+    peaks = probe_rows.card_peaks(dev)
+    say("1 device", f"{peaks.sms} SMs, max SM clock {peaks.clock_mhz:.0f} "
+        f"MHz: INT32 rate {peaks.int32_ops_per_s / 1e12:.2f} T/s")
+
+    # -- 2. build: both kernel libraries and the native one, in parallel
+    def native():
+        t = time.perf_counter()
+        check(native_loader.load() is not None,
+              "the native host library did not build or load (g++?)")
+        return time.perf_counter() - t
+
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        jobs = [pool.submit(build.build_library, lib)
+                for lib in (build.SEGDEC, build.PROBES)]
+        native_s = pool.submit(native)
+        built, built_probes = (j.result() for j in jobs)
+        native_s = native_s.result()
     build.load()
-    regs = [ln.strip() for ln in built.log.splitlines() if "registers" in ln]
+    build.load_probes()
     say("2 build", f"decode_segments.cu -> {os.path.relpath(built.path, ROOT)}"
-        f" in {built.seconds:.2f} s; {'; '.join(regs) or 'cached build'}")
-    t = time.perf_counter()
-    check(native_loader.load() is not None,
-          "the native host library did not build or load (g++?)")
+        f" in {built.seconds:.2f} s; {ptxas_summary(built.log)}")
+    say("2 build", f"probes.cu -> {os.path.relpath(built_probes.path, ROOT)}"
+        f" in {built_probes.seconds:.2f} s; "
+        f"{ptxas_summary(built_probes.log)}")
     say("2 build", f"native host library "
         f"{os.path.relpath(native_loader._so_path(), ROOT)} ready in "
-        f"{time.perf_counter() - t:.1f} s")
+        f"{native_s:.1f} s")
 
     corpus, distinct = stdlib_corpus()
     say("4 corpus", f"{len(corpus)} B of stdlib sources ({distinct} B "
@@ -414,7 +542,7 @@ def main() -> None:
         staged_x = runtime.stage_plans(x, runtime.plan_xz(x)[0])
         inputs_x = staged_x.tensors(dev)
         run = lambda: sd.decode_segments(*inputs_x, config=staged_x.config)
-        b_x = bound(staged_x, run()[3])  # this run's steps, whole batch
+        b_x = bound(staged_x, run()[3], peaks)  # this run's steps, whole batch
         k_ms = cuda_ms(torch, run, 3)
         n_s = best_seconds(lambda: decode(x, "native"))
         secs, lanes, steps = e2e[key]
@@ -526,7 +654,7 @@ def main() -> None:
           and all(torch.equal(g.cpu(), w)
                   for g, w in zip(got1[1:], main_a["res"])),
           "phase 6: the kernel at the gen-1 bucket differs from gen-2's")
-    b1 = bound(staged1, got1[3])
+    b1 = bound(staged1, got1[3], peaks)
     say("6 gen-1", f"kernel on the whole batch == the gen-2 bucket's "
         f"(win, err, outp, steps); kernel {t1a:.2f} / {t1b:.2f} ms at "
         f"W_IN={c1.W_IN} against {t2a:.2f} / {t2b:.2f} ms at W_IN="
@@ -549,6 +677,9 @@ def main() -> None:
         f"{sorted(set(got_c[1].tolist()))}, longest lane "
         f"{int(want_c[3].max())} steps; plain {gen1_plain_s:.1f} s")
 
+    # -- 7. the probe kernels ----------------------------------------
+    probe_entries = probes_phase(torch, dev)
+
     check("jax" not in sys.modules, "jax was imported")
     jax_pkg = sorted(m for m in sys.modules
                      if m == "lzma_rs_tpu" or m.startswith("lzma_rs_tpu."))
@@ -568,6 +699,7 @@ def main() -> None:
          "launches": launches1, "max_abs_err": gen1_err, "ms": gen1_ms,
          "plain_ms": gen1_plain_s * 1e3, "plain_lanes": cfg_c.L,
          "bound_ms": b1[0], "bound_by": b1[1]},
+        *probe_entries,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -1,0 +1,333 @@
+// One lane of each probe kernel: the per-lane functions of the JAX
+// package's Pallas probes tools/probe_lane2d.py and
+// tools/probe_state_in_ref.py, in scalar code.
+//
+// Compiled for the card by probes.cu (one thread per lane) and, as a test
+// aid, for the host by g++ (-x c++ -DLZP_HOST_ENTRY), which then also
+// defines the C interface of probes.cu as host loops over lanes, so the
+// logic is checked on the CPU against the plain PyTorch versions
+// (ops/probes.py).
+//
+// Integer semantics are the probes': wrapping int32 and uint32. Signed
+// overflow is undefined in C++ and the compilers optimise on it, so every
+// add, subtract and left shift that can wrap is done in uint32_t and
+// converted back. The conversion uint32_t -> int32_t is modular on g++ and
+// nvcc (and defined so from C++20), and so is >> of a negative int32_t
+// (arithmetic), which the table update p - (p >> 5) needs.
+#ifndef LZMA_RS_TPU_TORCH_PROBE_LANE_CUH_
+#define LZMA_RS_TPU_TORCH_PROBE_LANE_CUH_
+
+#include <stddef.h>
+#include <stdint.h>
+
+#if defined(__CUDACC__)
+#define LZP_FN __host__ __device__ inline
+#else
+#define LZP_FN inline
+#endif
+
+namespace lzp {
+
+constexpr int kRows = 648;   // the probes' table rows (ROWS)
+constexpr int kRing = 512;   // y4's ring window rows
+constexpr int kTinyRounds = 50;  // tinyops rounds per iteration (150 ops)
+constexpr int kBlock = 64;   // lanes per block, and per shared-memory table
+static_assert((-64 >> 5) == -2, "needs an arithmetic >> of int32");
+
+LZP_FN int32_t wrap(uint32_t v) { return static_cast<int32_t>(v); }
+
+// One round of the "tiny op" chain (k is the round index).
+LZP_FN void tiny_round(int32_t& a, int32_t& b, int32_t& d, int k) {
+  a = b > (k & 7) ? wrap(uint32_t(a) + 1u) : wrap(uint32_t(a) - uint32_t(d));
+  b = (b ^ a) & 0xFFFF;
+  d = a > b ? (d | 1) : wrap(uint32_t(d) << 1);
+}
+
+// tinyops_only_1d / _2d: a = x, b = x + 1, d = x + 2, then `iters`
+// iterations of kTinyRounds rounds. The rounds unroll, as the Python loop
+// of the Pallas kernel does.
+LZP_FN void tinyops_lane(int32_t x, int iters, int32_t* out_a,
+                         int32_t* out_b, int32_t* out_d) {
+  int32_t a = x, b = wrap(uint32_t(x) + 1u), d = wrap(uint32_t(x) + 2u);
+#if defined(__CUDACC__)
+#pragma unroll 1
+#endif
+  for (int it = 0; it < iters; ++it) {
+#if defined(__CUDACC__)
+#pragma unroll
+#endif
+    for (int k = 0; k < kTinyRounds; ++k) tiny_round(a, b, d, k);
+  }
+  *out_a = a;
+  *out_b = b;
+  *out_d = d;
+}
+
+// Table placements (the template parameter of the bit-decode step).
+// Lane-minor: row r of a lane at row0[r * stride]; the TPU probe's
+// [ROWS, L] layout in device memory (stride L), and the shared-memory
+// table of a block (stride kBlock).
+struct LaneMinorTable {
+  int32_t* row0;
+  int stride;
+  LZP_FN int32_t load(int r) const { return row0[size_t(r) * stride]; }
+  LZP_FN void store(int r, int32_t v) const { row0[size_t(r) * stride] = v; }
+};
+
+// Lane-major: a lane's rows are contiguous ([L, ROWS]), the decoder's own
+// layout (probs + l * nprobs in lzma_lane.cuh).
+struct LaneMajorTable {
+  int32_t* row0;
+  LZP_FN int32_t load(int r) const { return row0[r]; }
+  LZP_FN void store(int r, int32_t v) const { row0[r] = v; }
+};
+
+// The bit-decode state (idx, acc, rng, cod).
+struct BitState {
+  int32_t idx, acc;
+  uint32_t rng, cod;
+};
+
+// State placements. In registers: loaded once, stored once.
+struct RegState {
+  BitState s;
+  LZP_FN BitState load() const { return s; }
+  LZP_FN void store(const BitState& v) { s = v; }
+};
+
+// In memory, loaded and stored every iteration (y1: slots of one [NST, L]
+// array; y2: four [L] arrays). The pointers are volatile, so the compiler
+// can neither keep the state in registers across iterations nor drop a
+// store: every iteration reads and writes the four words.
+struct MemState {
+  volatile int32_t *idx, *acc, *rng, *cod;
+  LZP_FN BitState load() const {
+    return BitState{*idx, *acc, uint32_t(*rng), uint32_t(*cod)};
+  }
+  LZP_FN void store(const BitState& v) {
+    *idx = v.idx;
+    *acc = v.acc;
+    *rng = wrap(v.rng);
+    *cod = wrap(v.cod);
+  }
+};
+
+// One range-coder-shaped bit at table row s.idx: read p, decide the bit
+// against cod, adapt p and write it back, update rng and cod. Returns the
+// bit; acc is the caller's.
+template <class Tab>
+LZP_FN uint32_t decode_bit(const Tab& tab, BitState& s) {
+  const int32_t p = tab.load(s.idx);
+  const uint32_t bound = (s.rng >> 11) * uint32_t(p & 0x7FF);
+  const uint32_t bit = s.cod >= bound ? 1u : 0u;
+  tab.store(s.idx, bit ? wrap(uint32_t(p) - uint32_t(p >> 5))
+                       : wrap(uint32_t(p) + 3u));
+  s.rng = bit ? s.rng - bound : (s.rng | 1u);
+  s.cod ^= bit;
+  return bit;
+}
+
+LZP_FN int32_t shift_in(int32_t acc, uint32_t bit) {
+  const int32_t v = wrap((uint32_t(acc) << 1) | bit);
+  return v > 0x100 ? 1 : v;
+}
+
+// bitdecode_1d / _2d and y1 / y2: one iteration of the bit-decode step.
+template <class Tab, class State>
+LZP_FN void bitdecode_iter(const Tab& tab, State& st) {
+  BitState s = st.load();
+#if defined(__CUDACC__)
+#pragma unroll
+#endif
+  for (int k = 0; k < 10; ++k)
+    s.idx = wrap(uint32_t(s.idx) + (s.acc > k ? 1u : 0u));
+  s.idx = s.idx < 0 ? 0 : (s.idx > kRows - 1 ? kRows - 1 : s.idx);
+  s.acc = shift_in(s.acc, decode_bit(tab, s));
+  st.store(s);
+}
+
+template <class Tab, class State>
+LZP_FN void bitdecode_lane(const Tab& tab, State& st, int iters) {
+#if defined(__CUDACC__)
+#pragma unroll 1
+#endif
+  for (int it = 0; it < iters; ++it) bitdecode_iter(tab, st);
+}
+
+// y4's state: bit-decode state plus the tiny-op registers.
+struct RealState {
+  BitState s;
+  int32_t a, b, d;
+};
+
+// y4 (y5, y6): `rounds` tiny-op rounds (the probe's nops // 3), idx moved
+// by a's low bit, the bit-decode step's table read and update, three ring
+// reads and, where the bit is 1, a read-modify-write of one ring row.
+// w1 is read as the probe reads it, but its value is masked to 0, so the
+// result does not depend on it and the compiler drops the load.
+LZP_FN void realweight_iter(const LaneMinorTable& tab,
+                            const LaneMinorTable& ring, RealState& r,
+                            int rounds) {
+#if defined(__CUDACC__)
+#pragma unroll 1
+#endif
+  for (int k = 0; k < rounds; ++k) tiny_round(r.a, r.b, r.d, k);
+  const int32_t idx = wrap(uint32_t(r.s.idx) + uint32_t(r.a & 1));
+  r.s.idx = idx < 0 ? 0 : (idx > kRows - 1 ? kRows - 1 : idx);
+  BitState s = r.s;
+  const uint32_t bit = decode_bit(tab, s);
+  const int pw = r.a & (kRing - 1);
+  const int32_t w0 = ring.load(pw);
+  const int32_t w1 = ring.load((pw + 1) & (kRing - 1));
+  const int q = r.b & (kRing - 1);
+  const int32_t old = ring.load(q);
+  if (bit) ring.store(q, (old & ~0xFF) | (w0 & 0xFF) | (w1 & 0));
+  s.acc = shift_in(s.acc, bit);
+  r.s = s;
+}
+
+// The state words of realweight's [7, L] state array, in this order.
+enum { RW_IDX, RW_ACC, RW_RNG, RW_COD, RW_A, RW_B, RW_D };
+
+LZP_FN RealState load_real(const int32_t* st, size_t L, size_t lane) {
+  RealState r;
+  r.s = BitState{st[RW_IDX * L + lane], st[RW_ACC * L + lane],
+                 uint32_t(st[RW_RNG * L + lane]),
+                 uint32_t(st[RW_COD * L + lane])};
+  r.a = st[RW_A * L + lane];
+  r.b = st[RW_B * L + lane];
+  r.d = st[RW_D * L + lane];
+  return r;
+}
+
+LZP_FN void store_real(int32_t* st, size_t L, size_t lane,
+                       const RealState& r) {
+  st[RW_IDX * L + lane] = r.s.idx;
+  st[RW_ACC * L + lane] = r.s.acc;
+  st[RW_RNG * L + lane] = wrap(r.s.rng);
+  st[RW_COD * L + lane] = wrap(r.s.cod);
+  st[RW_A * L + lane] = r.a;
+  st[RW_B * L + lane] = r.b;
+  st[RW_D * L + lane] = r.d;
+}
+
+LZP_FN void realweight_lane(int32_t* tab, int32_t* ring, int32_t* state,
+                            int L, int lane, int iters, int rounds) {
+  const LaneMinorTable t{tab + lane, L}, w{ring + lane, L};
+  RealState r = load_real(state, size_t(L), size_t(lane));
+#if defined(__CUDACC__)
+#pragma unroll 1
+#endif
+  for (int it = 0; it < iters; ++it) realweight_iter(t, w, r, rounds);
+  store_real(state, size_t(L), size_t(lane), r);
+}
+
+// One bit-decode lane with its state in registers (kMem false: loaded
+// from the four state arrays at the start, stored at the end) or in
+// memory (kMem true: the arrays themselves, every iteration).
+template <class Tab, bool kMem>
+LZP_FN void bitdecode_run(const Tab& tab, int32_t* idx, int32_t* acc,
+                          int32_t* rng, int32_t* cod, int lane, int iters) {
+  if (kMem) {
+    MemState st{idx + lane, acc + lane, rng + lane, cod + lane};
+    bitdecode_lane(tab, st, iters);
+  } else {
+    RegState st{BitState{idx[lane], acc[lane], uint32_t(rng[lane]),
+                         uint32_t(cod[lane])}};
+    bitdecode_lane(tab, st, iters);
+    idx[lane] = st.s.idx;
+    acc[lane] = st.s.acc;
+    rng[lane] = wrap(st.s.rng);
+    cod[lane] = wrap(st.s.cod);
+  }
+}
+
+// Table placements of lzp_bitdecode's `place` argument.
+enum { PLACE_MINOR = 0, PLACE_MAJOR = 1, PLACE_SHARED = 2 };
+constexpr int ERR_ARGS = -1;  // a bad argument: nothing was launched
+
+LZP_FN bool bad_args(int L, int iters) { return L < 0 || iters < 0; }
+
+}  // namespace lzp
+
+#if defined(LZP_HOST_ENTRY) && !defined(__CUDACC__)
+// probes.cu's C interface as host loops over lanes (tests only). The
+// stream argument is ignored. A shared-memory table is a block's
+// lane-minor copy, filled and written back as the kernel does.
+#include <vector>
+
+namespace lzp {
+
+template <bool kMem>
+void host_bitdecode(int place, int32_t* tab, int32_t* idx, int32_t* acc,
+                    int32_t* rng, int32_t* cod, int L, int iters) {
+  if (place != PLACE_SHARED) {
+    for (int l = 0; l < L; ++l) {
+      if (place == PLACE_MINOR)
+        bitdecode_run<LaneMinorTable, kMem>(LaneMinorTable{tab + l, L}, idx,
+                                            acc, rng, cod, l, iters);
+      else
+        bitdecode_run<LaneMajorTable, kMem>(
+            LaneMajorTable{tab + size_t(l) * kRows}, idx, acc, rng, cod, l,
+            iters);
+    }
+    return;
+  }
+  std::vector<int32_t> smem(size_t(kRows) * kBlock);
+  for (int base = 0; base < L; base += kBlock) {
+    const int n = L - base < kBlock ? L - base : kBlock;
+    for (int r = 0; r < kRows; ++r)
+      for (int t = 0; t < n; ++t)
+        smem[size_t(r) * kBlock + t] = tab[size_t(r) * L + base + t];
+    for (int t = 0; t < n; ++t)
+      bitdecode_run<LaneMinorTable, kMem>(
+          LaneMinorTable{smem.data() + t, kBlock}, idx, acc, rng, cod,
+          base + t, iters);
+    for (int r = 0; r < kRows; ++r)
+      for (int t = 0; t < n; ++t)
+        tab[size_t(r) * L + base + t] = smem[size_t(r) * kBlock + t];
+  }
+}
+
+}  // namespace lzp
+
+extern "C" {
+
+int lzp_tinyops(const int32_t* x, int32_t* state, int L, int iters,
+                void* /*stream*/) {
+  if (lzp::bad_args(L, iters)) return lzp::ERR_ARGS;
+  for (int l = 0; l < L; ++l)
+    lzp::tinyops_lane(x[l], iters, state + l, state + L + l,
+                      state + 2 * size_t(L) + l);
+  return 0;
+}
+
+int lzp_bitdecode(int place, int mem_state, int32_t* tab, int32_t* idx,
+                  int32_t* acc, int32_t* rng, int32_t* cod, int L, int iters,
+                  void* /*stream*/) {
+  if (lzp::bad_args(L, iters) || place < lzp::PLACE_MINOR ||
+      place > lzp::PLACE_SHARED)
+    return lzp::ERR_ARGS;
+  if (mem_state)
+    lzp::host_bitdecode<true>(place, tab, idx, acc, rng, cod, L, iters);
+  else
+    lzp::host_bitdecode<false>(place, tab, idx, acc, rng, cod, L, iters);
+  return 0;
+}
+
+int lzp_realweight(int32_t* tab, int32_t* ring, int32_t* state, int L,
+                   int iters, int rounds, void* /*stream*/) {
+  if (lzp::bad_args(L, iters) || rounds < 0) return lzp::ERR_ARGS;
+  for (int l = 0; l < L; ++l)
+    lzp::realweight_lane(tab, ring, state, L, l, iters, rounds);
+  return 0;
+}
+
+const char* lzp_error_string(int code) {
+  return code == lzp::ERR_ARGS ? "bad argument" : "host build";
+}
+
+}  // extern "C"
+#endif
+
+#endif  // LZMA_RS_TPU_TORCH_PROBE_LANE_CUH_

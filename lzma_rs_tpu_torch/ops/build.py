@@ -1,12 +1,19 @@
-"""Build and load the CUDA segment-decoder library.
+"""Build and load the port's CUDA libraries.
 
-``nvcc`` compiles ``csrc/decode_segments.cu`` (plain C interface, no
+``nvcc`` compiles each library's main source (plain C interface, no
 PyTorch headers: seconds, not minutes) into
-``lzma_rs_tpu_torch/build/liblzl_segdec-<hash>.so``, where the hash covers
-the sources and the flags, so an edited source rebuilds and an unchanged one
-loads at once. The library is bound with ``ctypes``. Nothing here runs at
-import time; every failure raises, except in :func:`unavailable`, which
-the ``auto`` router asks before it picks the card.
+``lzma_rs_tpu_torch/build/liblzl_<name>-<hash>.so``, where the hash covers
+that library's own sources and the flags, so an edited source rebuilds its
+library alone and an unchanged one loads at once. Two libraries:
+
+- ``segdec``: the segment decoder (``decode_segments.cu`` +
+  ``lzma_lane.cuh``), :func:`load`;
+- ``probes``: the probe kernels (``probes.cu`` + ``probe_lane.cuh``),
+  :func:`load_probes`.
+
+Each is bound with ``ctypes``. Nothing here runs at import time; every
+failure raises, except in :func:`unavailable`, which the ``auto`` router
+asks before it picks the card.
 """
 
 from __future__ import annotations
@@ -25,11 +32,21 @@ from typing import Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("decode_segments.cu", "lzma_lane.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class Library:
+    name: str       # the file is liblzl_<name>-<hash>.so
+    sources: tuple  # files under csrc/ the hash covers; nvcc compiles the
+                    # first, which includes the others
+
+
+SEGDEC = Library("segdec", ("decode_segments.cu", "lzma_lane.cuh"))
+PROBES = Library("probes", ("probes.cu", "probe_lane.cuh"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,22 +64,23 @@ def _nvcc() -> str:
     if os.path.exists(cand):
         return cand
     raise RuntimeError(
-        "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA segment "
-        "decoder builds on a machine with the CUDA toolkit"
+        "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels "
+        "build on a machine with the CUDA toolkit"
     )
 
 
-def _source_hash() -> str:
+def source_hash(lib: Library, csrc: str = CSRC) -> str:
+    """The hash of ``lib``'s own sources (read from ``csrc``) and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        with open(os.path.join(CSRC, name), "rb") as f:
+    for name in lib.sources:
+        with open(os.path.join(csrc, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]
 
 
-def build_library() -> BuildResult:
-    """Compile the library unless this source hash is already built."""
-    path = os.path.join(BUILD_DIR, f"liblzl_segdec-{_source_hash()}.so")
+def build_library(lib: Library = SEGDEC) -> BuildResult:
+    """Compile ``lib`` unless this source hash is already built."""
+    path = os.path.join(BUILD_DIR, f"liblzl_{lib.name}-{source_hash(lib)}.so")
     if os.path.exists(path):
         return BuildResult(path, 0.0, "")
     nvcc = _nvcc()
@@ -73,12 +91,13 @@ def build_library() -> BuildResult:
     try:
         proc = subprocess.run(
             [nvcc, *NVCC_FLAGS, "-o", tmp,
-             os.path.join(CSRC, "decode_segments.cu")],
+             os.path.join(CSRC, lib.sources[0])],
             capture_output=True, text=True, timeout=600,
         )
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+                f"nvcc failed on {lib.sources[0]} ({proc.returncode}):\n"
+                f"{proc.stdout}{proc.stderr}"
             )
         os.replace(tmp, path)  # atomic: a concurrent loader sees all or none
     finally:
@@ -90,9 +109,9 @@ def build_library() -> BuildResult:
 
 @functools.lru_cache(maxsize=1)
 def unavailable() -> Optional[str]:
-    """None once the library is loaded; else the first line of why it
-    cannot be built or loaded here. The verdict holds for the process, so
-    the ``auto`` router pays for a failed build once."""
+    """None once the decoder library is loaded; else the first line of why
+    it cannot be built or loaded here. The verdict holds for the process,
+    so the ``auto`` router pays for a failed build once."""
     try:
         load()
     except (RuntimeError, OSError, subprocess.SubprocessError) as e:
@@ -102,11 +121,35 @@ def unavailable() -> Optional[str]:
 
 @functools.lru_cache(maxsize=1)
 def load() -> ctypes.CDLL:
-    """Build (if needed) and bind the library; one handle per process."""
-    lib = ctypes.CDLL(build_library().path)
+    """Build (if needed) and bind the segment decoder; one handle per
+    process."""
+    lib = ctypes.CDLL(build_library(SEGDEC).path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.lzl_decode_segments.restype = ci
     lib.lzl_decode_segments.argtypes = [vp] * 11 + [ci] * 7 + [vp]
     lib.lzl_error_string.restype = ctypes.c_char_p
     lib.lzl_error_string.argtypes = [ci]
     return lib
+
+
+def bind_probes(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the probe library's C interface on ``lib``: the nvcc build,
+    or a g++ build of ``probe_lane.cuh`` with ``-DLZP_HOST_ENTRY``, which
+    exports the same functions."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for fn, args in (
+        (lib.lzp_tinyops, [vp, vp, ci, ci, vp]),
+        (lib.lzp_bitdecode, [ci, ci, vp, vp, vp, vp, vp, ci, ci, vp]),
+        (lib.lzp_realweight, [vp, vp, vp, ci, ci, ci, vp]),
+    ):
+        fn.restype, fn.argtypes = ci, args
+    lib.lzp_error_string.restype = ctypes.c_char_p
+    lib.lzp_error_string.argtypes = [ci]
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def load_probes() -> ctypes.CDLL:
+    """Build (if needed) and bind the probe kernels; one handle per
+    process."""
+    return bind_probes(ctypes.CDLL(build_library(PROBES).path))

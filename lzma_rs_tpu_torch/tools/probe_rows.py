@@ -1,0 +1,207 @@
+"""Rows of the probe tools: what a row runs, how it is timed, its bound.
+
+A probe tool (``probe_lane2d``, ``probe_state_in_ref``) is a list of rows
+``(name, build)``; ``build(device)`` returns ``(fn, args, lanes)`` as the
+JAX package's tools do, where ``fn`` is a :class:`Probe`. :func:`run`
+times every row (CUDA events on the card, the host clock for the plain
+version on the CPU) and prints the tools' columns, plus, on the card, the
+time per iteration of a long run and the least time the card could take
+(``bound_ms``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import statistics
+import subprocess
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from lzma_rs_tpu_torch.ops import probes
+
+LONG_ITERS = 8192
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+INT32_LANES_PER_SM = 64    # Hopper architecture white paper
+
+
+@dataclasses.dataclass(frozen=True)
+class Probe:
+    """One row's function: ``wrapper(view(x), **kwargs, **layout)``.
+
+    ``kwargs`` are the function's parameters (initial state, rounds);
+    ``layout`` is where the kernel keeps its table and state, which does
+    not change the result. ``ops`` is the integer operations per lane and
+    iteration, ``words`` the int32 words per lane that the function moves
+    once (table, ring, state, output). ``seeded`` is the range of a seeded
+    random input."""
+
+    wrapper: Callable
+    view: Callable
+    kwargs: dict
+    layout: dict
+    ops: int
+    words: int
+    seeded: tuple
+
+    def __call__(self, x, **kw):
+        """The row on ``x``; ``kw`` may override the parameters."""
+        return self.wrapper(self.view(x), **{**self.kwargs, **self.layout,
+                                             **kw})
+
+    def plain(self, x, **kw):
+        """The plain PyTorch version, on ``x``'s device."""
+        return self.wrapper.reference(self.view(x), **{**self.kwargs, **kw})
+
+    def seeded_input(self, like, seed: int):
+        """A random input of ``like``'s shape and device, from ``seed``."""
+        a = np.random.default_rng(seed).integers(
+            *self.seeded, size=tuple(like.shape), dtype=np.int32)
+        return torch.from_numpy(a).to(like.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class Peaks:
+    sms: int
+    clock_mhz: float   # the card's max SM clock (nvidia-smi)
+    int32_ops_per_s: float
+    bytes_per_s: float
+
+
+def card_peaks(device) -> Peaks:
+    """The card's INT32 rate, SMs x 64 INT32 lanes x the max SM clock,
+    and the memory rate of the H100 SXM. The INT32 rate is a lower
+    estimate of the card's integer issue rate: integer multiply-adds also
+    issue on the FP32 pipe, so a mix with multiplies can go up to twice as
+    fast, and a bound from this rate can be up to twice the true floor."""
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", str(device.index or 0),
+         "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    mhz = float(smi.stdout.split()[0])
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return Peaks(sms, mhz, sms * INT32_LANES_PER_SM * mhz * 1e6,
+                 HBM_BYTES_PER_S)
+
+
+def bound(fn: Probe, lanes: int, iters: int, peaks: Peaks) -> tuple:
+    """(ms, "bytes" or "operations", bytes ms, operations ms): the least
+    time of ``iters`` iterations over ``lanes`` lanes, operations over the
+    INT32 rate of :func:`card_peaks` (a lower estimate of the rate, so the
+    operations' time is an upper estimate of their floor)."""
+    t_bytes = 4 * fn.words * lanes / peaks.bytes_per_s
+    t_ops = fn.ops * lanes * iters / peaks.int32_ops_per_s
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations",
+            t_bytes * 1e3, t_ops * 1e3)
+
+
+HOLD_CYCLES = 4_000_000  # ~2 ms: longer than the host takes to enqueue
+
+
+def median_ms(call, reps: int = 5) -> float:
+    """Median device milliseconds of ``call()`` over ``reps`` calls, each
+    between its own CUDA events (after one warm call). The stream is held
+    busy before each start event, so the call's work is enqueued before
+    the card reaches it: the time is the device's, without the host's
+    Python between launches."""
+    call()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES)
+        start.record()
+        call()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def measure(name: str, fn: Probe, x, lanes: int, *, what: str = "tool",
+            peaks: Peaks | None = None) -> dict:
+    """Time one row on one input. On the card: the first call (with the
+    library's build when it is the first), the median of 5 at the tools'
+    ITERS (``ms``: the whole wrapper call, its copy of the table and its
+    state set-up included), at 0 iterations (``setup_ms``: that set-up and
+    an empty launch) and at LONG_ITERS, and the slope between ITERS and
+    LONG_ITERS (set-up and launch drop out). On the CPU: one call of the
+    plain version."""
+    its = probes.ITERS
+    r = {"name": name, "input": what, "kernel": fn.wrapper.__name__,
+         "lanes": lanes, "device": str(x.device)}
+    t = time.perf_counter()
+    fn(x)
+    if x.device.type == "cuda":
+        torch.cuda.synchronize(x.device)
+        r["first_s"] = time.perf_counter() - t
+        r["ms"] = median_ms(lambda: fn(x))
+        r["setup_ms"] = median_ms(lambda: fn(x, iters=0))
+        r["ms_long"] = median_ms(lambda: fn(x, iters=LONG_ITERS))
+        r["ns_per_iter"] = ((r["ms_long"] - r["ms"]) * 1e6
+                            / (LONG_ITERS - its))
+        r["cycles_per_iter"] = r["ns_per_iter"] * peaks.clock_mhz / 1e3
+        r["cycles_per_op"] = r["cycles_per_iter"] / fn.ops
+        b = bound(fn, lanes, its, peaks)
+        r["bound_ms"], r["bound_by"] = b[0], b[1]
+    else:
+        r["ms"] = (time.perf_counter() - t) * 1e3
+    r["us_per_it"] = r["ms"] * 1e3 / its
+    r["ns_per_lane_bit"] = r["ms"] * 1e6 / its / lanes
+    return r
+
+
+def row_text(r: dict) -> str:
+    head = f"{r['name'] + ' [' + r['input'] + ']':52s} OK  "
+    if "ms_long" not in r:
+        return (head + f"cpu plain version {r['us_per_it']:9.3f} us/it  "
+                f"{r['ns_per_lane_bit']:9.3f} ns/lane-bit")
+    return (head + f"first {r['first_s']:6.2f}s  {r['us_per_it']:8.3f} "
+            f"us/it  {r['ns_per_lane_bit']:7.4f} ns/lane-bit  set-up "
+            f"{r['setup_ms'] * 1e3:.1f} us  long "
+            f"{r['ns_per_iter']:8.2f} ns/it ({r['cycles_per_iter']:7.1f} "
+            f"cyc, {r['cycles_per_op']:5.2f} cyc/op)  bound "
+            f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})")
+
+
+def run(rows, device, *, seed: int | None = None) -> list:
+    """Time every row on its tool's input and, with ``seed``, on a seeded
+    random one; print each row and return the measurements."""
+    peaks = card_peaks(device) if device.type == "cuda" else None
+    results = []
+    for i, (name, build) in enumerate(rows):
+        fn, args, lanes = build(device)
+        inputs = [("tool", args[0])]
+        if seed is not None:
+            inputs.append(("seeded", fn.seeded_input(args[0], seed + i)))
+        for what, x in inputs:
+            r = measure(name, fn, x, lanes, what=what, peaks=peaks)
+            print(row_text(r), flush=True)
+            results.append(r)
+    return results
+
+
+def main(rows, argv=None, prog=None) -> list:
+    """The tools' command line: ``[which] [--device cuda|cpu] [--seed N]``.
+    """
+    ap = argparse.ArgumentParser(prog=prog)
+    ap.add_argument("which", nargs="?", default="",
+                    help="run only the rows whose name starts with this")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="cuda (the kernels) or cpu (the plain versions)")
+    ap.add_argument("--seed", type=int, default=None,
+                    help="also run each row on a seeded random input")
+    a = ap.parse_args(argv)
+    if a.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device (use --device cpu for the plain "
+                         "versions)")
+    device = torch.device(a.device, 0) if a.device == "cuda" else \
+        torch.device("cpu")
+    if device.type == "cuda":
+        print("device:", torch.cuda.get_device_name(device), flush=True)
+    picked = [r for r in rows if r[0].startswith(a.which)]
+    return run(picked, device, seed=a.seed)
