@@ -7,8 +7,9 @@ toolkit (nvcc) and g++:
     python3 chip_smoke.py
 
 It imports only ``lzma_rs_tpu_torch`` (no JAX, nothing of ``lzma_rs_tpu``),
-builds the segment-decoder kernel from ``lzma_rs_tpu_torch/csrc`` and the
-port's native host library into ``lzma_rs_tpu_torch/build/``, then runs:
+builds the segment-decoder kernel and the probe kernels from
+``lzma_rs_tpu_torch/csrc`` and the port's native host library into
+``lzma_rs_tpu_torch/build/``, then runs:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: the kernel (nvcc, ptxas summary) and the native host library;
@@ -41,10 +42,18 @@ port's native host library into ``lzma_rs_tpu_torch/build/``, then runs:
    iterations, at 8,192 and at 0 (the wrapper's table copy and state
    set-up, ``setup_ms`` beside ``ms``; CUDA events, median of 5); then
    every row's kernel against its plain version on both inputs, bit for
-   bit (output, final table, ring and state).
+   bit (output, final table, ring and state);
+8. the mosaic probe kernels (``csrc/probes_mosaic.cu``): every row of
+   ``lzma_rs_tpu_torch/tools/probe_mosaic.py`` (15) and
+   ``probe_mosaic2.py`` (6) on the tool's input and on a seeded one
+   (tables over the full int32 range, start indices within 1,024 of
+   +-2^31, so they wrap in int32 before the floor mod), timed as in
+   phase 7 at the tool's own iterations (512, 64), 8,192 and 0; then each
+   row's kernel against its plain version on both inputs, bit for bit
+   (output, final table, carried state).
 
-The kernels build in parallel (one nvcc per library, with the native host
-library's g++) in phase 2.
+The three kernel libraries build in parallel (one nvcc per library, with
+the native host library's g++) in phase 2.
 
 Every phase checks its result; any failure exits nonzero before the result
 lines. The last three lines are the card's name and power limit, the
@@ -247,67 +256,85 @@ PROBE_MAIN_ROW = {
     "bitdecode_chain": "bitdecode 2d S=16 (2048 lanes)",
     "realweight_step": "y4 real-weight S=8 nops=500",
 }
+MOSAIC_REPLACES = {
+    "gather_sum": [f"tools/probe_mosaic.py:{n}" for n in (109, 144, 182,
+                                                          271)],
+    "rw_chain": [f"tools/probe_mosaic.py:{n}" for n in (211, 242)],
+    "row_chain": [f"tools/probe_mosaic2.py:{n}" for n in (63, 95, 129,
+                                                          233)],
+    "segment_chain": [f"tools/probe_mosaic2.py:{n}" for n in (162, 198)],
+}
+MOSAIC_MAIN_ROW = {
+    "gather_sum": "C onehot-read [128,2048] i32",
+    "rw_chain": "D onehot-write [128,2048] i32",
+    "row_chain": "P6 packed-word read + shift extract",
+    "segment_chain": "P5 static-slice swap with carried mask",
+}
 
 
-def probes_phase(torch, dev) -> list:
-    """Phase 7: the probe tools' rows on the card, then each row's kernel
-    against its plain version. Returns the kernel-line entries."""
-    from lzma_rs_tpu_torch.ops import probes
-    from lzma_rs_tpu_torch.tools import (probe_lane2d, probe_rows,
-                                         probe_state_in_ref)
+def probes_phase(torch, dev, phase: str, rows, wrappers, source: str,
+                 replaces: dict, main_row: dict) -> list:
+    """Phases 7 and 8: the probe tools' rows on the card, then each row's
+    kernel against its plain version. Returns the kernel-line entries."""
+    from lzma_rs_tpu_torch.tools import probe_rows
 
-    rows = probe_lane2d.ROWS_OF_TOOL + probe_state_in_ref.ROWS_OF_TOOL
-    for w in probes.WRAPPERS:
+    for w in wrappers:
         w.launches = 0  # count the tools' runs only
     results = probe_rows.run(rows, dev, seed=PROBE_SEED)
-    launches = {w.__name__: w.launches for w in probes.WRAPPERS}
-    check(all(launches.values()), f"phase 7: launches {launches}")
-    say("7 probes", f"{len(rows)} rows x 2 inputs through the tools; "
+    launches = {w.__name__: w.launches for w in wrappers}
+    check(all(launches.values()), f"phase {phase}: launches {launches}")
+    say(f"{phase} probes", f"{len(rows)} rows x 2 inputs through the tools; "
         f"launches {launches}")
 
     plain_ms, worst = {}, dict.fromkeys(launches, 0)
     for i, (name, make) in enumerate(rows):
         fn, args, lanes = make(dev)
         kname = fn.wrapper.__name__
-        for what, x in (("tool", args[0]),
-                        ("seeded", fn.seeded_input(args[0], PROBE_SEED + i))):
-            got = fn(x, full=True)
+        for what, xs in (("tool", args),
+                         ("seeded", fn.seeded_inputs(args, PROBE_SEED + i))):
+            got = fn(*xs, full=True)
             torch.cuda.synchronize()
             t = time.perf_counter()
-            want = fn.plain(x, full=True)
+            want = fn.plain(*xs, full=True)
             torch.cuda.synchronize()
             plain_ms[name, what] = (time.perf_counter() - t) * 1e3
             pairs = [("out", got[0], want[0])] + [
                 (k, got[1][k], want[1][k]) for k in want[1]]
+            check(got[1].keys() == want[1].keys(), f"phase {phase}: {name} "
+                  f"[{what}] returns {sorted(got[1])}, want {sorted(want[1])}")
             for k, g, w in pairs:
-                check(g.shape == w.shape, f"phase 7: {name} [{what}] {k} "
-                      f"shape {tuple(g.shape)} != {tuple(w.shape)}")
+                check(g.shape == w.shape and g.dtype == w.dtype,
+                      f"phase {phase}: {name} [{what}] {k} "
+                      f"{g.dtype}{tuple(g.shape)} != {w.dtype}"
+                      f"{tuple(w.shape)}")
                 diff = int((g.long() - w.long()).abs().max())
                 worst[kname] = max(worst[kname], diff)
-                check(diff == 0, f"phase 7: {name} [{what}]: kernel and "
-                      f"plain version differ in {k} (max {diff})")
-        say("7 probes", f"{name}: kernel == plain version bit for bit on "
-            f"both inputs ({', '.join(k for k, _, _ in pairs)}); plain "
+                check(diff == 0, f"phase {phase}: {name} [{what}]: kernel "
+                      f"and plain version differ in {k} (max {diff})")
+        say(f"{phase} probes", f"{name}: kernel == plain version bit for bit"
+            f" on both inputs ({', '.join(k for k, _, _ in pairs)}); plain "
             f"{plain_ms[name, 'tool']:.0f} / {plain_ms[name, 'seeded']:.0f}"
             " ms")
 
     by = {(r["name"], r["input"]): r for r in results}
     for name, _ in rows:
         t, z = by[name, "tool"], by[name, "seeded"]
-        say("7 probes", f"{name}: {t['ns_per_iter']:.2f} ns/iteration "
-            f"({t['cycles_per_iter']:.1f} cycles at the max SM clock) on "
-            f"the tool's input, {z['ns_per_iter']:.2f} "
+        say(f"{phase} probes", f"{name}: {t['ns_per_iter']:.2f} "
+            f"ns/iteration ({t['cycles_per_iter']:.1f} cycles at the max SM "
+            f"clock) on the tool's input, {z['ns_per_iter']:.2f} "
             f"({z['cycles_per_iter']:.1f}) on the seeded one; "
             f"{t['cycles_per_op']:.2f} / {z['cycles_per_op']:.2f} cycles "
-            f"per counted op; a call at 256 iterations {t['ms'] * 1e3:.1f}"
-            f" us, of which set-up {t['setup_ms'] * 1e3:.1f} us")
+            f"per counted op; a call at {t['iters']} iterations "
+            f"{t['ms'] * 1e3:.1f} us, of which set-up "
+            f"{t['setup_ms'] * 1e3:.1f} us; {t['lanes']} threads, bound "
+            f"{t['bound_ms'] * 1e3:.3f} / {z['bound_ms'] * 1e3:.3f} us "
+            f"({t['bound_by']}); plain {plain_ms[name, 'tool']:.1f} ms")
     entries = []
-    for kname, row in PROBE_MAIN_ROW.items():
+    for kname, row in main_row.items():
         r = by[row, "tool"]
         entries.append({
-            "name": kname, "route": "cuda",
-            "source": "lzma_rs_tpu_torch/csrc/probes.cu",
-            "replaces": PROBE_REPLACES[kname],
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces[kname],
             "launches": launches[kname], "max_abs_err": worst[kname],
             "ms": r["ms"], "setup_ms": r["setup_ms"],
             "plain_ms": plain_ms[row, "tool"],
@@ -445,19 +472,18 @@ def main() -> None:
               "the native host library did not build or load (g++?)")
         return time.perf_counter() - t
 
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=len(build.LIBRARIES) + 1) as pool:
         jobs = [pool.submit(build.build_library, lib)
-                for lib in (build.SEGDEC, build.PROBES)]
+                for lib in build.LIBRARIES]
         native_s = pool.submit(native)
-        built, built_probes = (j.result() for j in jobs)
+        built_libs = [j.result() for j in jobs]
         native_s = native_s.result()
     build.load()
     build.load_probes()
-    say("2 build", f"decode_segments.cu -> {os.path.relpath(built.path, ROOT)}"
-        f" in {built.seconds:.2f} s; {ptxas_summary(built.log)}")
-    say("2 build", f"probes.cu -> {os.path.relpath(built_probes.path, ROOT)}"
-        f" in {built_probes.seconds:.2f} s; "
-        f"{ptxas_summary(built_probes.log)}")
+    build.load_mosaic()
+    for lib, b in zip(build.LIBRARIES, built_libs):
+        say("2 build", f"{lib.sources[0]} -> {os.path.relpath(b.path, ROOT)}"
+            f" in {b.seconds:.2f} s; {ptxas_summary(b.log)}")
     say("2 build", f"native host library "
         f"{os.path.relpath(native_loader._so_path(), ROOT)} ready in "
         f"{native_s:.1f} s")
@@ -678,7 +704,21 @@ def main() -> None:
         f"{int(want_c[3].max())} steps; plain {gen1_plain_s:.1f} s")
 
     # -- 7. the probe kernels ----------------------------------------
-    probe_entries = probes_phase(torch, dev)
+    from lzma_rs_tpu_torch.ops import probes, probes_mosaic
+    from lzma_rs_tpu_torch.tools import (probe_lane2d, probe_mosaic,
+                                         probe_mosaic2, probe_state_in_ref)
+
+    probe_entries = probes_phase(
+        torch, dev, "7", probe_lane2d.ROWS_OF_TOOL
+        + probe_state_in_ref.ROWS_OF_TOOL, probes.WRAPPERS,
+        "lzma_rs_tpu_torch/csrc/probes.cu", PROBE_REPLACES, PROBE_MAIN_ROW)
+
+    # -- 8. the mosaic probe kernels ---------------------------------
+    probe_entries += probes_phase(
+        torch, dev, "8", probe_mosaic.ROWS_OF_TOOL
+        + probe_mosaic2.ROWS_OF_TOOL, probes_mosaic.WRAPPERS,
+        "lzma_rs_tpu_torch/csrc/probes_mosaic.cu", MOSAIC_REPLACES,
+        MOSAIC_MAIN_ROW)
 
     check("jax" not in sys.modules, "jax was imported")
     jax_pkg = sorted(m for m in sys.modules

@@ -4,16 +4,18 @@
   (``parallel/runtime.py``). Without a CUDA device it raises; it never
   runs on the CPU in the card's place. A stream the kernel cannot take
   (too large a segment, too many chunks, lc+lp or pb beyond the table
-  budget, raw LZMA of unknown size) decodes on the native host engine,
-  with the reason in ``stats.fallbacks``, as the JAX package's device
-  engine does.
+  budget) decodes on the native host engine, with the reason in
+  ``stats.fallbacks``, as the JAX package's device engine does; raw LZMA
+  of unknown size, with lc+lp > 4 or under a memlimit goes there
+  unrecorded, as it does in the JAX package.
 - ``native``: the C++ host engine, segment- and block-parallel.
 - ``spec``: the pure-Python executable specification.
 - ``auto`` (default): ``cuda`` for an LZMA2 / `.xz` stream of at least 64
   lanes and 1 MiB out (the JAX package's small-workload gate) that the
   kernel can take, when a CUDA device is present and the kernel builds;
-  ``native`` otherwise, with the reason in ``stats.fallbacks``. Raw LZMA
-  (one stream, one lane) stays on the host.
+  ``native`` otherwise, with the reason in ``stats.fallbacks`` (none
+  without a card, as the JAX router records none without a TPU). Raw
+  LZMA (one stream, one lane) stays on the host.
 """
 
 from __future__ import annotations
@@ -26,7 +28,6 @@ from lzma_rs_tpu_torch.models.codecs import (
     LzmaDecoder,
     xz_decode_stream,
 )
-from lzma_rs_tpu_torch.parallel.runtime import _record_fallback
 from lzma_rs_tpu_torch.utils.cursor import ByteCursor
 from lzma_rs_tpu_torch.utils.options import Options
 
@@ -77,11 +78,13 @@ def lzma_decode(data: bytes, options: Options) -> bytes:
         from lzma_rs_tpu_torch.parallel import runtime
 
         runtime.cuda_device()  # raises without a card
-        if params.unpacked_size is not None and options.memlimit is None:
+        p = params.properties
+        if (params.unpacked_size is not None and p.lc + p.lp <= 4
+                and options.memlimit is None):
             return runtime.lzma_raw_decode_device(data, cursor.pos, params)
-        _record_fallback(
-            "raw-lzma: the device path needs a known size and no memlimit"
-        )
+        # unknown size, lc+lp beyond the JAX lane layout's 4 bits or a
+        # memlimit: the host engines below, unrecorded, as the JAX
+        # package's ``tpu`` backend does
     if backend != "spec":
         lib = _native()
         if lib is not None:

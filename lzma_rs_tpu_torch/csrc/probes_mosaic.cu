@@ -1,0 +1,207 @@
+// Mosaic probe kernels for Hopper (sm_90a): the JAX package's Pallas probes
+// of tools/probe_mosaic.py and tools/probe_mosaic2.py, asked again on the
+// card. The per-thread code is probe_mosaic.cuh (shared with a host test
+// build).
+//
+// The TPU probes asked which per-lane dynamic-indexing patterns Mosaic
+// lowers and what each costs: gathers along either axis, one-hot masked
+// reads and writes, scalar reads and writes, a carried index, packed
+// bytes, refills and segment updates. A CUDA thread indexes memory
+// directly, so the one-hot forms are plain indexed loads and stores here
+// (the semantics are ported, not the one-hot), and the twelve Pallas
+// functions compute four functions:
+//
+//   gather_sum    <- probe_gather_minor (probe_mosaic.py:109, A),
+//                    probe_gather_sublane (:144, B), probe_onehot_read
+//                    (:182, C), probe_dynrow (:271, F)
+//   rw_chain      <- probe_onehot_write (:211, D), probe_scalar_rw (:242, E)
+//   row_chain     <- p1 (probe_mosaic2.py:63), p2 (:95), p3 (:129),
+//                    p6 (:233)
+//   segment_chain <- p4 (probe_mosaic2.py:162), p5 (:198)
+//
+// What bounds them on this card, and what the design does about it:
+//   - gather_sum: one thread per output element, `iters` loads whose
+//     addresses do not depend on loaded data, summed. Up to 131,072 threads
+//     (A [128, 1024]): the loads pipeline (unrolled by 4) and the card is
+//     bound by its load and integer issue, the index's floor mod (an
+//     integer division) included; at 128 threads (C, F) it is one SM's
+//     latency. C reads lane-major (a warp's 32 loads hit 32 rows: 32
+//     sectors), B and F lane-minor (a warp's loads coalesce). The memory
+//     is not the limit: every table fits the 50 MB L2.
+//   - rw_chain: D is one thread per row, a read-modify-write at an advancing
+//     address (independent of the last, but a load may not pass an earlier
+//     store to a possibly equal address); E is one thread: a load, an add,
+//     a store, each load after the last store. Both are latency-bound: the
+//     time per iteration is what the probe measures. Nothing hides it.
+//   - row_chain: one thread per lane over the lane-minor [W, L] table
+//     (the TPU layout; a warp's loads coalesce while its lanes' idx agree,
+//     as in p1-p3, and scatter when idx follows the data, as in p6). A
+//     carried index: each load's address waits on the last load (p6) or
+//     on the index's add and floor mod (p1-p3). Latency-bound by design.
+//   - segment_chain: one thread per lane; p4 re-reads two rows every 8th
+//     step, p5 walks all W rows of the table every step (coalesced: a
+//     warp reads 128 B of one row), a quarter of them written back; the
+//     row walk is unrolled by 8 so eight loads are in flight. p5 at L =
+//     128 is four warps on one SM walking 2,048 rows a step: what the probe
+//     asks, kept as it is.
+// Each launcher checks its arguments, launches on `stream` and returns
+// cudaGetLastError() (0 = launched) or lzm::ERR_ARGS.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "probe_mosaic.cuh"
+
+namespace {
+
+using lzm::kBlock;
+
+template <int kAxis, class T>
+__global__ void __launch_bounds__(kBlock)
+    gather_sum_kernel(const T* __restrict__ x, int x_cols,
+                      const int32_t* __restrict__ start, int32_t stride,
+                      int32_t mod, T* __restrict__ out, int n_out,
+                      int out_cols, int iters) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n_out) return;
+  const int line = kAxis == lzm::AXIS_MINOR ? e / out_cols : e % out_cols;
+  out[e] = lzm::gather_sum_elem<kAxis, T>(x, x_cols, line, start[e], stride,
+                                          mod, iters);
+}
+
+__global__ void __launch_bounds__(kBlock)
+    rw_rows_kernel(int32_t* x, int rows, int cols,
+                   const int32_t* __restrict__ start, int iters) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  lzm::rw_row(x + size_t(r) * cols, cols, start[r], iters);
+}
+
+__global__ void rw_scalar_kernel(int32_t* x, int cols, int32_t* out,
+                                 int iters) {
+  *out = lzm::rw_scalar(x, cols, iters);
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kBlock)
+    row_chain_kernel(int32_t* x, int W, int L, int32_t* state, int iters) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= L) return;
+  lzm::row_chain_lane<kMode>(x, W, L, lane, state, iters);
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kBlock)
+    segment_chain_kernel(int32_t* x, int W, int L, int32_t* state,
+                         int iters) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= L) return;
+  lzm::segment_chain_lane<kMode>(x, W, L, lane, state, iters);
+}
+
+int blocks(int n) { return (n + kBlock - 1) / kBlock; }
+
+template <int kAxis, class T>
+void launch_gather(const void* x, int x_cols, const int32_t* start,
+                   int stride, int mod, void* out, int n_out, int out_cols,
+                   int iters, cudaStream_t s) {
+  gather_sum_kernel<kAxis, T><<<blocks(n_out), kBlock, 0, s>>>(
+      static_cast<const T*>(x), x_cols, start, stride, mod,
+      static_cast<T*>(out), n_out, out_cols, iters);
+}
+
+template <class T>
+void launch_gather(int axis, const void* x, int x_cols, const int32_t* start,
+                   int stride, int mod, void* out, int n_out, int out_cols,
+                   int iters, cudaStream_t s) {
+  if (axis == lzm::AXIS_MINOR)
+    launch_gather<lzm::AXIS_MINOR, T>(x, x_cols, start, stride, mod, out,
+                                      n_out, out_cols, iters, s);
+  else
+    launch_gather<lzm::AXIS_MAJOR, T>(x, x_cols, start, stride, mod, out,
+                                      n_out, out_cols, iters, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// x: [x_rows, x_cols] (int32 or uint8), not changed; start: [n_out] int32;
+// out: [n_out / out_cols, out_cols] of x's type.
+int lzm_gather_sum(int axis, int elem, const void* x, int x_rows, int x_cols,
+                   const int32_t* start, int stride, int mod, void* out,
+                   int n_out, int out_cols, int iters, void* stream) {
+  if (lzm::bad_gather(axis, elem, x_rows, x_cols, mod, n_out, out_cols,
+                      iters))
+    return lzm::ERR_ARGS;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_out > 0) {
+    if (elem == lzm::ELEM_U8)
+      launch_gather<uint8_t>(axis, x, x_cols, start, stride, mod, out, n_out,
+                             out_cols, iters, s);
+    else
+      launch_gather<int32_t>(axis, x, x_cols, start, stride, mod, out, n_out,
+                             out_cols, iters, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: [rows, cols] int32, updated in place. RW_ROWS: start [rows], one
+// thread per row; RW_SCALAR: rows == 1, one thread, out [1] the carry.
+int lzm_rw_chain(int mode, int32_t* x, int rows, int cols,
+                 const int32_t* start, int32_t* out, int iters,
+                 void* stream) {
+  if (lzm::bad_rw(mode, rows, cols, iters)) return lzm::ERR_ARGS;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == lzm::RW_SCALAR)
+    rw_scalar_kernel<<<1, 1, 0, s>>>(x, cols, out, iters);
+  else if (rows > 0)
+    rw_rows_kernel<<<blocks(rows), kBlock, 0, s>>>(x, rows, cols, start,
+                                                   iters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: [W, L] int32 (updated in place by ROW_CLAMP_WRITE); state: [2, L]
+// (acc, idx), the start in, the end out.
+int lzm_row_chain(int mode, int32_t* x, int W, int L, int32_t* state,
+                  int iters, void* stream) {
+  if (lzm::bad_row(mode, W, L, iters)) return lzm::ERR_ARGS;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (L > 0) {
+    if (mode == lzm::ROW_CLAMP)
+      row_chain_kernel<lzm::ROW_CLAMP><<<blocks(L), kBlock, 0, s>>>(
+          x, W, L, state, iters);
+    else if (mode == lzm::ROW_CLAMP_WRITE)
+      row_chain_kernel<lzm::ROW_CLAMP_WRITE><<<blocks(L), kBlock, 0, s>>>(
+          x, W, L, state, iters);
+    else
+      row_chain_kernel<lzm::ROW_BYTE><<<blocks(L), kBlock, 0, s>>>(
+          x, W, L, state, iters);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: [W, L] int32 (updated in place by SEG_SEGMENTS); state: [2, L], the
+// start in, the end out.
+int lzm_segment_chain(int mode, int32_t* x, int W, int L, int32_t* state,
+                      int iters, void* stream) {
+  if (lzm::bad_segment(mode, W, L, iters)) return lzm::ERR_ARGS;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (L > 0) {
+    if (mode == lzm::SEG_REFILL)
+      segment_chain_kernel<lzm::SEG_REFILL><<<blocks(L), kBlock, 0, s>>>(
+          x, W, L, state, iters);
+    else
+      segment_chain_kernel<lzm::SEG_SEGMENTS><<<blocks(L), kBlock, 0, s>>>(
+          x, W, L, state, iters);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* lzm_error_string(int code) {
+  return code == lzm::ERR_ARGS
+             ? "bad argument"
+             : cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -4,12 +4,14 @@
 PyTorch headers: seconds, not minutes) into
 ``lzma_rs_tpu_torch/build/liblzl_<name>-<hash>.so``, where the hash covers
 that library's own sources and the flags, so an edited source rebuilds its
-library alone and an unchanged one loads at once. Two libraries:
+library alone and an unchanged one loads at once. Three libraries:
 
 - ``segdec``: the segment decoder (``decode_segments.cu`` +
   ``lzma_lane.cuh``), :func:`load`;
-- ``probes``: the probe kernels (``probes.cu`` + ``probe_lane.cuh``),
-  :func:`load_probes`.
+- ``probes``: the lane2d and state-in-ref probe kernels (``probes.cu`` +
+  ``probe_lane.cuh``), :func:`load_probes`;
+- ``mosaic``: the mosaic probe kernels (``probes_mosaic.cu`` +
+  ``probe_mosaic.cuh``), :func:`load_mosaic`.
 
 Each is bound with ``ctypes``. Nothing here runs at import time; every
 failure raises, except in :func:`unavailable`, which the ``auto`` router
@@ -47,6 +49,8 @@ class Library:
 
 SEGDEC = Library("segdec", ("decode_segments.cu", "lzma_lane.cuh"))
 PROBES = Library("probes", ("probes.cu", "probe_lane.cuh"))
+MOSAIC = Library("mosaic", ("probes_mosaic.cu", "probe_mosaic.cuh"))
+LIBRARIES = (SEGDEC, PROBES, MOSAIC)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,3 +157,27 @@ def load_probes() -> ctypes.CDLL:
     """Build (if needed) and bind the probe kernels; one handle per
     process."""
     return bind_probes(ctypes.CDLL(build_library(PROBES).path))
+
+
+def bind_mosaic(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the mosaic library's C interface on ``lib``: the nvcc build,
+    or a g++ build of ``probe_mosaic.cuh`` with ``-DLZP_HOST_ENTRY``."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for fn, args in (
+        (lib.lzm_gather_sum, [ci, ci, vp, ci, ci, vp, ci, ci, vp, ci, ci, ci,
+                              vp]),
+        (lib.lzm_rw_chain, [ci, vp, ci, ci, vp, vp, ci, vp]),
+        (lib.lzm_row_chain, [ci, vp, ci, ci, vp, ci, vp]),
+        (lib.lzm_segment_chain, [ci, vp, ci, ci, vp, ci, vp]),
+    ):
+        fn.restype, fn.argtypes = ci, args
+    lib.lzm_error_string.restype = ctypes.c_char_p
+    lib.lzm_error_string.argtypes = [ci]
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def load_mosaic() -> ctypes.CDLL:
+    """Build (if needed) and bind the mosaic probe kernels; one handle per
+    process."""
+    return bind_mosaic(ctypes.CDLL(build_library(MOSAIC).path))

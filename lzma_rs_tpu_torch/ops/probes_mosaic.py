@@ -1,0 +1,421 @@
+"""Mosaic probe kernels: four per-thread functions, asked on the card.
+
+The port of the Pallas probes in ``tools/probe_mosaic.py`` and
+``tools/probe_mosaic2.py`` (twelve functions, four per-thread functions on
+a thread-per-lane card; the one-hot masked reads and writes of the TPU
+probes are direct indexed loads and stores here, with the same results):
+
+- :func:`gather_sum` (``probe_gather_minor`` A, ``probe_gather_sublane``
+  B, ``probe_onehot_read`` C, ``probe_dynrow`` F): each output element
+  sums ``iters`` values of ``x`` along its row (``axis="minor"``) or its
+  column (``"major"``) at ``(start + stride * i) % mod``;
+- :func:`rw_chain` (``probe_onehot_write`` D, ``probe_scalar_rw`` E): a
+  read-modify-write per step, one row per thread (D), or one serial
+  load-after-store chain (E);
+- :func:`row_chain` (``p1``/``p2``, ``p3``, ``p6``): a lane-carried index
+  over a lane-minor ``[W, L]`` table;
+- :func:`segment_chain` (``p4``, ``p5``): a periodic two-row refill, or
+  four segment updates with each segment's max.
+
+Each wrapper launches its hand-written kernel (``csrc/probes_mosaic.cu``)
+on a CUDA tensor, or raises; on a CPU tensor it runs its plain PyTorch
+version (``*_reference``: direct indexing, every thread in lockstep).
+``<wrapper>.launches`` counts kernel launches, ``<wrapper>.reference`` is
+the plain version. Inputs are not changed. ``full=True`` also returns a
+dict: the final table where the function writes one (E, p3, p5; D's output
+is its final table) and the carried state (``[2, L]``: row_chain's acc and
+idx, p4's two acc rows, p5's total and mask).
+
+Integer semantics are the probes': wrapping int32 (uint8 for A's u8 row),
+and an index is jnp's ``%`` of a wrapped int32 (the floor mod).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lzma_rs_tpu_torch.ops.probes import _stream
+
+__all__ = [
+    "AXES", "RW_MODES", "ROW_MODES", "SEGMENT_MODES", "WRAPPERS",
+    "GATHER_OPS", "RW_OPS", "ROW_OPS", "segment_ops", "byte_rows_read",
+    "gather_sum", "gather_sum_reference", "rw_chain", "rw_chain_reference",
+    "row_chain", "row_chain_reference", "segment_chain",
+    "segment_chain_reference",
+]
+
+AXES = ("minor", "major")
+RW_MODES = ("rows", "scalar")                   # D, E
+ROW_MODES = ("clamp", "clamp_write", "byte")    # p1/p2, p3, p6
+SEGMENT_MODES = ("refill", "segments")          # p4, p5
+SCALAR_STRIDE = 37                              # E: j = 37 i % W
+REFILL_EVERY = 8                                # p4
+
+# Integer operations per thread and step, counted from the probes' code
+# (for the bound). gather_sum: the index's add (F: multiply), its mod (A:
+# and), the address, the sum. rw_chain: D the add, the mod, the address,
+# the +1; E 37 i, its mod, j + 1, its mod, two addresses, v + carry,
+# carry + v. row_chain: clamp the address, the max, acc's add, idx + 1,
+# the mod; clamp_write also v & 1, the test, v + 1 and the select;
+# byte idx >> 2, the address, idx & 3, * 8, the shift, & 0xFF, acc's add,
+# idx's two adds, the mod.
+GATHER_OPS = 4
+RW_OPS = {"rows": 4, "scalar": 8}
+ROW_OPS = {"clamp": 5, "clamp_write": 9, "byte": 10}
+
+
+def segment_ops(mode: str, W: int) -> float:
+    """p4: i % 8 and its test, acc's two adds, and every 8th step two adds
+    and two addresses. p5: per row of W the address and the max, per row of
+    the written segment the +1, per segment the mask's test and total's
+    add, and the mask's add and mod."""
+    if mode == "refill":
+        return 4 + 4 / REFILL_EVERY
+    return 2 * W + W // 4 + 4 * 2 + 2
+
+
+# -- plain versions ------------------------------------------------------
+
+
+def _wrap(v):
+    """int64 values -> the int32 values they wrap to (still int64)."""
+    return ((v + 2**31) & 0xFFFFFFFF) - 2**31
+
+
+def _lines(shape, device, axis: str):
+    """The x row (minor) or column (major) each output element reads."""
+    r, c = shape
+    if axis == "minor":
+        return torch.arange(r, device=device)[:, None].expand(r, c)
+    return torch.arange(c, device=device)[None, :].expand(r, c)
+
+
+def gather_sum_reference(x, start, *, axis: str, mod: int, stride: int = 1,
+                         iters: int, full: bool = False):
+    """Plain version of :func:`gather_sum`."""
+    acc = torch.zeros(start.shape, dtype=x.dtype, device=x.device)
+    line = _lines(start.shape, x.device, axis)
+    s = start.long()
+    for i in range(iters):
+        k = torch.remainder(_wrap(s + stride * i), mod)
+        acc += x[line, k] if axis == "minor" else x[k, line]
+    return (acc, {}) if full else acc
+
+
+def rw_chain_reference(x, start=None, *, mode: str, iters: int,
+                       full: bool = False):
+    """Plain version of :func:`rw_chain`."""
+    t = x.clone()
+    W = t.shape[1]
+    if mode == "rows":
+        rows = torch.arange(t.shape[0], device=t.device)
+        s = start.long()
+        for i in range(iters):
+            t[rows, torch.remainder(_wrap(s + i), W)] += 1
+        return (t, {}) if full else t
+    row = t[0]
+    carry = torch.zeros((), dtype=torch.int32, device=t.device)
+    for i in range(iters):
+        j = _wrap(i * SCALAR_STRIDE) % W
+        v = row[j].clone()
+        row[(j + 1) % W] = v + carry
+        carry = carry + v
+    out = carry.reshape(1, 1)
+    return (out, {"table": t}) if full else out
+
+
+def row_chain_reference(x, *, mode: str, iters: int, full: bool = False):
+    """Plain version of :func:`row_chain`."""
+    W, L = x.shape
+    t = x.clone() if mode == "clamp_write" else x
+    lanes = torch.arange(L, device=x.device)
+    idx = torch.zeros(L, dtype=torch.int64, device=x.device)
+    acc = torch.zeros(L, dtype=torch.int32, device=x.device)
+    for _ in range(iters):
+        if mode == "byte":
+            word = t[idx >> 2, lanes]
+            byte = (word >> ((idx & 3) * 8).int()) & 0xFF
+            acc += byte
+            idx = (idx + byte + 1) % W
+            continue
+        v = t[idx, lanes].clamp(min=0)
+        if mode == "clamp_write":
+            odd = (v & 1) == 1
+            t[idx[odd], lanes[odd]] = v[odd] + 1
+        acc += v
+        idx = (idx + 1) % W
+    out = acc[None]
+    if not full:
+        return out
+    res = {"state": torch.stack([acc, idx.int()])}
+    if mode == "clamp_write":
+        res["table"] = t
+    return out, res
+
+
+def segment_chain_reference(x, *, mode: str, iters: int, full: bool = False):
+    """Plain version of :func:`segment_chain`."""
+    W, L = x.shape
+    if mode == "refill":
+        acc = torch.zeros((2, L), dtype=torch.int32, device=x.device)
+        scratch = acc
+        for i in range(iters):
+            if i % REFILL_EVERY == 0:
+                scratch = x[0:2] + i
+            acc = acc + scratch
+        return (acc[0:1], {"state": acc}) if full else acc[0:1]
+    t = x.clone()
+    S = W // 4
+    mask = torch.zeros(L, dtype=torch.int32, device=x.device)
+    total = torch.zeros(L, dtype=torch.int32, device=x.device)
+    for _ in range(iters):
+        for s in range(4):
+            seg = t[s * S:(s + 1) * S]
+            seg.copy_(torch.where(mask[None] == s, seg + 1, seg))
+            total += seg.max(dim=0).values
+        mask = (mask + 1) % 4
+    out = total[None]
+    if not full:
+        return out
+    return out, {"table": t, "state": torch.stack([total, mask])}
+
+
+def byte_rows_read(x, iters: int) -> int:
+    """The distinct table rows that p6's walk (:func:`row_chain`, mode
+    ``byte``) reads over ``x`` in ``iters`` steps, summed over lanes: the
+    words this input needs (for the bound)."""
+    x = x.cpu()
+    W, L = x.shape
+    lanes = torch.arange(L)
+    idx = torch.zeros(L, dtype=torch.int64)
+    seen = torch.zeros((W, L), dtype=torch.bool)
+    for _ in range(iters):
+        seen[idx >> 2, lanes] = True
+        byte = (x[idx >> 2, lanes] >> ((idx & 3) * 8).int()) & 0xFF
+        idx = (idx + byte + 1) % W
+    return int(seen.sum())
+
+
+# -- checks --------------------------------------------------------------
+
+
+def _check(name, t, dtypes=(torch.int32,), dim: int = 2):
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: want {' or '.join(map(str, dtypes))}, "
+                         f"got {t.dtype}")
+    if t.dim() != dim:
+        raise ValueError(f"{name}: want {dim} dimensions, got "
+                         f"{tuple(t.shape)}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: runs on cuda or cpu, not {t.device}")
+    if t.numel() >= 2**31 or any(n < 1 for n in t.shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} out of range")
+
+
+def _check_same_device(*ts):
+    if len({t.device for t in ts}) != 1:
+        raise ValueError(f"inputs on {[str(t.device) for t in ts]}")
+
+
+def _check_int(name: str, v: int, lo: int, hi: int = 2**31 - 1):
+    if not (isinstance(v, int) and lo <= v <= hi):
+        raise ValueError(f"{name} = {v!r} outside [{lo}, {hi}]")
+
+
+def _check_mode(name: str, mode: str, modes: tuple):
+    if mode not in modes:
+        raise ValueError(f"{name} {mode!r} not in {modes}")
+
+
+def _raise_on(lib, rc: int, what: str):
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.lzm_error_string(rc).decode())
+
+
+def _cuda_lib():
+    from lzma_rs_tpu_torch.ops import build
+
+    return build.load_mosaic()
+
+
+# -- kernel launches (the nvcc build on a CUDA tensor, the g++ build of
+# probe_mosaic.cuh on a CPU one) -----------------------------------------
+
+
+def launch_gather_sum(lib, x, start, *, axis: str, mod: int, stride: int = 1,
+                      iters: int, full: bool = False):
+    """Run ``lib``'s ``lzm_gather_sum``."""
+    xs, st = x.contiguous(), start.contiguous()
+    out = torch.empty(start.shape, dtype=x.dtype, device=x.device)
+    rc = lib.lzm_gather_sum(
+        AXES.index(axis), int(x.dtype == torch.uint8), xs.data_ptr(),
+        x.shape[0], x.shape[1], st.data_ptr(), stride, mod, out.data_ptr(),
+        out.numel(), out.shape[1], iters, _stream(x))
+    _raise_on(lib, rc, "gather_sum")
+    return (out, {}) if full else out
+
+
+def launch_rw_chain(lib, x, start=None, *, mode: str, iters: int,
+                    full: bool = False):
+    """Run ``lib``'s ``lzm_rw_chain`` on a copy of ``x``."""
+    t = x.clone(memory_format=torch.contiguous_format)
+    scalar = mode == "scalar"
+    st = None if scalar else start.contiguous()
+    out = torch.empty((1, 1), dtype=torch.int32, device=x.device)
+    rc = lib.lzm_rw_chain(RW_MODES.index(mode), t.data_ptr(), t.shape[0],
+                          t.shape[1], None if scalar else st.data_ptr(),
+                          out.data_ptr(), iters, _stream(x))
+    _raise_on(lib, rc, "rw_chain")
+    if scalar:
+        return (out, {"table": t}) if full else out
+    return (t, {}) if full else t
+
+
+def _state(x):
+    return torch.zeros((2, x.shape[1]), dtype=torch.int32, device=x.device)
+
+
+def launch_row_chain(lib, x, *, mode: str, iters: int, full: bool = False):
+    """Run ``lib``'s ``lzm_row_chain`` (on a copy of ``x`` where it
+    writes)."""
+    t = (x.clone(memory_format=torch.contiguous_format)
+         if mode == "clamp_write" else x.contiguous())
+    state = _state(x)
+    rc = lib.lzm_row_chain(ROW_MODES.index(mode), t.data_ptr(), t.shape[0],
+                           t.shape[1], state.data_ptr(), iters, _stream(x))
+    _raise_on(lib, rc, "row_chain")
+    out = state[0:1]
+    if not full:
+        return out
+    res = {"state": state}
+    if mode == "clamp_write":
+        res["table"] = t
+    return out, res
+
+
+def launch_segment_chain(lib, x, *, mode: str, iters: int,
+                         full: bool = False):
+    """Run ``lib``'s ``lzm_segment_chain`` (on a copy of ``x`` where it
+    writes)."""
+    t = (x.clone(memory_format=torch.contiguous_format)
+         if mode == "segments" else x.contiguous())
+    state = _state(x)
+    rc = lib.lzm_segment_chain(SEGMENT_MODES.index(mode), t.data_ptr(),
+                               t.shape[0], t.shape[1], state.data_ptr(),
+                               iters, _stream(x))
+    _raise_on(lib, rc, "segment_chain")
+    out = state[0:1]
+    if not full:
+        return out
+    res = {"state": state}
+    if mode == "segments":
+        res["table"] = t
+    return out, res
+
+
+# -- wrappers ------------------------------------------------------------
+
+
+def gather_sum(x, start, *, axis: str, mod: int, stride: int = 1,
+               iters: int, full: bool = False):
+    """``out[r, c] = sum_i x[r, k]`` (``axis="minor"``) or ``x[k, c]``
+    (``"major"``) for ``k = (start[r, c] + stride * i) % mod`` over ``iters``
+    steps, the index wrapped to int32 before jnp's floor mod. ``x``:
+    ``[rows, cols]`` int32 or uint8 (the sum wraps in its type);
+    ``start``: int32 of the output's shape, ``[rows' <= rows, any]``
+    (minor, ``mod <= cols``) or ``[any, cols]`` (major, ``mod <= rows``)."""
+    _check("x", x, (torch.int32, torch.uint8))
+    _check("start", start)
+    _check_same_device(x, start)
+    _check_mode("axis", axis, AXES)
+    _check_int("iters", iters, 0)
+    _check_int("stride", stride, -2**31)
+    minor = axis == "minor"
+    _check_int("mod", mod, 1, x.shape[1] if minor else x.shape[0])
+    if (start.shape[0] > x.shape[0]) if minor else \
+            (start.shape[1] != x.shape[1]):
+        raise ValueError(f"start {tuple(start.shape)} does not fit x "
+                         f"{tuple(x.shape)} along axis {axis!r}")
+    kw = {"axis": axis, "mod": mod, "stride": stride, "iters": iters,
+          "full": full}
+    if x.device.type == "cpu":
+        return gather_sum_reference(x, start, **kw)
+    res = launch_gather_sum(_cuda_lib(), x, start, **kw)
+    gather_sum.launches += 1
+    return res
+
+
+def rw_chain(x, start=None, *, mode: str, iters: int, full: bool = False):
+    """``mode="rows"`` (D): for each row of ``x`` ([rows, W] int32) and step
+    i, ``x[r, (start[r] + i) % W] += 1``; the output is the final table.
+    ``"scalar"`` (E, ``x`` [1, W], no ``start``): ``j = 37 i % W;
+    v = x[0, j]; x[0, (j + 1) % W] = v + carry; carry += v``; the output is
+    ``carry`` [1, 1], and ``full`` adds the final table."""
+    _check("x", x)
+    _check_mode("mode", mode, RW_MODES)
+    _check_int("iters", iters, 0)
+    if mode == "rows":
+        _check("start", start, dim=1)
+        _check_same_device(x, start)
+        if start.shape[0] != x.shape[0]:
+            raise ValueError(f"start {tuple(start.shape)}: want "
+                             f"[{x.shape[0]}]")
+    elif start is not None or x.shape[0] != 1:
+        raise ValueError("mode 'scalar' takes x [1, W] and no start")
+    if x.device.type == "cpu":
+        return rw_chain_reference(x, start, mode=mode, iters=iters,
+                                  full=full)
+    res = launch_rw_chain(_cuda_lib(), x, start, mode=mode, iters=iters,
+                          full=full)
+    rw_chain.launches += 1
+    return res
+
+
+def row_chain(x, *, mode: str, iters: int, full: bool = False):
+    """``iters`` steps of a lane-carried ``idx`` (from 0) over ``x`` ([W, L]
+    int32, W >= 2), one lane per column; the output is ``acc`` [1, L].
+    ``"clamp"`` (p1/p2): ``v = max(x[idx], 0); acc += v; idx = (idx + 1) %
+    W``; ``"clamp_write"`` (p3): also ``x[idx] = v + 1`` where ``v`` is odd;
+    ``"byte"`` (p6): ``byte = x[idx >> 2] >> 8 (idx & 3) & 0xFF;
+    acc += byte; idx = (idx + byte + 1) % W``."""
+    _check("x", x)
+    _check_mode("mode", mode, ROW_MODES)
+    _check_int("iters", iters, 0)
+    if x.shape[0] < 2:
+        raise ValueError(f"x {tuple(x.shape)}: want at least 2 rows")
+    if x.device.type == "cpu":
+        return row_chain_reference(x, mode=mode, iters=iters, full=full)
+    res = launch_row_chain(_cuda_lib(), x, mode=mode, iters=iters,
+                           full=full)
+    row_chain.launches += 1
+    return res
+
+
+def segment_chain(x, *, mode: str, iters: int, full: bool = False):
+    """Over ``x`` ([W, L] int32, W a multiple of 4), one lane per column.
+    ``"refill"`` (p4): every 8th step ``s = x[0:2] + i``, each step
+    ``acc += s``; the output is ``acc``'s row 0. ``"segments"`` (p5): each
+    step, of four segments of W / 4 rows the one equal to the lane's
+    ``mask`` (from 0) gets +1, ``total`` adds each segment's max, ``mask =
+    (mask + 1) % 4``; the output is ``total``. Both [1, L]."""
+    _check("x", x)
+    _check_mode("mode", mode, SEGMENT_MODES)
+    _check_int("iters", iters, 0)
+    if x.shape[0] < 4 or x.shape[0] % 4:
+        raise ValueError(f"x {tuple(x.shape)}: want a multiple of 4 rows")
+    if x.device.type == "cpu":
+        return segment_chain_reference(x, mode=mode, iters=iters, full=full)
+    res = launch_segment_chain(_cuda_lib(), x, mode=mode, iters=iters,
+                               full=full)
+    segment_chain.launches += 1
+    return res
+
+
+for _w, _ref in ((gather_sum, gather_sum_reference),
+                 (rw_chain, rw_chain_reference),
+                 (row_chain, row_chain_reference),
+                 (segment_chain, segment_chain_reference)):
+    _w.launches = 0
+    _w.reference = _ref
+WRAPPERS = (gather_sum, rw_chain, row_chain, segment_chain)

@@ -767,8 +767,9 @@ def _resolve_auto(plans: List[DecodePlan], device) -> str:
     small-workload gate (``LZMA_RS_TPU_AUTO_MIN_LANES``, default 64 lanes,
     and ``LZMA_RS_TPU_AUTO_MIN_OUT``, default 1 MiB out) and the
     eligibility gate, a CUDA device is present (or ``device`` is given)
-    and the kernel library builds or loads; else ``native`` with the
-    reason recorded. Nothing is staged before the verdict."""
+    and the kernel library builds or loads; else ``native``, with the
+    reason recorded unless there is no card (the JAX router records none
+    without a TPU). Nothing is staged before the verdict."""
     lanes = [lane for p in plans for lane in p.lanes]
     min_lanes = int(os.environ.get("LZMA_RS_TPU_AUTO_MIN_LANES", "64"))
     min_out = int(os.environ.get("LZMA_RS_TPU_AUTO_MIN_OUT", str(1 << 20)))
@@ -785,8 +786,7 @@ def _resolve_auto(plans: List[DecodePlan], device) -> str:
         _record_fallback(f"auto->native: {e.reason}")
         return "native"
     if device is None and not torch.cuda.is_available():
-        _record_fallback("auto->native: no CUDA device")
-        return "native"
+        return "native"  # no record, as the JAX router without a TPU
     if device is None or torch.device(device).type == "cuda":
         why = build.unavailable()
         if why is not None:

@@ -37,38 +37,38 @@ def _cuda(device):
 def _bitdecode(view, shape, lanes, placement, device):
     fn = Probe(probes.bitdecode_chain, view,
                {"init": probes.BITDECODE_INIT}, {"placement": placement},
-               probes.BITDECODE_OPS, ROWS + 4 + 1, _PROBS)
+               probes.BITDECODE_OPS, ROWS + 4 + 1, (_PROBS,))
     x = torch.full(shape, 1024, dtype=torch.int32, device=_cuda(device))
     return fn, (x,), lanes
 
 
 def bitdecode_1d(L, placement="minor", device=None):
     """[ROWS, L] table in, [1, L] out."""
-    return _bitdecode(lambda x: x[:, None, :], (ROWS, L), L, placement,
+    return _bitdecode(lambda x: (x[:, None, :],), (ROWS, L), L, placement,
                       device)
 
 
 def bitdecode_2d(S, placement="minor", device=None):
     """[ROWS, S, 128] table in, [S, 128] out."""
-    return _bitdecode(lambda x: x, (ROWS, S, 128), S * 128, placement,
+    return _bitdecode(lambda x: (x,), (ROWS, S, 128), S * 128, placement,
                       device)
 
 
 def _tinyops(view, shape, lanes, device):
     fn = Probe(probes.tinyops_chain, view, {}, {}, probes.TINYOPS_OPS, 2,
-               _INT32)
+               (_INT32,))
     return fn, (torch.zeros(shape, dtype=torch.int32,
                             device=_cuda(device)),), lanes
 
 
 def tinyops_only_1d(L, device=None):
     """[8, L] in (row 0 is read), [1, L] out."""
-    return _tinyops(lambda x: x[0:1], (8, L), L, device)
+    return _tinyops(lambda x: (x[0:1],), (8, L), L, device)
 
 
 def tinyops_only_2d(S, device=None):
     """[S, 128] in and out."""
-    return _tinyops(lambda x: x, (S, 128), S * 128, device)
+    return _tinyops(lambda x: (x,), (S, 128), S * 128, device)
 
 
 ROWS_OF_TOOL = [

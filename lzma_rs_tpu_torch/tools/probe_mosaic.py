@@ -1,0 +1,148 @@
+"""Probe: per-lane dynamic indexing (gathers, indexed reads and writes).
+
+The port of the JAX package's ``tools/probe_mosaic.py``, with its function
+names, inputs and rows. On the TPU the probe asked which dynamic-indexing
+patterns Mosaic lowers and what each costs; on the card every pattern is
+a plain indexed load or store, and the question is what the access costs
+a thread: a gather along a row (A, C: lane-major, a warp's loads 32 rows
+apart for C) or down a column (B, F: lane-minor, coalesced), a
+read-modify-write per row (D), and one thread's load-after-store chain
+(E). The one-hot forms of C and D are direct indexed accesses here.
+
+Run on the card::
+
+    python -m lzma_rs_tpu_torch.tools.probe_mosaic [prefix] [--seed N]
+
+or through the plain versions on the CPU with ``--device cpu``. Each
+function returns ``(fn, args, lanes)``: ``fn(*args)`` runs the row
+(``fn.plain`` the plain version), ``lanes`` is its threads; ``device``
+defaults to the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lzma_rs_tpu_torch.ops import probes_mosaic as pm
+from lzma_rs_tpu_torch.tools.probe_rows import Probe, main
+
+ITERS = 512
+_INT32 = (-2**31, 2**31)
+_UINT8 = (0, 256)
+_NEAR_LIMIT = (2**31 - 1024, 2**31 + 1024)  # start indices that wrap
+
+
+def _device(device):
+    return torch.device("cuda") if device is None else torch.device(device)
+
+
+def _iota(n, device, dtype=torch.int32):
+    """``arange(n)`` in ``dtype``, wrapped as jnp's ``arange`` wraps u8."""
+    a = torch.arange(n, device=device)
+    return (a % 256 if dtype == torch.uint8 else a).to(dtype)
+
+
+def _gather(axis, x, idx, lanes, words, stride=1, x_range=_INT32):
+    mod = x.shape[1] if axis == "minor" else x.shape[0]
+    fn = Probe(pm.gather_sum, lambda x, i: (x, i),
+               {"axis": axis, "mod": mod, "stride": stride}, {},
+               pm.GATHER_OPS, words, (x_range, _NEAR_LIMIT), ITERS)
+    return fn, (x, idx), lanes
+
+
+def probe_gather_minor(L, W, dtype, device=None):
+    """A: ``out[l, j] = sum_i x[l, (idx[l, j] + i) & (W - 1)]``; x and out
+    [L, W] of ``dtype`` (int32 or uint8), idx [L, W] int32."""
+    dev = _device(device)
+    x = _iota(L * W, dev, dtype).reshape(L, W)
+    idx = (torch.arange(L * W, dtype=torch.int32, device=dev)
+           .reshape(L, W) * 7) % W
+    b = x.element_size()
+    return _gather("minor", x, idx, L * W, (2 * b + 4) / 4,
+                   x_range=_UINT8 if dtype == torch.uint8 else _INT32)
+
+
+def probe_gather_sublane(R, C, dtype, device=None):
+    """B: ``out[r, c] = sum_i x[(idx[r, c] + i) % R, c]``; all [R, C]."""
+    dev = _device(device)
+    x = _iota(R * C, dev, dtype).reshape(R, C)
+    idx = (torch.arange(R * C, dtype=torch.int32, device=dev)
+           .reshape(R, C) * 3) % R
+    return _gather("major", x, idx, R * C, 3)
+
+
+def probe_onehot_read(L, W, dtype, device=None):
+    """C: ``out[l, 0] = sum_i x[l, (idx[l] + i) % W]`` (the TPU probe's
+    one-hot masked sum, a direct indexed load here); x [L, W], idx [L],
+    out [L, 1]."""
+    dev = _device(device)
+    x = _iota(L * W, dev, dtype).reshape(L, W)
+    idx = (torch.arange(L, dtype=torch.int32, device=dev) * 11) % W
+    fn = Probe(pm.gather_sum, lambda x, i: (x, i[:, None]),
+               {"axis": "minor", "mod": W}, {}, pm.GATHER_OPS,
+               min(ITERS, W) + 2, (_INT32, _NEAR_LIMIT), ITERS)
+    return fn, (x, idx), L
+
+
+def probe_onehot_write(L, W, dtype, device=None):
+    """D: for each step, ``x[l, (idx[l] + i) % W] += 1``; out is the final
+    x [L, W] (the TPU probe's one-hot masked write, a direct
+    read-modify-write here)."""
+    dev = _device(device)
+    x = _iota(L * W, dev, dtype).reshape(L, W)
+    idx = (torch.arange(L, dtype=torch.int32, device=dev) * 11) % W
+    fn = Probe(pm.rw_chain, lambda x, i: (x, i), {"mode": "rows"}, {},
+               pm.RW_OPS["rows"], 2 * W + 1, (_INT32, _NEAR_LIMIT), ITERS)
+    return fn, (x, idx), L
+
+
+def probe_scalar_rw(W, device=None):
+    """E: one chain, ``j = 37 i % W; v = x[0, j]; x[0, (j + 1) % W] =
+    v + carry; carry += v``; x [1, W], out the carry [1, 1]."""
+    x = _iota(W, _device(device)).reshape(1, W)
+    fn = Probe(pm.rw_chain, lambda x: (x,), {"mode": "scalar"}, {},
+               pm.RW_OPS["scalar"], min(ITERS, W) + 1, (_INT32,), ITERS)
+    return fn, (x,), 1
+
+
+def probe_dynrow(R, C, device=None):
+    """F: ``out[0, c] = sum_i x[(13 i) % R, c]``; x [R, C], out [1, C]
+    (the TPU probe's ``pl.ds`` row slice)."""
+    dev = _device(device)
+    x = _iota(R * C, dev).reshape(R, C)
+
+    def view(x):  # every column walks from row 0 by 13
+        return x, torch.zeros((1, x.shape[1]), dtype=torch.int32,
+                              device=x.device)
+
+    # 13 is odd and R a power of two: min(ITERS, R) distinct rows
+    fn = Probe(pm.gather_sum, view, {"axis": "major", "mod": R, "stride": 13},
+               {}, pm.GATHER_OPS, min(ITERS, R) + 1, (_INT32,), ITERS)
+    return fn, (x,), C
+
+
+i32, u8 = torch.int32, torch.uint8
+ROWS_OF_TOOL = [
+    *((f"A gather-minor [{L},{W}] {t}",
+       lambda d, L=L, W=W, dt=dt: probe_gather_minor(L, W, dt, device=d))
+      for L, W, dt, t in ((8, 128, i32, "i32"), (128, 128, i32, "i32"),
+                          (8, 1024, i32, "i32"), (128, 1024, i32, "i32"),
+                          (8, 128, u8, "u8"))),
+    *((f"B gather-sublane [{R},128] i32",
+       lambda d, R=R: probe_gather_sublane(R, 128, i32, device=d))
+      for R in (8, 64, 512)),
+    *((f"C onehot-read [128,{W}] i32",
+       lambda d, W=W: probe_onehot_read(128, W, i32, device=d))
+      for W in (768, 2048)),
+    *((f"D onehot-write [128,{W}] i32",
+       lambda d, W=W: probe_onehot_write(128, W, i32, device=d))
+      for W in (768, 2048)),
+    ("E scalar-rw [1,4096]", lambda d: probe_scalar_rw(4096, device=d)),
+    *((f"F dynrow pl.ds [{R},128]",
+       lambda d, R=R: probe_dynrow(R, 128, device=d))
+      for R in (512, 4096)),
+]
+
+
+if __name__ == "__main__":
+    main(ROWS_OF_TOOL, prog="probe_mosaic")

@@ -1,12 +1,13 @@
 """Rows of the probe tools: what a row runs, how it is timed, its bound.
 
-A probe tool (``probe_lane2d``, ``probe_state_in_ref``) is a list of rows
-``(name, build)``; ``build(device)`` returns ``(fn, args, lanes)`` as the
-JAX package's tools do, where ``fn`` is a :class:`Probe`. :func:`run`
-times every row (CUDA events on the card, the host clock for the plain
-version on the CPU) and prints the tools' columns, plus, on the card, the
-time per iteration of a long run and the least time the card could take
-(``bound_ms``).
+A probe tool (``probe_lane2d``, ``probe_state_in_ref``, ``probe_mosaic``,
+``probe_mosaic2``) is a list of rows ``(name, build)``; ``build(device)``
+returns ``(fn, args, lanes)`` as the JAX package's tools do, where ``fn``
+is a :class:`Probe`, ``args`` its inputs and ``lanes`` its threads.
+:func:`run` times every row (CUDA events on the card, the host clock for
+the plain version on the CPU) and prints the tools' columns, plus, on the
+card, the time per iteration of a long run and the least time the card
+could take (``bound_ms``).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import dataclasses
 import statistics
 import subprocess
 import time
-from typing import Callable
+from typing import Callable, Union
 
 import numpy as np
 import torch
@@ -28,39 +29,58 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM = 64    # Hopper architecture white paper
 
 
+_NUMPY = {torch.int32: np.int32, torch.uint8: np.uint8}
+
+
 @dataclasses.dataclass(frozen=True)
 class Probe:
-    """One row's function: ``wrapper(view(x), **kwargs, **layout)``.
+    """One row's function: ``wrapper(*view(*inputs), iters=iters, **kwargs,
+    **layout)``.
 
-    ``kwargs`` are the function's parameters (initial state, rounds);
+    ``kwargs`` are the function's parameters (initial state, rounds, mode);
     ``layout`` is where the kernel keeps its table and state, which does
-    not change the result. ``ops`` is the integer operations per lane and
-    iteration, ``words`` the int32 words per lane that the function moves
-    once (table, ring, state, output). ``seeded`` is the range of a seeded
-    random input."""
+    not change the result; ``iters`` is the tool's iteration count.
+    ``ops`` is the integer operations per lane (thread) and iteration,
+    ``words`` the 4-byte words per lane that the function moves once
+    (inputs read once, outputs written once), or a function of the inputs
+    that counts the words those inputs need, where the walk depends on the
+    data. ``seeded`` is one range per input for a seeded random one
+    (drawn, then wrapped to the input's type)."""
 
     wrapper: Callable
     view: Callable
     kwargs: dict
     layout: dict
-    ops: int
-    words: int
+    ops: float
+    words: Union[float, Callable]
     seeded: tuple
+    iters: int = probes.ITERS
 
-    def __call__(self, x, **kw):
-        """The row on ``x``; ``kw`` may override the parameters."""
-        return self.wrapper(self.view(x), **{**self.kwargs, **self.layout,
-                                             **kw})
+    def __call__(self, *xs, **kw):
+        """The row on its inputs; ``kw`` may override the parameters."""
+        return self.wrapper(*self.view(*xs), **{
+            "iters": self.iters, **self.kwargs, **self.layout, **kw})
 
-    def plain(self, x, **kw):
-        """The plain PyTorch version, on ``x``'s device."""
-        return self.wrapper.reference(self.view(x), **{**self.kwargs, **kw})
+    def plain(self, *xs, **kw):
+        """The plain PyTorch version, on the inputs' device."""
+        return self.wrapper.reference(*self.view(*xs), **{
+            "iters": self.iters, **self.kwargs, **kw})
 
-    def seeded_input(self, like, seed: int):
-        """A random input of ``like``'s shape and device, from ``seed``."""
-        a = np.random.default_rng(seed).integers(
-            *self.seeded, size=tuple(like.shape), dtype=np.int32)
-        return torch.from_numpy(a).to(like.device)
+    def words_for(self, *xs) -> float:
+        return self.words(*xs) if callable(self.words) else self.words
+
+    def seeded_inputs(self, like: tuple, seed: int) -> tuple:
+        """Random inputs of ``like``'s shapes, types and device, from
+        ``seed``."""
+        rng = np.random.default_rng(seed)
+        out = []
+        for t, (lo, hi) in zip(like, self.seeded):
+            wide = lo < -2**31 or hi > 2**31
+            a = rng.integers(lo, hi, size=tuple(t.shape),
+                             dtype=np.int64 if wide else np.int32)
+            out.append(torch.from_numpy(a.astype(_NUMPY[t.dtype]))
+                       .to(t.device))
+        return tuple(out)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,12 +107,16 @@ def card_peaks(device) -> Peaks:
                  HBM_BYTES_PER_S)
 
 
-def bound(fn: Probe, lanes: int, iters: int, peaks: Peaks) -> tuple:
+def bound(fn: Probe, lanes: int, iters: int, peaks: Peaks,
+          xs: tuple = ()) -> tuple:
     """(ms, "bytes" or "operations", bytes ms, operations ms): the least
-    time of ``iters`` iterations over ``lanes`` lanes, operations over the
-    INT32 rate of :func:`card_peaks` (a lower estimate of the rate, so the
-    operations' time is an upper estimate of their floor)."""
-    t_bytes = 4 * fn.words * lanes / peaks.bytes_per_s
+    time of ``iters`` iterations over ``lanes`` lanes (threads: one per
+    output element where the work is per element, one for a single
+    chain) on the inputs ``xs``, operations over the INT32 rate of
+    :func:`card_peaks` (a lower estimate of the rate, so the operations'
+    time is an upper estimate of their floor). For a single thread this is
+    a throughput figure that one dependent chain cannot approach."""
+    t_bytes = 4 * fn.words_for(*xs) * lanes / peaks.bytes_per_s
     t_ops = fn.ops * lanes * iters / peaks.int32_ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations",
@@ -122,31 +146,32 @@ def median_ms(call, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def measure(name: str, fn: Probe, x, lanes: int, *, what: str = "tool",
-            peaks: Peaks | None = None) -> dict:
-    """Time one row on one input. On the card: the first call (with the
-    library's build when it is the first), the median of 5 at the tools'
-    ITERS (``ms``: the whole wrapper call, its copy of the table and its
-    state set-up included), at 0 iterations (``setup_ms``: that set-up and
-    an empty launch) and at LONG_ITERS, and the slope between ITERS and
-    LONG_ITERS (set-up and launch drop out). On the CPU: one call of the
-    plain version."""
-    its = probes.ITERS
+def measure(name: str, fn: Probe, xs: tuple, lanes: int, *,
+            what: str = "tool", peaks: Peaks | None = None) -> dict:
+    """Time one row on one set of inputs. On the card: the first call
+    (with the library's build when it is the first), the median of 5 at
+    the tool's iterations (``ms``: the whole wrapper call, its copy of the
+    table and its state set-up included), at 0 iterations (``setup_ms``:
+    that set-up and an empty launch) and at LONG_ITERS, and the slope
+    between the two (set-up and launch drop out). On the CPU: one call of
+    the plain version."""
+    its = fn.iters
+    dev = xs[0].device
     r = {"name": name, "input": what, "kernel": fn.wrapper.__name__,
-         "lanes": lanes, "device": str(x.device)}
+         "lanes": lanes, "iters": its, "device": str(dev)}
     t = time.perf_counter()
-    fn(x)
-    if x.device.type == "cuda":
-        torch.cuda.synchronize(x.device)
+    fn(*xs)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
         r["first_s"] = time.perf_counter() - t
-        r["ms"] = median_ms(lambda: fn(x))
-        r["setup_ms"] = median_ms(lambda: fn(x, iters=0))
-        r["ms_long"] = median_ms(lambda: fn(x, iters=LONG_ITERS))
+        r["ms"] = median_ms(lambda: fn(*xs))
+        r["setup_ms"] = median_ms(lambda: fn(*xs, iters=0))
+        r["ms_long"] = median_ms(lambda: fn(*xs, iters=LONG_ITERS))
         r["ns_per_iter"] = ((r["ms_long"] - r["ms"]) * 1e6
                             / (LONG_ITERS - its))
         r["cycles_per_iter"] = r["ns_per_iter"] * peaks.clock_mhz / 1e3
         r["cycles_per_op"] = r["cycles_per_iter"] / fn.ops
-        b = bound(fn, lanes, its, peaks)
+        b = bound(fn, lanes, its, peaks, xs)
         r["bound_ms"], r["bound_by"] = b[0], b[1]
     else:
         r["ms"] = (time.perf_counter() - t) * 1e3
@@ -175,11 +200,11 @@ def run(rows, device, *, seed: int | None = None) -> list:
     results = []
     for i, (name, build) in enumerate(rows):
         fn, args, lanes = build(device)
-        inputs = [("tool", args[0])]
+        inputs = [("tool", args)]
         if seed is not None:
-            inputs.append(("seeded", fn.seeded_input(args[0], seed + i)))
-        for what, x in inputs:
-            r = measure(name, fn, x, lanes, what=what, peaks=peaks)
+            inputs.append(("seeded", fn.seeded_inputs(args, seed + i)))
+        for what, xs in inputs:
+            r = measure(name, fn, xs, lanes, what=what, peaks=peaks)
             print(row_text(r), flush=True)
             results.append(r)
     return results

@@ -35,26 +35,26 @@ def _table(s_dim, device):
 
 def y1(s_dim=S, device=None):
     """State in one [NST, S, 128] memory array."""
-    fn = Probe(probes.bitdecode_chain, lambda x: x, {"init": probes.Y_INIT},
-               {"state": "slots"}, probes.BITDECODE_OPS, ROWS + NST + 1,
-               _PROBS)
+    fn = Probe(probes.bitdecode_chain, lambda x: (x,),
+               {"init": probes.Y_INIT}, {"state": "slots"},
+               probes.BITDECODE_OPS, ROWS + NST + 1, (_PROBS,))
     return fn, (_table(s_dim, device),), s_dim * 128
 
 
 def y2(device=None):
     """State in four [S, 128] memory arrays."""
-    fn = Probe(probes.bitdecode_chain, lambda x: x, {"init": probes.Y_INIT},
-               {"state": "arrays"}, probes.BITDECODE_OPS, ROWS + 4 + 1,
-               _PROBS)
+    fn = Probe(probes.bitdecode_chain, lambda x: (x,),
+               {"init": probes.Y_INIT}, {"state": "arrays"},
+               probes.BITDECODE_OPS, ROWS + 4 + 1, (_PROBS,))
     return fn, (_table(S, device),), S * 128
 
 
 def y4(s_dim=8, nops=500, device=None):
     """nops // 3 tiny-op rounds, the bit decode and the ring window."""
     rounds = nops // 3
-    fn = Probe(probes.realweight_step, lambda x: x, {"rounds": rounds}, {},
-               probes.realweight_ops(rounds),
-               ROWS + probes.RING + 16 + 1, _PROBS)
+    fn = Probe(probes.realweight_step, lambda x: (x,), {"rounds": rounds},
+               {}, probes.realweight_ops(rounds),
+               ROWS + probes.RING + 16 + 1, (_PROBS,))
     return fn, (_table(s_dim, device),), s_dim * 128
 
 

@@ -21,6 +21,7 @@ import os
 import re
 
 import pytest
+import torch
 
 import lzma_rs_tpu
 import lzma_rs_tpu_torch
@@ -271,19 +272,28 @@ def decode_cases():
     }
 
 
-def outcome(pkg, stats, fn, data):
+def outcome(pkg, stats, fn, data, *args):
     with stats.collect() as s:
         try:
-            out = getattr(pkg, fn)(data)
+            out = getattr(pkg, fn)(data, *args)
         except Exception as e:  # the parity object under test
             out = error_key(e)
     return out, s.fallbacks
 
 
-@pytest.mark.parametrize("backend", ["native", "spec"])
+@pytest.mark.parametrize("backend", ["native", "spec", "auto",
+                                     "auto-gate-open"])
 @pytest.mark.parametrize("case", list(decode_cases()))
 def test_decode_equals_the_original(case, backend, monkeypatch):
+    """``auto`` runs on a host without a card, with the small-workload
+    gate as it is and opened (every stream then passes it)."""
     fn, data = decode_cases()[case]
+    if backend.startswith("auto"):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        if backend == "auto-gate-open":
+            monkeypatch.setenv("LZMA_RS_TPU_AUTO_MIN_LANES", "1")
+            monkeypatch.setenv("LZMA_RS_TPU_AUTO_MIN_OUT", "1")
+        backend = "auto"
     monkeypatch.setenv("LZMA_RS_TPU_BACKEND", backend)
     got = outcome(lzma_rs_tpu_torch, port_stats, fn, data)
     want = outcome(lzma_rs_tpu, jax_stats, fn, data)
@@ -292,3 +302,40 @@ def test_decode_equals_the_original(case, backend, monkeypatch):
         assert got[0] == DATA[:4000]
     else:
         assert isinstance(got[0], tuple), got[0][:40]
+
+
+def raw_cases():
+    """Raw LZMA streams that the device engines leave to the host: an
+    unknown size (end marker), lc+lp = 5 (a known-size stream's header
+    rewritten to lc=4, lp=1) and a memlimit."""
+    small = DATA[:4000]
+    sized = lzma_rs_tpu.lzma_compress_with_options(
+        small, jax_options.CompressOptions(
+            jax_options.WriteUnpackedSize.write_to_header(len(small))))
+    wide = bytearray(sized)
+    wide[0] = (2 * 5 + 1) * 9 + 4  # pb=2, lp=1, lc=4
+    return {"unknown-size": (lzma_rs_tpu.lzma_compress(small), None),
+            "lc+lp=5": (bytes(wide), None),
+            "memlimit": (sized, 1 << 20)}
+
+
+@pytest.mark.parametrize("case", list(raw_cases()))
+def test_raw_lzma_off_the_device_equals_the_original(case, monkeypatch):
+    """``cuda`` (with a card that ``cuda_device`` pretends is there)
+    against the JAX package's ``tpu``: the same bytes or error, and the
+    same ``stats.fallbacks`` (none)."""
+    data, memlimit = raw_cases()[case]
+    monkeypatch.setattr(runtime, "cuda_device",
+                        lambda device=None: torch.device("cpu"))
+
+    def run(pkg, stats, options, backend):
+        monkeypatch.setenv("LZMA_RS_TPU_BACKEND", backend)
+        return outcome(pkg, stats, "lzma_decompress_with_options", data,
+                       options.Options(memlimit=memlimit))
+
+    got = run(lzma_rs_tpu_torch, port_stats, port_options, "cuda")
+    want = run(lzma_rs_tpu, jax_stats, jax_options, "tpu")
+    assert got == want
+    assert got[1] == []
+    if case != "lc+lp=5":
+        assert got[0] == DATA[:4000]

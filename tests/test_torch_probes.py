@@ -392,11 +392,12 @@ def test_the_tools_list_the_tpu_probes_rows():
 
 @pytest.mark.parametrize("edited,changed", (
     ("probes.cu", "probes"), ("probe_lane.cuh", "probes"),
-    ("lzma_lane.cuh", "segdec"), ("decode_segments.cu", "segdec")))
+    ("lzma_lane.cuh", "segdec"), ("decode_segments.cu", "segdec"),
+    ("probes_mosaic.cu", "mosaic"), ("probe_mosaic.cuh", "mosaic")))
 def test_an_edit_rebuilds_only_its_library(edited, changed, tmp_path):
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
-    libs = (build.SEGDEC, build.PROBES)
+    libs = build.LIBRARIES
     before = {lib.name: build.source_hash(lib, str(csrc)) for lib in libs}
     with open(csrc / edited, "a") as f:
         f.write("\n// edited\n")
@@ -407,14 +408,14 @@ def test_an_edit_rebuilds_only_its_library(edited, changed, tmp_path):
 def test_each_library_has_its_own_cached_file(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
     paths = []
-    for lib in (build.SEGDEC, build.PROBES):
+    for lib in build.LIBRARIES:
         path = tmp_path / f"liblzl_{lib.name}-{build.source_hash(lib)}.so"
         path.write_bytes(b"")
         paths.append(str(path))
     # cached: no nvcc is asked for
     monkeypatch.setattr(build, "_nvcc", lambda: pytest.fail("nvcc called"))
     assert [build.build_library(lib).path
-            for lib in (build.SEGDEC, build.PROBES)] == paths
+            for lib in build.LIBRARIES] == paths
 
 
 @pytest.fixture
@@ -434,8 +435,8 @@ def test_kernel_equals_plain_version_on_card(row, cuda_device):
     seeded one from a seeded start."""
     fn, args, _ = dict(ALL_ROWS)[row](cuda_device)
     before = fn.wrapper.launches
-    x = fn.seeded_input(args[0], 7)
-    lanes = tuple(fn.view(x).shape[1:])
+    x, = fn.seeded_inputs(args, 7)
+    lanes = tuple(fn.view(x)[0].shape[1:])
     runs = [(args[0], {}), (x, {})]
     if fn.wrapper is probes.bitdecode_chain:
         runs.append((x, {"init": tuple(lane_words(4, 8, lanes).cuda())}))

@@ -1,0 +1,414 @@
+"""The mosaic probe kernels of the port against the JAX package's probes.
+
+- Each of the twelve Pallas functions of ``tools/probe_mosaic.py`` and
+  ``tools/probe_mosaic2.py`` (imported by path: ``tools/`` is not a
+  package), run in interpret mode at every row of the tool, against its
+  counterpart in ``lzma_rs_tpu_torch/tools/`` on the CPU (the plain
+  versions of ``ops/probes_mosaic.py``): exact equality of the output and,
+  for ``probe_mosaic2``, of the final table and carry (its
+  ``while_loop`` opened by ``test_torch_probes.OpenLoop``), on the tool's
+  own input and on two seeded ones: every input over its type's full
+  range ("wide"), and int32 inputs within 1,024 of +-2^31 ("edge": start
+  indices that wrap in int32 before the floor mod, sums and +1 that
+  wrap). The tools' own inputs are all-ones or ``arange`` tables that
+  show neither.
+- Small-W cases whose writes are read back (at the tools' W none is):
+  E and D at W = 64 (512 steps), p3 and p6 at W = 64 with 200 steps.
+- A g++ build of ``csrc/probe_mosaic.cuh`` (``-DLZP_HOST_ENTRY``, the C
+  interface of ``csrc/probes_mosaic.cu`` as host loops) against the plain
+  versions, for every mode and element type: output and final table.
+- The wrappers' checks, the tools' command lines, p6's row count for the
+  bound, and (marked ``cuda``) each kernel against its plain version on
+  the card. (``ops/build.py``'s per-library hash, the ``mosaic`` library
+  included, is ``test_torch_probes.py``'s.)
+
+JAX is imported only by the tests that run the Pallas probes, so the
+``cuda`` tests run on a machine without it.
+"""
+
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from lzma_rs_tpu_torch.ops import build
+from lzma_rs_tpu_torch.ops import probes_mosaic as pm
+from lzma_rs_tpu_torch.tools import probe_mosaic, probe_mosaic2, probe_rows
+
+from test_torch_probes import (TOOLS, assert_same, jax_tool,  # noqa: F401
+                               pallas)
+
+REPO = os.path.dirname(TOOLS)
+HEADER = os.path.join(REPO, "lzma_rs_tpu_torch", "csrc", "probe_mosaic.cuh")
+INT32 = (-2**31, 2**31)
+NEAR_LIMIT = (2**31 - 1024, 2**31 + 1024)
+NP = {torch.int32: np.int32, torch.uint8: np.uint8}
+
+
+def tpu_row_names(tool: str) -> list:
+    """The row names of ``tools/<tool>.py``'s ``main`` list, in order."""
+    with open(os.path.join(TOOLS, f"{tool}.py")) as f:
+        return re.findall(r'^\s*\("([A-FP]\d? [^"]+)",', f.read(), re.M)
+
+
+def seeded(like: tuple, kind: str, seed: int) -> tuple:
+    """Numpy inputs of ``like``'s shapes and types: "wide" over the type's
+    full range, "edge" (int32) within 1,024 of +-2^31."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for t in like:
+        if t.dtype == torch.uint8:
+            lo, hi = 0, 256
+        else:
+            lo, hi = INT32 if kind == "wide" else NEAR_LIMIT
+        a = rng.integers(lo, hi, size=tuple(t.shape), dtype=np.int64)
+        out.append(a.astype(NP[t.dtype]))
+    return tuple(out)
+
+
+# probe_mosaic: row -> (function, the shape arguments, dtype). The JAX
+# function takes (*shape, [dtype,] interpret), the port's (*shape,
+# [dtype,] device).
+MOSAIC_ROWS = {
+    **{f"A gather-minor [{L},{W}] {t}": ("probe_gather_minor", (L, W), t)
+       for L, W, t in ((8, 128, "i32"), (128, 128, "i32"), (8, 1024, "i32"),
+                       (128, 1024, "i32"), (8, 128, "u8"))},
+    **{f"B gather-sublane [{R},128] i32":
+       ("probe_gather_sublane", (R, 128), "i32") for R in (8, 64, 512)},
+    **{f"C onehot-read [128,{W}] i32": ("probe_onehot_read", (128, W), "i32")
+       for W in (768, 2048)},
+    **{f"D onehot-write [128,{W}] i32":
+       ("probe_onehot_write", (128, W), "i32") for W in (768, 2048)},
+    "E scalar-rw [1,4096]": ("probe_scalar_rw", (4096,), None),
+    **{f"F dynrow pl.ds [{R},128]": ("probe_dynrow", (R, 128), None)
+       for R in (512, 4096)},
+    # small W: the writes are read back
+    "E scalar-rw [1,64]": ("probe_scalar_rw", (64,), None),
+    "D onehot-write [128,64] i32": ("probe_onehot_write", (128, 64), "i32"),
+}
+MOSAIC2_ROWS = {name: (name.split()[0].lower(), None)
+                for name in tpu_row_names("probe_mosaic2")}
+MOSAIC2_ROWS.update({  # (W, ITERS): the idx wraps, p3's writes are read
+    "P3 W=64 200 steps": ("p3", (64, 200)),
+    "P6 W=64 200 steps": ("p6", (64, 200)),
+})
+INPUTS = ("tool", "wide", "edge")
+
+
+def test_the_rows_are_the_tpu_tools_rows():
+    assert [n for n, _ in probe_mosaic.ROWS_OF_TOOL] == \
+        tpu_row_names("probe_mosaic") == [
+            n for n in MOSAIC_ROWS if not n.endswith(("[1,64]", ",64] i32"))]
+    assert [n for n, _ in probe_mosaic2.ROWS_OF_TOOL] == \
+        tpu_row_names("probe_mosaic2")
+    assert len(MOSAIC_ROWS) == 17 and len(MOSAIC2_ROWS) == 8
+
+
+def check_equal(got, want, what: str):
+    got = got.numpy()
+    assert got.dtype == want.dtype, what
+    assert got.size == want.size, what
+    assert np.array_equal(got, want.reshape(got.shape)), what
+
+
+@pytest.mark.parametrize("kind", INPUTS)
+@pytest.mark.parametrize("row", MOSAIC_ROWS)
+def test_mosaic_port_equals_the_pallas_probe(row, kind):
+    import jax
+    import jax.numpy as jnp
+
+    fname, shape, t = MOSAIC_ROWS[row]
+    jdt = {"i32": (jnp.int32,), "u8": (jnp.uint8,), None: ()}[t]
+    pdt = {"i32": (torch.int32,), "u8": (torch.uint8,), None: ()}[t]
+    jfn, jargs = getattr(jax_tool("probe_mosaic"), fname)(*shape, *jdt, True)
+    pfn, pargs, _ = getattr(probe_mosaic, fname)(*shape, *pdt, device="cpu")
+    assert pfn.iters == jax_tool("probe_mosaic").ITERS
+    assert [tuple(a.shape) for a in pargs] == [a.shape for a in jargs]
+    if kind == "tool":
+        xs = tuple(np.array(a) for a in jargs)
+        for p, x in zip(pargs, xs):
+            check_equal(p, x, "the tool's input")
+    else:
+        xs = seeded(pargs, kind, sorted(MOSAIC_ROWS).index(row))
+    want = np.asarray(jax.block_until_ready(jfn(*map(jnp.asarray, xs))))
+    got, full = pfn(*map(torch.from_numpy, xs), full=True)
+    check_equal(got, want, "out")
+    if kind != "tool" and fname == "probe_onehot_write":
+        # the edge input's +1 wraps at 2^31 - 1 somewhere
+        assert (xs[0] == 2**31 - 1).any() or kind == "wide"
+
+
+def pallas_final(fname: str, final: dict, iters: int) -> dict:
+    """The Pallas probe's final table and carry as the port's ``full``
+    entries: ``state`` is [acc, idx] (p1-p3, p6), p4's acc rows, or
+    [total, mask] (p5)."""
+    carry = final["carry"]
+    if fname == "p4":  # carry i, acc [2, L]
+        assert int(carry[0]) == iters
+        return {"state": carry[1]}
+    if fname == "p5":  # carry i, mask, acc
+        assert int(carry[0]) == iters
+        return {"table": final["x_ref"],
+                "state": np.stack([carry[2], carry[1]])}
+    idx, i, acc = carry
+    assert int(i) == iters
+    res = {"state": np.stack([acc.reshape(-1), idx.reshape(-1)])}
+    if fname == "p3":
+        res["table"] = final["x_ref"]
+    return res
+
+
+@pytest.mark.parametrize("kind", INPUTS)
+@pytest.mark.parametrize("row", MOSAIC2_ROWS)
+def test_mosaic2_port_equals_the_pallas_probe(row, kind, pallas,  # noqa: F811
+                                              monkeypatch):
+    import jax
+    import jax.numpy as jnp
+
+    fname, small = MOSAIC2_ROWS[row]
+    tool = jax_tool("probe_mosaic2")
+    if small is not None:
+        for mod in (tool, probe_mosaic2):
+            monkeypatch.setattr(mod, "W", small[0])
+            monkeypatch.setattr(mod, "ITERS", small[1])
+    jfn, jargs = getattr(tool, fname)()
+    pfn, pargs, lanes = getattr(probe_mosaic2, fname)(device="cpu")
+    assert lanes == tool.L and pfn.iters == tool.ITERS
+    if kind == "tool":
+        xs = (np.array(jargs[0]),)
+        check_equal(pargs[0], xs[0], "the tool's input")
+    else:
+        xs = seeded(pargs, kind, sorted(MOSAIC2_ROWS).index(row))
+    want = jfn(jnp.asarray(xs[0]))
+    jax.block_until_ready(want)
+    jax.effects_barrier()
+    got, full = pfn(torch.from_numpy(xs[0]), full=True)
+    check_equal(got, np.asarray(want), "out")
+    final = pallas_final(fname, pallas.final, tool.ITERS)
+    assert full.keys() == final.keys()
+    for k, w in final.items():
+        check_equal(full[k], w, k)
+
+
+def test_the_tools_inputs_show_no_wrap():
+    """Why the seeded inputs: on the tools' own inputs row A's u8 sum is 0
+    everywhere and p1-p3 never clamp."""
+    fn, args, _ = probe_mosaic.probe_gather_minor(8, 128, torch.uint8,
+                                                  device="cpu")
+    assert fn(*args).eq(0).all()
+    fn, args, _ = probe_mosaic2.p1(device="cpu")
+    assert fn(*args).eq(probe_mosaic2.ITERS).all()
+
+
+# -- the g++ build of the header -----------------------------------------
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++")
+    so = str(tmp_path_factory.mktemp("lzm") / "liblzm_host.so")
+    subprocess.run(
+        [gxx, "-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC",
+         "-Wall", "-Werror", "-DLZP_HOST_ENTRY", HEADER, "-o", so],
+        check=True, capture_output=True, timeout=120,
+    )
+    return build.bind_mosaic(ctypes.CDLL(so))
+
+
+def ints(shape, seed: int, lo_hi=INT32, dtype=torch.int32):
+    a = np.random.default_rng(seed).integers(*lo_hi, size=shape,
+                                             dtype=np.int64)
+    return torch.from_numpy(a.astype(NP[dtype]))
+
+
+# gather_sum's starts over x [24, 40]: (shape, mod, stride, range) for
+# each axis; the outputs of the first case have x's shape (A, B)
+GATHER_STARTS = {
+    "minor": (((24, 40), 40, 1, NEAR_LIMIT), ((10, 3), 7, 13, INT32),
+              ((24, 1), 23, -5, NEAR_LIMIT)),
+    "major": (((24, 40), 24, 1, NEAR_LIMIT), ((5, 40), 7, 13, INT32),
+              ((1, 40), 23, -5, NEAR_LIMIT)),
+}
+
+
+@pytest.mark.parametrize("dtype", (torch.int32, torch.uint8))
+@pytest.mark.parametrize("axis", pm.AXES)
+def test_host_build_gather_sum(axis, dtype, host_lib):
+    x = ints((24, 40), 1, (0, 256) if dtype == torch.uint8 else INT32, dtype)
+    for i, (shape, mod, stride, lo_hi) in enumerate(GATHER_STARTS[axis]):
+        start = ints(shape, 2 + i, lo_hi)
+        kw = {"axis": axis, "mod": mod, "stride": stride, "iters": 300,
+              "full": True}
+        assert_same(pm.launch_gather_sum(host_lib, x, start, **kw),
+                    pm.gather_sum_reference(x, start, **kw))
+
+
+@pytest.mark.parametrize("mode", pm.RW_MODES)
+def test_host_build_rw_chain(mode, host_lib):
+    for i, (W, lo_hi) in enumerate(((64, INT32), (37, NEAR_LIMIT),
+                                    (4096, INT32))):
+        rows = 1 if mode == "scalar" else 9
+        x = ints((rows, W), 10 + i, lo_hi)
+        start = None if mode == "scalar" else ints((rows,), 20 + i,
+                                                   NEAR_LIMIT)
+        kw = {"mode": mode, "iters": 700, "full": True}
+        got = pm.launch_rw_chain(host_lib, x, start, **kw)
+        assert_same(got, pm.rw_chain_reference(x, start, **kw))
+        if mode == "scalar" and W == 64:  # the writes are read back
+            assert not torch.equal(got[1]["table"], x)
+
+
+@pytest.mark.parametrize("mode", pm.ROW_MODES)
+def test_host_build_row_chain(mode, host_lib):
+    for i, (W, lo_hi) in enumerate(((64, INT32), (100, NEAR_LIMIT),
+                                    (2048, (-4, 12)))):
+        x = ints((W, 70), 30 + i, lo_hi)
+        kw = {"mode": mode, "iters": 250, "full": True}
+        assert_same(pm.launch_row_chain(host_lib, x, **kw),
+                    pm.row_chain_reference(x, **kw))
+
+
+@pytest.mark.parametrize("mode", pm.SEGMENT_MODES)
+def test_host_build_segment_chain(mode, host_lib):
+    for i, (W, lo_hi) in enumerate(((64, INT32), (8, NEAR_LIMIT),
+                                    (2048, INT32))):
+        x = ints((W, 70), 40 + i, lo_hi)
+        kw = {"mode": mode, "iters": 41, "full": True}
+        assert_same(pm.launch_segment_chain(host_lib, x, **kw),
+                    pm.segment_chain_reference(x, **kw))
+
+
+def test_host_build_refuses_bad_arguments(host_lib):
+    x = torch.zeros((8, 4), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="bad argument"):
+        pm.launch_row_chain(host_lib, x, mode="clamp", iters=-1)
+    with pytest.raises(RuntimeError, match="bad argument"):
+        pm.launch_gather_sum(host_lib, x, x, axis="minor", mod=5, iters=1)
+
+
+# -- the wrappers and the tools ------------------------------------------
+
+
+def test_wrappers_on_the_cpu_take_the_plain_version():
+    before = [w.launches for w in pm.WRAPPERS]
+    x = ints((16, 8), 50)
+    kept = x.clone()
+    start = ints((16, 8), 51, NEAR_LIMIT)
+    assert torch.equal(
+        pm.gather_sum(x, start, axis="minor", mod=8, iters=9),
+        pm.gather_sum_reference(x, start, axis="minor", mod=8, iters=9))
+    assert torch.equal(pm.rw_chain(x, start[:, 0], mode="rows", iters=9),
+                       pm.rw_chain_reference(x, start[:, 0], mode="rows",
+                                             iters=9))
+    for mode in pm.ROW_MODES:
+        assert torch.equal(pm.row_chain(x, mode=mode, iters=30),
+                           pm.row_chain_reference(x, mode=mode, iters=30))
+    for mode in pm.SEGMENT_MODES:
+        assert torch.equal(pm.segment_chain(x, mode=mode, iters=9),
+                           pm.segment_chain_reference(x, mode=mode,
+                                                      iters=9))
+    assert [w.launches for w in pm.WRAPPERS] == before
+    assert torch.equal(x, kept)  # no wrapper changes its input
+
+
+BAD = {
+    "dtype": lambda x, s: pm.row_chain(x.long(), mode="clamp", iters=1),
+    "u8 start": lambda x, s: pm.gather_sum(x, s.to(torch.uint8),
+                                           axis="minor", mod=4, iters=1),
+    "dims": lambda x, s: pm.row_chain(x[0], mode="clamp", iters=1),
+    "device": lambda x, s: pm.segment_chain(
+        torch.zeros((8, 4), dtype=torch.int32, device="meta"),
+        mode="refill", iters=1),
+    "mode": lambda x, s: pm.row_chain(x, mode="onehot", iters=1),
+    "iters": lambda x, s: pm.segment_chain(x, mode="refill", iters=-1),
+    "mod": lambda x, s: pm.gather_sum(x, s, axis="minor", mod=5, iters=1),
+    "axis": lambda x, s: pm.gather_sum(x, s, axis="rows", mod=4, iters=1),
+    "start rows": lambda x, s: pm.gather_sum(x, torch.cat([s, s]),
+                                             axis="minor", mod=4, iters=1),
+    "start cols": lambda x, s: pm.gather_sum(x, s[:, :3], axis="major",
+                                             mod=4, iters=1),
+    "rw start": lambda x, s: pm.rw_chain(x, s[:4, 0], mode="rows", iters=1),
+    "scalar rows": lambda x, s: pm.rw_chain(x, mode="scalar", iters=1),
+    "segment rows": lambda x, s: pm.segment_chain(x[:6], mode="segments",
+                                                  iters=1),
+}
+
+
+@pytest.mark.parametrize("bad", BAD)
+def test_wrappers_reject_what_the_kernel_does_not_take(bad):
+    x, s = ints((8, 4), 60), ints((8, 4), 61)
+    with pytest.raises(ValueError):
+        BAD[bad](x, s)
+
+
+@pytest.mark.parametrize("tool,which", ((probe_mosaic, "E"),
+                                        (probe_mosaic2, "P4")))
+def test_tool_entry_points_run_on_the_card_unless_asked(tool, which):
+    """The tools' functions default to the card, and the command line
+    stops without one; ``--device cpu`` runs the plain versions."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises((RuntimeError, AssertionError)):
+        tool.ROWS_OF_TOOL[0][1](None)
+    with pytest.raises(SystemExit):
+        probe_rows.main(tool.ROWS_OF_TOOL, [which])
+    rows = probe_rows.main(tool.ROWS_OF_TOOL,
+                           [which, "--device", "cpu", "--seed", "1"])
+    name = [n for n, _ in tool.ROWS_OF_TOOL if n.startswith(which)][0]
+    assert [(r["name"], r["input"]) for r in rows] == [
+        (name, "tool"), (name, "seeded")]
+
+
+def test_p6_counts_the_rows_its_walk_reads():
+    x = torch.ones((2048, 128), dtype=torch.int32)
+    # all-ones: the walk reads bytes 1, 0, 0, 1, ...: idx 0, 2, 3, 4, 6, ...
+    rows = pm.byte_rows_read(x, 64)
+    assert rows == 128 * len({i >> 2 for i in _walk_ones(64)})
+    fn, args, lanes = probe_mosaic2.p6(device="cpu")
+    assert fn.words_for(*args) == rows / lanes + 1
+
+
+def _walk_ones(iters):
+    idx, seen = 0, []
+    for _ in range(iters):
+        seen.append(idx)
+        idx += (1 >> (8 * (idx & 3))) + 1
+    return seen
+
+
+# -- on the card ---------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+ALL_ROWS = probe_mosaic.ROWS_OF_TOOL + probe_mosaic2.ROWS_OF_TOOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", [w.__name__ for w in pm.WRAPPERS])
+def test_kernel_equals_plain_version_on_card(kernel, cuda_device):
+    """Every row of the kernel, on the tool's input and a seeded one."""
+    wrapper = getattr(pm, kernel)
+    before, runs = wrapper.launches, 0
+    for i, (name, make) in enumerate(ALL_ROWS):
+        fn, args, _ = make(cuda_device)
+        if fn.wrapper is not wrapper:
+            continue
+        for xs in (args, fn.seeded_inputs(args, 70 + i)):
+            got = fn(*xs, full=True)
+            torch.cuda.synchronize()
+            assert_same(got, fn.plain(*xs, full=True))
+            runs += 1
+    assert runs and wrapper.launches == before + runs
