@@ -50,9 +50,19 @@ builds the segment-decoder kernel and the probe kernels from
    +-2^31, so they wrap in int32 before the floor mod), timed as in
    phase 7 at the tool's own iterations (512, 64), 8,192 and 0; then each
    row's kernel against its plain version on both inputs, bit for bit
-   (output, final table, carried state).
+   (output, final table, carried state);
+9. the mosaic3 probe kernels (``csrc/probes_mosaic3.cu``): the 12 rows of
+   ``lzma_rs_tpu_torch/tools/probe_mosaic3.py`` on the tool's input and
+   on a seeded one (tables over the full int32 range; P7-P9 from a start
+   with one lane at -2^30, so every iteration runs; P11 from a start over
+   the full int32 range), timed as in phase 8 at 64 iterations, 8,192
+   and 0 (per iteration run: from the tool's zeros P7-P9 leave after 10
+   at both counts, and have no slope); each row's kernel against its
+   plain version on both inputs, bit for bit (output, carried state,
+   P16's scratch); and whether nvcc made one SASS of P11a's variable
+   shift and P11b's select (``cuobjdump -sass``).
 
-The three kernel libraries build in parallel (one nvcc per library, with
+The four kernel libraries build in parallel (one nvcc per library, with
 the native host library's g++) in phase 2.
 
 Every phase checks its result; any failure exits nonzero before the result
@@ -71,6 +81,8 @@ import hashlib
 import json
 import lzma
 import os
+import re
+import shutil
 import subprocess
 import sys
 import sysconfig
@@ -270,6 +282,29 @@ MOSAIC_MAIN_ROW = {
     "row_chain": "P6 packed-word read + shift extract",
     "segment_chain": "P5 static-slice swap with carried mask",
 }
+MOSAIC3_REPLACES = {
+    "vote_chain": ["tools/probe_mosaic3.py:42"],
+    "byte_chain": ["tools/probe_mosaic3.py:42"],
+    "onehot_chain": ["tools/probe_mosaic3.py:42"],
+    "window_chain": [f"tools/probe_mosaic3.py:{n}" for n in (42, 289)],
+}
+# (row, input): P7 on the seeded start, where every iteration runs
+MOSAIC3_MAIN_ROW = {
+    "vote_chain": ("P7 cond: jnp.any over carried vec", "seeded"),
+    "byte_chain": "P11a variable per-lane shift",
+    "onehot_chain": "P12m one-hot max-reduce [2048,128]",
+    "window_chain": "P16 refill mask-select + concat + scratch",
+}
+
+
+def slope_text(r: dict) -> str:
+    """A row's time per iteration run, or why it has none."""
+    if r["ns_per_iter"] is None:
+        return (f"no slope ({r['iters_run']} iterations run at both "
+                "counts)")
+    return (f"{r['ns_per_iter']:.2f} ns/iteration ({r['cycles_per_iter']:.1f}"
+            f" cycles at the max SM clock, {r['cycles_per_op']:.2f} per "
+            "counted op)")
 
 
 def probes_phase(torch, dev, phase: str, rows, wrappers, source: str,
@@ -319,30 +354,65 @@ def probes_phase(torch, dev, phase: str, rows, wrappers, source: str,
     by = {(r["name"], r["input"]): r for r in results}
     for name, _ in rows:
         t, z = by[name, "tool"], by[name, "seeded"]
-        say(f"{phase} probes", f"{name}: {t['ns_per_iter']:.2f} "
-            f"ns/iteration ({t['cycles_per_iter']:.1f} cycles at the max SM "
-            f"clock) on the tool's input, {z['ns_per_iter']:.2f} "
-            f"({z['cycles_per_iter']:.1f}) on the seeded one; "
-            f"{t['cycles_per_op']:.2f} / {z['cycles_per_op']:.2f} cycles "
-            f"per counted op; a call at {t['iters']} iterations "
-            f"{t['ms'] * 1e3:.1f} us, of which set-up "
-            f"{t['setup_ms'] * 1e3:.1f} us; {t['lanes']} threads, bound "
-            f"{t['bound_ms'] * 1e3:.3f} / {z['bound_ms'] * 1e3:.3f} us "
-            f"({t['bound_by']}); plain {plain_ms[name, 'tool']:.1f} ms")
+        say(f"{phase} probes", f"{name}: tool's input {slope_text(t)}, "
+            f"seeded {slope_text(z)}; a call at {t['iters']} iterations "
+            f"(run {t['iters_run']} / {z['iters_run']}) {t['ms'] * 1e3:.1f}"
+            f" / {z['ms'] * 1e3:.1f} us, of which set-up "
+            f"{t['setup_ms'] * 1e3:.1f} / {z['setup_ms'] * 1e3:.1f} us; "
+            f"{t['lanes']} threads, bound {t['bound_ms'] * 1e3:.3f} / "
+            f"{z['bound_ms'] * 1e3:.3f} us ({t['bound_by']} / "
+            f"{z['bound_by']}); plain {plain_ms[name, 'tool']:.1f} / "
+            f"{plain_ms[name, 'seeded']:.1f} ms")
     entries = []
     for kname, row in main_row.items():
-        r = by[row, "tool"]
+        row, what = (row, "tool") if isinstance(row, str) else row
+        r = by[row, what]
         entries.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces[kname],
             "launches": launches[kname], "max_abs_err": worst[kname],
             "ms": r["ms"], "setup_ms": r["setup_ms"],
-            "plain_ms": plain_ms[row, "tool"],
+            "plain_ms": plain_ms[row, what],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None,  # no PyTorch call computes these chains
-            "row": row, "ms_per_iter_long": r["ns_per_iter"] / 1e6,
+            "row": row, "input": what,
+            "ms_per_iter_long": (None if r["ns_per_iter"] is None
+                                 else r["ns_per_iter"] / 1e6),
         })
     return entries
+
+
+def sass_by_kernel(path: str) -> dict:
+    """Each kernel's SASS instructions in ``path`` (``cuobjdump -sass``),
+    by mangled name, the padding NOPs left out; {} without cuobjdump."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return {}
+    out = subprocess.run([exe, "-sass", path], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    kernels = {}
+    for part in out.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        ins = [" ".join(m.group(1).split())
+               for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", body)]
+        kernels[name.strip()] = [i for i in ins if i != "NOP"]
+    return kernels
+
+
+def byte_sass_text(path: str) -> str:
+    """Whether nvcc made one SASS of byte_chain's two modes (P11a's
+    variable shift, P11b's select)."""
+    sass = sass_by_kernel(path)
+    pair = [sass[k] for k in sorted(sass) if "byte_chain_kernel" in k]
+    if len(pair) != 2:
+        return f"not measured (cuobjdump found {len(pair)} byte kernels)"
+    shift, select = pair  # template argument 0 (shift) sorts first
+    if shift == select:
+        return f"one SASS, {len(shift)} instructions for both modes"
+    ops = [" ".join(next(w for w in i.split() if not w.startswith("@"))
+                    for i in k) for k in (shift, select)]
+    return (f"two SASS: shift {len(shift)} instructions [{ops[0]}], select "
+            f"{len(select)} [{ops[1]}]")
 
 
 def ptxas_summary(log: str) -> str:
@@ -481,6 +551,7 @@ def main() -> None:
     build.load()
     build.load_probes()
     build.load_mosaic()
+    build.load_mosaic3()
     for lib, b in zip(build.LIBRARIES, built_libs):
         say("2 build", f"{lib.sources[0]} -> {os.path.relpath(b.path, ROOT)}"
             f" in {b.seconds:.2f} s; {ptxas_summary(b.log)}")
@@ -719,6 +790,17 @@ def main() -> None:
         + probe_mosaic2.ROWS_OF_TOOL, probes_mosaic.WRAPPERS,
         "lzma_rs_tpu_torch/csrc/probes_mosaic.cu", MOSAIC_REPLACES,
         MOSAIC_MAIN_ROW)
+
+    # -- 9. the mosaic3 probe kernels --------------------------------
+    from lzma_rs_tpu_torch.ops import probes_mosaic3
+    from lzma_rs_tpu_torch.tools import probe_mosaic3
+
+    probe_entries += probes_phase(
+        torch, dev, "9", probe_mosaic3.ROWS_OF_TOOL, probes_mosaic3.WRAPPERS,
+        "lzma_rs_tpu_torch/csrc/probes_mosaic3.cu", MOSAIC3_REPLACES,
+        MOSAIC3_MAIN_ROW)
+    say("9 probes", "byte_chain (P11a shift, P11b select): "
+        + byte_sass_text(build.build_library(build.MOSAIC3).path))
 
     check("jax" not in sys.modules, "jax was imported")
     jax_pkg = sorted(m for m in sys.modules

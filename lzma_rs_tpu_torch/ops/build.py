@@ -4,14 +4,17 @@
 PyTorch headers: seconds, not minutes) into
 ``lzma_rs_tpu_torch/build/liblzl_<name>-<hash>.so``, where the hash covers
 that library's own sources and the flags, so an edited source rebuilds its
-library alone and an unchanged one loads at once. Three libraries:
+library alone and an unchanged one loads at once. Four libraries:
 
 - ``segdec``: the segment decoder (``decode_segments.cu`` +
   ``lzma_lane.cuh``), :func:`load`;
 - ``probes``: the lane2d and state-in-ref probe kernels (``probes.cu`` +
   ``probe_lane.cuh``), :func:`load_probes`;
 - ``mosaic``: the mosaic probe kernels (``probes_mosaic.cu`` +
-  ``probe_mosaic.cuh``), :func:`load_mosaic`.
+  ``probe_mosaic.cuh``), :func:`load_mosaic`;
+- ``mosaic3``: the mosaic3 probe kernels (``probes_mosaic3.cu`` +
+  ``probe_mosaic3.cuh``, which includes ``probe_mosaic.cuh``),
+  :func:`load_mosaic3`.
 
 Each is bound with ``ctypes``. Nothing here runs at import time; every
 failure raises, except in :func:`unavailable`, which the ``auto`` router
@@ -50,7 +53,9 @@ class Library:
 SEGDEC = Library("segdec", ("decode_segments.cu", "lzma_lane.cuh"))
 PROBES = Library("probes", ("probes.cu", "probe_lane.cuh"))
 MOSAIC = Library("mosaic", ("probes_mosaic.cu", "probe_mosaic.cuh"))
-LIBRARIES = (SEGDEC, PROBES, MOSAIC)
+MOSAIC3 = Library("mosaic3", ("probes_mosaic3.cu", "probe_mosaic3.cuh",
+                              "probe_mosaic.cuh"))
+LIBRARIES = (SEGDEC, PROBES, MOSAIC, MOSAIC3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,3 +186,27 @@ def load_mosaic() -> ctypes.CDLL:
     """Build (if needed) and bind the mosaic probe kernels; one handle per
     process."""
     return bind_mosaic(ctypes.CDLL(build_library(MOSAIC).path))
+
+
+def bind_mosaic3(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the mosaic3 library's C interface on ``lib``: the nvcc
+    build, or a g++ build of ``probe_mosaic3.cuh`` with
+    ``-DLZP_HOST_ENTRY``."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for fn, args in (
+        (lib.lzm3_vote_chain, [ci, vp, ci, vp, vp, ci, vp]),
+        (lib.lzm3_byte_chain, [ci, vp, ci, vp, ci, vp]),
+        (lib.lzm3_onehot_chain, [ci, ci, vp, ci, ci, vp, ci, vp]),
+        (lib.lzm3_window_chain, [ci, vp, ci, ci, vp, vp, ci, vp]),
+    ):
+        fn.restype, fn.argtypes = ci, args
+    lib.lzm3_error_string.restype = ctypes.c_char_p
+    lib.lzm3_error_string.argtypes = [ci]
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def load_mosaic3() -> ctypes.CDLL:
+    """Build (if needed) and bind the mosaic3 probe kernels; one handle per
+    process."""
+    return bind_mosaic3(ctypes.CDLL(build_library(MOSAIC3).path))

@@ -1,9 +1,10 @@
 """Rows of the probe tools: what a row runs, how it is timed, its bound.
 
 A probe tool (``probe_lane2d``, ``probe_state_in_ref``, ``probe_mosaic``,
-``probe_mosaic2``) is a list of rows ``(name, build)``; ``build(device)``
-returns ``(fn, args, lanes)`` as the JAX package's tools do, where ``fn``
-is a :class:`Probe`, ``args`` its inputs and ``lanes`` its threads.
+``probe_mosaic2``, ``probe_mosaic3``) is a list of rows ``(name,
+build)``; ``build(device)`` returns ``(fn, args, lanes)`` as the JAX
+package's tools do, where ``fn`` is a :class:`Probe`, ``args`` its inputs
+and ``lanes`` its threads.
 :func:`run` times every row (CUDA events on the card, the host clock for
 the plain version on the CPU) and prints the tools' columns, plus, on the
 card, the time per iteration of a long run and the least time the card
@@ -17,7 +18,7 @@ import dataclasses
 import statistics
 import subprocess
 import time
-from typing import Callable, Union
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -45,7 +46,10 @@ class Probe:
     (inputs read once, outputs written once), or a function of the inputs
     that counts the words those inputs need, where the walk depends on the
     data. ``seeded`` is one range per input for a seeded random one
-    (drawn, then wrapped to the input's type)."""
+    (drawn, then wrapped to the input's type), or a function ``(rng,
+    shape) -> array`` that draws it. ``ran``, where the loop can end early,
+    is ``ran(*inputs, iters=n)``: the iterations the function runs on those
+    inputs when asked for ``n``."""
 
     wrapper: Callable
     view: Callable
@@ -55,6 +59,7 @@ class Probe:
     words: Union[float, Callable]
     seeded: tuple
     iters: int = probes.ITERS
+    ran: Optional[Callable] = None
 
     def __call__(self, *xs, **kw):
         """The row on its inputs; ``kw`` may override the parameters."""
@@ -69,15 +74,23 @@ class Probe:
     def words_for(self, *xs) -> float:
         return self.words(*xs) if callable(self.words) else self.words
 
+    def ran_for(self, *xs, iters: int) -> int:
+        """The iterations the row runs on ``xs`` when asked for ``iters``."""
+        return iters if self.ran is None else self.ran(*xs, iters=iters)
+
     def seeded_inputs(self, like: tuple, seed: int) -> tuple:
         """Random inputs of ``like``'s shapes, types and device, from
         ``seed``."""
         rng = np.random.default_rng(seed)
         out = []
-        for t, (lo, hi) in zip(like, self.seeded):
-            wide = lo < -2**31 or hi > 2**31
-            a = rng.integers(lo, hi, size=tuple(t.shape),
-                             dtype=np.int64 if wide else np.int32)
+        for t, spec in zip(like, self.seeded):
+            if callable(spec):
+                a = spec(rng, tuple(t.shape))
+            else:
+                lo, hi = spec
+                wide = lo < -2**31 or hi > 2**31
+                a = rng.integers(lo, hi, size=tuple(t.shape),
+                                 dtype=np.int64 if wide else np.int32)
             out.append(torch.from_numpy(a.astype(_NUMPY[t.dtype]))
                        .to(t.device))
         return tuple(out)
@@ -110,14 +123,16 @@ def card_peaks(device) -> Peaks:
 def bound(fn: Probe, lanes: int, iters: int, peaks: Peaks,
           xs: tuple = ()) -> tuple:
     """(ms, "bytes" or "operations", bytes ms, operations ms): the least
-    time of ``iters`` iterations over ``lanes`` lanes (threads: one per
+    time of ``iters`` iterations (those the row runs on ``xs``, where its
+    loop can end early) over ``lanes`` lanes (threads: one per
     output element where the work is per element, one for a single
     chain) on the inputs ``xs``, operations over the INT32 rate of
     :func:`card_peaks` (a lower estimate of the rate, so the operations'
     time is an upper estimate of their floor). For a single thread this is
     a throughput figure that one dependent chain cannot approach."""
     t_bytes = 4 * fn.words_for(*xs) * lanes / peaks.bytes_per_s
-    t_ops = fn.ops * lanes * iters / peaks.int32_ops_per_s
+    t_ops = (fn.ops * lanes * fn.ran_for(*xs, iters=iters)
+             / peaks.int32_ops_per_s)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations",
             t_bytes * 1e3, t_ops * 1e3)
@@ -153,8 +168,9 @@ def measure(name: str, fn: Probe, xs: tuple, lanes: int, *,
     the tool's iterations (``ms``: the whole wrapper call, its copy of the
     table and its state set-up included), at 0 iterations (``setup_ms``:
     that set-up and an empty launch) and at LONG_ITERS, and the slope
-    between the two (set-up and launch drop out). On the CPU: one call of
-    the plain version."""
+    between the two (set-up and launch drop out), per iteration run where
+    the row's loop can end early. On the CPU: one call of the plain
+    version."""
     its = fn.iters
     dev = xs[0].device
     r = {"name": name, "input": what, "kernel": fn.wrapper.__name__,
@@ -167,10 +183,16 @@ def measure(name: str, fn: Probe, xs: tuple, lanes: int, *,
         r["ms"] = median_ms(lambda: fn(*xs))
         r["setup_ms"] = median_ms(lambda: fn(*xs, iters=0))
         r["ms_long"] = median_ms(lambda: fn(*xs, iters=LONG_ITERS))
-        r["ns_per_iter"] = ((r["ms_long"] - r["ms"]) * 1e6
-                            / (LONG_ITERS - its))
-        r["cycles_per_iter"] = r["ns_per_iter"] * peaks.clock_mhz / 1e3
-        r["cycles_per_op"] = r["cycles_per_iter"] / fn.ops
+        r["iters_run"] = fn.ran_for(*xs, iters=its)
+        r["iters_run_long"] = fn.ran_for(*xs, iters=LONG_ITERS)
+        if r["iters_run_long"] > r["iters_run"]:
+            r["ns_per_iter"] = ((r["ms_long"] - r["ms"]) * 1e6
+                                / (r["iters_run_long"] - r["iters_run"]))
+            r["cycles_per_iter"] = r["ns_per_iter"] * peaks.clock_mhz / 1e3
+            r["cycles_per_op"] = r["cycles_per_iter"] / fn.ops
+        else:  # the loop ends early at both counts: no slope to read
+            r["ns_per_iter"] = r["cycles_per_iter"] = None
+            r["cycles_per_op"] = None
         b = bound(fn, lanes, its, peaks, xs)
         r["bound_ms"], r["bound_by"] = b[0], b[1]
     else:
@@ -185,11 +207,16 @@ def row_text(r: dict) -> str:
     if "ms_long" not in r:
         return (head + f"cpu plain version {r['us_per_it']:9.3f} us/it  "
                 f"{r['ns_per_lane_bit']:9.3f} ns/lane-bit")
+    if r["ns_per_iter"] is None:
+        long = (f"long: {r['iters_run']} iterations run at both counts, "
+                "no slope")
+    else:
+        long = (f"long {r['ns_per_iter']:8.2f} ns/it "
+                f"({r['cycles_per_iter']:7.1f} cyc, "
+                f"{r['cycles_per_op']:5.2f} cyc/op)")
     return (head + f"first {r['first_s']:6.2f}s  {r['us_per_it']:8.3f} "
             f"us/it  {r['ns_per_lane_bit']:7.4f} ns/lane-bit  set-up "
-            f"{r['setup_ms'] * 1e3:.1f} us  long "
-            f"{r['ns_per_iter']:8.2f} ns/it ({r['cycles_per_iter']:7.1f} "
-            f"cyc, {r['cycles_per_op']:5.2f} cyc/op)  bound "
+            f"{r['setup_ms'] * 1e3:.1f} us  {long}  bound "
             f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']})")
 
 

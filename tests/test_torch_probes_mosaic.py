@@ -53,7 +53,8 @@ NP = {torch.int32: np.int32, torch.uint8: np.uint8}
 def tpu_row_names(tool: str) -> list:
     """The row names of ``tools/<tool>.py``'s ``main`` list, in order."""
     with open(os.path.join(TOOLS, f"{tool}.py")) as f:
-        return re.findall(r'^\s*\("([A-FP]\d? [^"]+)",', f.read(), re.M)
+        return re.findall(r'^\s*\("([A-FP]\d*[a-z]? [^"]+)",', f.read(),
+                          re.M)
 
 
 def seeded(like: tuple, kind: str, seed: int) -> tuple:

@@ -1,0 +1,400 @@
+"""The mosaic3 probe kernels of the port against the JAX package's probes.
+
+- Each of the twelve Pallas functions of ``tools/probe_mosaic3.py``
+  (imported by path), run in interpret mode with its ``while_loop``
+  opened (``test_torch_probes.OpenLoop``), against its counterpart in
+  ``lzma_rs_tpu_torch/tools/probe_mosaic3.py`` on the CPU (the plain
+  versions of ``ops/probes_mosaic3.py``): exact equality of the output and
+  the final carry (P7-P9's ``node``, ``i`` and P9's flag; P11's ``v``;
+  the one-hots' ``idx`` and ``acc``; P16's ``base``, ``acc`` and its
+  scratch), on the tool's input, "wide" (the full int32 range) and "edge"
+  (within 1,024 of +-2^31: ``idx + v + 1``, ``x + i`` and ``base + v +
+  129`` wrap before the floor mod). P7-P9 and P11 do not read ``x``: they
+  run from seeded start carries instead (lanes that diverge and leave
+  mid-loop, every lane already >= 5, one lane at -2^30, ``v0`` over the
+  full int32 range).
+- A g++ build of ``csrc/probe_mosaic3.cuh`` (``-DLZP_HOST_ENTRY``, the C
+  interface of ``csrc/probes_mosaic3.cu`` as host loops) against the plain
+  versions, for every mode.
+- The wrappers' checks, the tool's command line, the counts behind the
+  bound, and (marked ``cuda``) each kernel against its plain version on
+  the card.
+
+JAX is imported only by the tests that run the Pallas probes, so the
+``cuda`` tests run on a machine without it.
+"""
+
+import ctypes
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from lzma_rs_tpu_torch.ops import build
+from lzma_rs_tpu_torch.ops import probes_mosaic3 as pm3
+from lzma_rs_tpu_torch.tools import probe_mosaic3, probe_rows
+
+from test_torch_probes import (TOOLS, assert_same, jax_tool,  # noqa: F401
+                               pallas)
+from test_torch_probes_mosaic import INT32, NEAR_LIMIT, tpu_row_names
+
+REPO = os.path.dirname(TOOLS)
+HEADER = os.path.join(REPO, "lzma_rs_tpu_torch", "csrc",
+                      "probe_mosaic3.cuh")
+L = probe_mosaic3.L
+
+
+def builders(name: str):
+    """The TPU tool's and the port's builder of a function, by its name in
+    the tools (``p12s`` is ``p12(True)``, ``p14`` is ``p_small(8)``)."""
+    tool = jax_tool("probe_mosaic3")
+    args = {"p12s": ("p12", True), "p12m": ("p12", False),
+            "p14": ("p_small", 8), "p15": ("p_small", 64)}.get(name)
+    if args is None:
+        return getattr(tool, name), getattr(probe_mosaic3, name)
+    return (getattr(tool, args[0])(args[1]),
+            getattr(probe_mosaic3, args[0])(args[1]))
+
+
+FUNCTIONS = ("p7", "p8", "p9", "p10", "p11a", "p11b", "p12s", "p12m", "p13",
+             "p14", "p15", "p16")
+VOTES, BYTES = ("p7", "p8", "p9"), ("p11a", "p11b")
+
+
+def start(kind: str, seed: int) -> np.ndarray:
+    """A seeded [L] start of P7-P9 (``node0``) or P11 (``v0``)."""
+    rng = np.random.default_rng(seed)
+    if kind == "diverge":  # lanes leave mid-loop, at different steps
+        return rng.integers(-20, 11, size=L, dtype=np.int32)
+    if kind == "above":    # every lane >= 5: P7/P8 run 0 steps, P9 one
+        return rng.integers(5, 2**31, size=L, dtype=np.int64).astype(
+            np.int32)
+    if kind == "deep":     # one lane at -2^30: every step runs
+        return probe_mosaic3.deep_start(rng, (L,))
+    lo, hi = INT32 if kind == "wide" else NEAR_LIMIT
+    return rng.integers(lo, hi, size=L, dtype=np.int64).astype(np.int32)
+
+
+def table(kind: str, seed: int) -> np.ndarray:
+    """The [W, L] input ``x``: the tool's all-ones, or seeded."""
+    shape = (probe_mosaic3.W, L)
+    if kind == "tool":
+        return np.ones(shape, dtype=np.int32)
+    lo, hi = INT32 if kind == "wide" else NEAR_LIMIT
+    return np.random.default_rng(seed).integers(
+        lo, hi, size=shape, dtype=np.int64).astype(np.int32)
+
+
+CASES = [(f, k) for f in FUNCTIONS for k in (
+    ("tool", "diverge", "above", "deep", "wide") if f in VOTES else
+    ("tool", "wide", "edge"))]
+
+
+def port_final(fname: str, final: dict, node) -> dict:
+    """The Pallas probe's final carry and scratch as the port's ``full``
+    entries; checks the loop counters the port does not return."""
+    carry = final["carry"]
+    if fname in VOTES:  # node, i (, active)
+        i = int(carry[1])
+        flag = (int(carry[2]) if fname == "p9"
+                else int((node < pm3.VOTE_BELOW).any()))
+        return {"state": np.array([i, flag], dtype=np.int32)}
+    if fname in BYTES or fname == "p10":  # i, v or acc
+        assert int(carry[0]) == probe_mosaic3.ITERS
+        return {}
+    if fname == "p16":  # i, base, acc
+        assert int(carry[0]) == probe_mosaic3.ITERS
+        return {"scratch": final["t_ref"],
+                "state": np.stack([carry[2], carry[1]])}
+    idx, i, acc = carry  # the one-hots
+    passes = probe_mosaic3.ITERS // (8 if fname == "p13" else 1)
+    assert int(i) == passes
+    return {"state": np.stack([acc, idx])}
+
+
+def check_equal(got, want, what: str):
+    got = got.numpy()
+    assert got.dtype == want.dtype, what
+    assert got.size == want.size, what
+    assert np.array_equal(got, want.reshape(got.shape)), what
+
+
+@pytest.mark.parametrize("fname,kind", CASES)
+def test_port_equals_the_pallas_probe(fname, kind, pallas):  # noqa: F811
+    import jax
+    import jax.numpy as jnp
+
+    jbuild, pbuild = builders(fname)
+    jfn, jargs = jbuild()
+    pfn, pargs, lanes = pbuild(device="cpu")
+    assert lanes == L and pfn.iters == jax_tool("probe_mosaic3").ITERS
+    seed = CASES.index((fname, kind))
+    reads_x = fname not in VOTES + BYTES
+    x = table(kind if reads_x else "tool", seed)
+    if kind == "tool":
+        check_equal(torch.from_numpy(np.array(jargs[0])), x, "the input")
+        port_in = pargs[0]
+        if not reads_x:  # the probe's start
+            assert not port_in.any()
+    elif reads_x:
+        port_in = torch.from_numpy(x)
+    else:  # a seeded start carry: P7-P9's node, P11's v
+        s = start(kind, seed)
+        pallas.carry = {0 if fname in VOTES else 1: s}
+        port_in = torch.from_numpy(s)
+    want = jfn(jnp.asarray(x))
+    jax.block_until_ready(want)
+    jax.effects_barrier()
+    got, full = pfn(port_in, full=True)
+    check_equal(got, np.asarray(want), "out")
+    final = port_final(fname, pallas.final, np.asarray(want))
+    assert full.keys() == final.keys()
+    for k, w in final.items():
+        check_equal(full[k], w, k)
+    if kind == "deep":
+        assert int(full["state"][0]) == probe_mosaic3.ITERS
+    if kind == "above":
+        assert int(full["state"][0]) == (1 if fname == "p9" else 0)
+
+
+def test_the_rows_are_the_tpu_tools_rows():
+    names = tpu_row_names("probe_mosaic3")
+    assert [n for n, _ in probe_mosaic3.ROWS_OF_TOOL] == names
+    assert len(names) == len(FUNCTIONS) == 12
+
+
+def test_the_seeded_inputs_show_what_the_tools_input_hides():
+    """On the tool's all-ones P12s equals P12m, and P16's chunks stay
+    inside the table but for the last step's second one (chunk 64, whose
+    zeros do not change a max of ones); on "wide" P12s differs from P12m
+    (negative entries: the max takes the one-hot's zeros) and P16's base
+    leaves the table, so a lane's whole scratch is zeros. P7-P9 leave after
+    10 steps from the tool's zeros, and lanes end apart on "diverge"."""
+    ones, wide = (torch.from_numpy(table(k, 3)) for k in ("tool", "wide"))
+    for x, same in ((ones, True), (wide, False)):
+        s = pm3.onehot_chain(x, reduce="sum", iters=64)
+        m = pm3.onehot_chain(x, reduce="max", iters=64)
+        assert torch.equal(s, m) == same
+        _, res = pm3.window_chain(x, mode="refill", iters=64, full=True)
+        outside = (res["scratch"] == 0).all(dim=0).any()
+        assert bool(outside) != same
+    assert pm3.vote_iterations(torch.zeros(L, dtype=torch.int32), mode="any",
+                               iters=64) == 10
+    d = torch.from_numpy(start("diverge", 4))
+    node = pm3.vote_chain(d, mode="any", iters=64)[0]
+    assert len(set(node.tolist())) > 1  # lanes kept counting past 5
+
+
+# -- the g++ build of the header -----------------------------------------
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++")
+    so = str(tmp_path_factory.mktemp("lzm3") / "liblzm3_host.so")
+    subprocess.run(
+        [gxx, "-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC",
+         "-Wall", "-Werror", "-DLZP_HOST_ENTRY", HEADER, "-o", so],
+        check=True, capture_output=True, timeout=120,
+    )
+    return build.bind_mosaic3(ctypes.CDLL(so))
+
+
+def ints(shape, seed: int, lo_hi=INT32):
+    a = np.random.default_rng(seed).integers(*lo_hi, size=shape,
+                                             dtype=np.int64)
+    return torch.from_numpy(a.astype(np.int32))
+
+
+VOTE_STARTS = ("zeros", "diverge", "above", "deep", "wide")
+
+
+@pytest.mark.parametrize("mode", pm3.VOTE_MODES)
+def test_host_build_vote_chain(mode, host_lib):
+    for lanes in (L, 100, 1024):
+        for i, kind in enumerate(VOTE_STARTS):
+            n0 = (torch.zeros(lanes, dtype=torch.int32) if kind == "zeros"
+                  else torch.from_numpy(np.resize(start(kind, 10 + i),
+                                                  lanes)))
+            for iters in (0, 7, 64, 300):
+                kw = {"mode": mode, "iters": iters, "full": True}
+                assert_same(pm3.launch_vote_chain(host_lib, n0, **kw),
+                            pm3.vote_chain_reference(n0, **kw))
+
+
+@pytest.mark.parametrize("mode", pm3.BYTE_MODES)
+def test_host_build_byte_chain(mode, host_lib):
+    for i, lo_hi in enumerate((INT32, NEAR_LIMIT, (-4, 4))):
+        v0 = ints(130, 20 + i, lo_hi)
+        for iters in (0, 1, 64, 500):
+            kw = {"mode": mode, "iters": iters, "full": True}
+            assert_same(pm3.launch_byte_chain(host_lib, v0, **kw),
+                        pm3.byte_chain_reference(v0, **kw))
+
+
+@pytest.mark.parametrize("unroll", pm3.UNROLLS)
+@pytest.mark.parametrize("reduce", pm3.REDUCES)
+def test_host_build_onehot_chain(reduce, unroll, host_lib):
+    for i, (R, lo_hi) in enumerate(((8, INT32), (64, NEAR_LIMIT),
+                                    (100, (-9, 9)), (2048, INT32))):
+        x = ints((R, 70), 30 + i, lo_hi)
+        kw = {"reduce": reduce, "unroll": unroll, "iters": 200,
+              "full": True}
+        assert_same(pm3.launch_onehot_chain(host_lib, x, **kw),
+                    pm3.onehot_chain_reference(x, **kw))
+
+
+@pytest.mark.parametrize("mode", pm3.WINDOW_MODES)
+def test_host_build_window_chain(mode, host_lib):
+    for i, (W, lo_hi) in enumerate(((64, INT32), (96, NEAR_LIMIT),
+                                    (2048, INT32), (2048, (-3, 50)))):
+        x = ints((W, 70), 40 + i, lo_hi)
+        for iters in (0, 41):
+            kw = {"mode": mode, "iters": iters, "full": True}
+            assert_same(pm3.launch_window_chain(host_lib, x, **kw),
+                        pm3.window_chain_reference(x, **kw))
+
+
+def test_host_build_refuses_bad_arguments(host_lib):
+    x = torch.zeros((64, 4), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="bad argument"):
+        pm3.launch_onehot_chain(host_lib, x, reduce="max", unroll=8,
+                                iters=12)
+    with pytest.raises(RuntimeError, match="bad argument"):
+        pm3.launch_vote_chain(host_lib, torch.zeros(1025, dtype=torch.int32),
+                              mode="any", iters=1)
+    with pytest.raises(RuntimeError, match="bad argument"):
+        pm3.launch_window_chain(host_lib, x[:40], mode="refill", iters=1)
+
+
+# -- the wrappers and the tool -------------------------------------------
+
+
+def test_wrappers_on_the_cpu_take_the_plain_version():
+    before = [w.launches for w in pm3.WRAPPERS]
+    x, n0 = ints((64, 8), 50), ints(8, 51, (-20, 11))
+    kept = (x.clone(), n0.clone())
+    for mode in pm3.VOTE_MODES:
+        assert torch.equal(pm3.vote_chain(n0, mode=mode, iters=30),
+                           pm3.vote_chain_reference(n0, mode=mode, iters=30))
+    for mode in pm3.BYTE_MODES:
+        assert torch.equal(pm3.byte_chain(x[0], mode=mode, iters=9),
+                           pm3.byte_chain_reference(x[0], mode=mode,
+                                                    iters=9))
+    for reduce in pm3.REDUCES:
+        assert torch.equal(
+            pm3.onehot_chain(x, reduce=reduce, unroll=8, iters=16),
+            pm3.onehot_chain_reference(x, reduce=reduce, iters=16))
+    for mode in pm3.WINDOW_MODES:
+        assert torch.equal(pm3.window_chain(x, mode=mode, iters=9),
+                           pm3.window_chain_reference(x, mode=mode, iters=9))
+    assert [w.launches for w in pm3.WRAPPERS] == before
+    assert torch.equal(x, kept[0]) and torch.equal(n0, kept[1])
+
+
+BAD = {
+    "dtype": lambda x, n: pm3.onehot_chain(x.long(), reduce="max", iters=1),
+    "dims": lambda x, n: pm3.vote_chain(x, mode="any", iters=1),
+    "device": lambda x, n: pm3.byte_chain(
+        torch.zeros(4, dtype=torch.int32, device="meta"), mode="shift",
+        iters=1),
+    "mode": lambda x, n: pm3.vote_chain(n, mode="all", iters=1),
+    "reduce": lambda x, n: pm3.onehot_chain(x, reduce="min", iters=1),
+    "unroll": lambda x, n: pm3.onehot_chain(x, reduce="max", unroll=4,
+                                            iters=8),
+    "iters": lambda x, n: pm3.window_chain(x, mode="concat", iters=-1),
+    "iters % unroll": lambda x, n: pm3.onehot_chain(x, reduce="max",
+                                                    unroll=8, iters=12),
+    "lanes": lambda x, n: pm3.vote_chain(
+        torch.zeros(1025, dtype=torch.int32), mode="max", iters=1),
+    "max rows": lambda x, n: pm3.onehot_chain(x[:1], reduce="max", iters=1),
+    "concat rows": lambda x, n: pm3.window_chain(x[:63], mode="concat",
+                                                 iters=1),
+    "refill rows": lambda x, n: pm3.window_chain(x[:40], mode="refill",
+                                                 iters=1),
+}
+
+
+@pytest.mark.parametrize("bad", BAD)
+def test_wrappers_reject_what_the_kernel_does_not_take(bad):
+    x, n = ints((64, 4), 60), ints(4, 61)
+    with pytest.raises(ValueError):
+        BAD[bad](x, n)
+
+
+def test_tool_entry_points_run_on_the_card_unless_asked():
+    """The tool's functions default to the card, and the command line stops
+    without one; ``--device cpu`` runs the plain versions."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    for _, make in probe_mosaic3.ROWS_OF_TOOL:
+        with pytest.raises((RuntimeError, AssertionError)):
+            make(None)
+    with pytest.raises(SystemExit):
+        probe_rows.main(probe_mosaic3.ROWS_OF_TOOL, ["P16"])
+    rows = probe_rows.main(probe_mosaic3.ROWS_OF_TOOL,
+                           ["P9", "--device", "cpu", "--seed", "1"])
+    name = "P9 cond: carried scalar flag"
+    assert [(r["name"], r["input"]) for r in rows] == [
+        (name, "tool"), (name, "seeded")]
+
+
+def test_the_counts_behind_the_bound():
+    """The iterations a vote runs and the table words a walk reads, against
+    a walk written out here; the seeded vote start runs every iteration."""
+    fn, args, _ = probe_mosaic3.p7(device="cpu")
+    assert fn.ran_for(*args, iters=64) == 10
+    assert fn.ran_for(*args, iters=8) == 8
+    deep, = fn.seeded_inputs(args, 2)
+    assert int(deep.min()) == probe_mosaic3.DEEP
+    assert fn.ran_for(deep, iters=probe_rows.LONG_ITERS) == \
+        probe_rows.LONG_ITERS
+    fn9, _, _ = probe_mosaic3.p9(device="cpu")
+    assert fn9.ran_for(torch.full((L,), 5, dtype=torch.int32), iters=64) == 1
+    ones = torch.ones((probe_mosaic3.W, L), dtype=torch.int32)
+    # all-ones: idx 0, 2, 4, ...: 64 rows a lane
+    assert pm3.onehot_rows_read(ones, reduce="max", iters=64) == 64 * L
+    assert pm3.onehot_rows_read(ones[:8], reduce="max", iters=64) == 4 * L
+    # all-ones: base 0, 130, 260, ...: row0 = base // 128
+    chunks = {c for k in range(64) for c in (k * 130 // 128,
+                                             k * 130 // 128 + 1) if c < 64}
+    assert pm3.refill_rows_read(ones, 64) == 32 * len(chunks) * L
+
+
+# -- on the card ---------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", [w.__name__ for w in pm3.WRAPPERS])
+def test_kernel_equals_plain_version_on_card(kernel, cuda_device):
+    """Every row of the kernel on the tool's input and a seeded one; the
+    votes also from a diverging start, at 100 lanes (a part-filled warp)
+    and at 0 iterations."""
+    wrapper = getattr(pm3, kernel)
+    before, runs = wrapper.launches, 0
+    for i, (name, make) in enumerate(probe_mosaic3.ROWS_OF_TOOL):
+        fn, args, _ = make(cuda_device)
+        if fn.wrapper is not wrapper:
+            continue
+        cases = [(args, {}), (fn.seeded_inputs(args, 70 + i), {})]
+        if wrapper is pm3.vote_chain:
+            d = torch.from_numpy(start("diverge", 80 + i)).cuda()
+            cases += [((d,), {}), ((d[:100],), {}), ((d,), {"iters": 0})]
+        for xs, kw in cases:
+            got = fn(*xs, full=True, **kw)
+            torch.cuda.synchronize()
+            assert_same(got, fn.plain(*xs, full=True, **kw))
+            runs += 1
+    assert runs and wrapper.launches == before + runs
