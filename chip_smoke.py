@@ -60,9 +60,24 @@ builds the segment-decoder kernel and the probe kernels from
    at both counts, and have no slope); each row's kernel against its
    plain version on both inputs, bit for bit (output, carried state,
    P16's scratch); and whether nvcc made one SASS of P11a's variable
-   shift and P11b's select (``cuobjdump -sass``).
+   shift and P11b's select (``cuobjdump -sass``);
+10. the mosaic4 probe kernel (``csrc/probes_mosaic4.cu``): the 7 rows of
+    ``lzma_rs_tpu_torch/tools/probe_mosaic4.py`` (``build``'s four
+    variants, ``build2``'s three) on the tool's input (zeros) and on a
+    seeded start (idx outside the table on some lanes, acc negative on
+    some, ``k`` over the full int32 range, ``it`` from [0, 56)), timed at
+    the tool's limit of 64 steps, 8,192 and 0 (per step run); each row's
+    kernel against its plain version on both inputs, bit for bit (output,
+    final table and tile, carry);
+11. the round4 probe kernels (``csrc/probes_round4.cu``): the 20 rows of
+    ``lzma_rs_tpu_torch/tools/probe_round4.py`` on the tool's input and on
+    a seeded one (tables over their type's full range, all four state
+    slots over the full int32 range), timed at the tool's 16,384
+    iterations, 32,768 and 0; each row's kernel against its plain version
+    on both inputs at 1,024 iterations (the plain version at 16,384 would
+    take minutes), bit for bit (output, final table, four state slots).
 
-The four kernel libraries build in parallel (one nvcc per library, with
+The six kernel libraries build in parallel (one nvcc per library, with
 the native host library's g++) in phase 2.
 
 Every phase checks its result; any failure exits nonzero before the result
@@ -295,6 +310,15 @@ MOSAIC3_MAIN_ROW = {
     "onehot_chain": "P12m one-hot max-reduce [2048,128]",
     "window_chain": "P16 refill mask-select + concat + scratch",
 }
+MOSAIC4_REPLACES = {
+    "table_chain": [f"tools/probe_mosaic4.py:{n}" for n in (108, 193)],
+}
+MOSAIC4_MAIN_ROW = {"table_chain": "when_reset"}
+ROUND4_REPLACES = {
+    "select_chain": [f"tools/probe_round4.py:{n}" for n in (88, 271, 430)],
+    "blend_chain": ["tools/probe_round4.py:88"],
+}
+ROUND4_MAIN_ROW = {"select_chain": "sel1", "blend_chain": "blend_par3"}
 
 
 def slope_text(r: dict) -> str:
@@ -309,8 +333,9 @@ def slope_text(r: dict) -> str:
 
 def probes_phase(torch, dev, phase: str, rows, wrappers, source: str,
                  replaces: dict, main_row: dict) -> list:
-    """Phases 7 and 8: the probe tools' rows on the card, then each row's
-    kernel against its plain version. Returns the kernel-line entries."""
+    """Phases 7-11: the probe tools' rows on the card, then each row's
+    kernel against its plain version (at the row's ``check_iters`` where
+    it sets one). Returns the kernel-line entries."""
     from lzma_rs_tpu_torch.tools import probe_rows
 
     for w in wrappers:
@@ -321,16 +346,19 @@ def probes_phase(torch, dev, phase: str, rows, wrappers, source: str,
     say(f"{phase} probes", f"{len(rows)} rows x 2 inputs through the tools; "
         f"launches {launches}")
 
-    plain_ms, worst = {}, dict.fromkeys(launches, 0)
+    plain_ms, worst, checked_at = {}, dict.fromkeys(launches, 0), {}
     for i, (name, make) in enumerate(rows):
         fn, args, lanes = make(dev)
         kname = fn.wrapper.__name__
+        checked_at[name] = fn.check_iters
+        check_kw = {} if fn.check_iters is None else {
+            "iters": fn.check_iters}
         for what, xs in (("tool", args),
                          ("seeded", fn.seeded_inputs(args, PROBE_SEED + i))):
-            got = fn(*xs, full=True)
+            got = fn(*xs, full=True, **check_kw)
             torch.cuda.synchronize()
             t = time.perf_counter()
-            want = fn.plain(*xs, full=True)
+            want = fn.plain(*xs, full=True, **check_kw)
             torch.cuda.synchronize()
             plain_ms[name, what] = (time.perf_counter() - t) * 1e3
             pairs = [("out", got[0], want[0])] + [
@@ -346,10 +374,11 @@ def probes_phase(torch, dev, phase: str, rows, wrappers, source: str,
                 worst[kname] = max(worst[kname], diff)
                 check(diff == 0, f"phase {phase}: {name} [{what}]: kernel "
                       f"and plain version differ in {k} (max {diff})")
+        at = f" at {fn.check_iters} iterations" if check_kw else ""
         say(f"{phase} probes", f"{name}: kernel == plain version bit for bit"
-            f" on both inputs ({', '.join(k for k, _, _ in pairs)}); plain "
-            f"{plain_ms[name, 'tool']:.0f} / {plain_ms[name, 'seeded']:.0f}"
-            " ms")
+            f" on both inputs{at} ({', '.join(k for k, _, _ in pairs)}); "
+            f"plain {plain_ms[name, 'tool']:.0f} / "
+            f"{plain_ms[name, 'seeded']:.0f} ms")
 
     by = {(r["name"], r["input"]): r for r in results}
     for name, _ in rows:
@@ -379,6 +408,9 @@ def probes_phase(torch, dev, phase: str, rows, wrappers, source: str,
             "ms_per_iter_long": (None if r["ns_per_iter"] is None
                                  else r["ns_per_iter"] / 1e6),
         })
+        if checked_at[row] is not None:  # the plain version's count
+            entries[-1]["iters"] = r["iters"]
+            entries[-1]["plain_iters"] = checked_at[row]
     return entries
 
 
@@ -552,6 +584,8 @@ def main() -> None:
     build.load_probes()
     build.load_mosaic()
     build.load_mosaic3()
+    build.load_mosaic4()
+    build.load_round4()
     for lib, b in zip(build.LIBRARIES, built_libs):
         say("2 build", f"{lib.sources[0]} -> {os.path.relpath(b.path, ROOT)}"
             f" in {b.seconds:.2f} s; {ptxas_summary(b.log)}")
@@ -801,6 +835,21 @@ def main() -> None:
         MOSAIC3_MAIN_ROW)
     say("9 probes", "byte_chain (P11a shift, P11b select): "
         + byte_sass_text(build.build_library(build.MOSAIC3).path))
+
+    # -- 10. the mosaic4 probe kernel --------------------------------
+    from lzma_rs_tpu_torch.ops import probes_mosaic4, probes_round4
+    from lzma_rs_tpu_torch.tools import probe_mosaic4, probe_round4
+
+    probe_entries += probes_phase(
+        torch, dev, "10", probe_mosaic4.ROWS_OF_TOOL, probes_mosaic4.WRAPPERS,
+        "lzma_rs_tpu_torch/csrc/probes_mosaic4.cu", MOSAIC4_REPLACES,
+        MOSAIC4_MAIN_ROW)
+
+    # -- 11. the round4 probe kernels --------------------------------
+    probe_entries += probes_phase(
+        torch, dev, "11", probe_round4.ROWS_OF_TOOL, probes_round4.WRAPPERS,
+        "lzma_rs_tpu_torch/csrc/probes_round4.cu", ROUND4_REPLACES,
+        ROUND4_MAIN_ROW)
 
     check("jax" not in sys.modules, "jax was imported")
     jax_pkg = sorted(m for m in sys.modules

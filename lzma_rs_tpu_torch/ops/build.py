@@ -4,7 +4,7 @@
 PyTorch headers: seconds, not minutes) into
 ``lzma_rs_tpu_torch/build/liblzl_<name>-<hash>.so``, where the hash covers
 that library's own sources and the flags, so an edited source rebuilds its
-library alone and an unchanged one loads at once. Four libraries:
+library alone and an unchanged one loads at once. Six libraries:
 
 - ``segdec``: the segment decoder (``decode_segments.cu`` +
   ``lzma_lane.cuh``), :func:`load`;
@@ -14,7 +14,11 @@ library alone and an unchanged one loads at once. Four libraries:
   ``probe_mosaic.cuh``), :func:`load_mosaic`;
 - ``mosaic3``: the mosaic3 probe kernels (``probes_mosaic3.cu`` +
   ``probe_mosaic3.cuh``, which includes ``probe_mosaic.cuh``),
-  :func:`load_mosaic3`.
+  :func:`load_mosaic3`;
+- ``mosaic4``: the mosaic4 probe kernel (``probes_mosaic4.cu`` +
+  ``probe_mosaic4.cuh`` + ``probe_mosaic.cuh``), :func:`load_mosaic4`;
+- ``round4``: the round4 probe kernels (``probes_round4.cu`` +
+  ``probe_round4.cuh`` + ``probe_mosaic.cuh``), :func:`load_round4`.
 
 Each is bound with ``ctypes``. Nothing here runs at import time; every
 failure raises, except in :func:`unavailable`, which the ``auto`` router
@@ -55,7 +59,11 @@ PROBES = Library("probes", ("probes.cu", "probe_lane.cuh"))
 MOSAIC = Library("mosaic", ("probes_mosaic.cu", "probe_mosaic.cuh"))
 MOSAIC3 = Library("mosaic3", ("probes_mosaic3.cu", "probe_mosaic3.cuh",
                               "probe_mosaic.cuh"))
-LIBRARIES = (SEGDEC, PROBES, MOSAIC, MOSAIC3)
+MOSAIC4 = Library("mosaic4", ("probes_mosaic4.cu", "probe_mosaic4.cuh",
+                              "probe_mosaic.cuh"))
+ROUND4 = Library("round4", ("probes_round4.cu", "probe_round4.cuh",
+                            "probe_mosaic.cuh"))
+LIBRARIES = (SEGDEC, PROBES, MOSAIC, MOSAIC3, MOSAIC4, ROUND4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,3 +218,45 @@ def load_mosaic3() -> ctypes.CDLL:
     """Build (if needed) and bind the mosaic3 probe kernels; one handle per
     process."""
     return bind_mosaic3(ctypes.CDLL(build_library(MOSAIC3).path))
+
+
+def bind_mosaic4(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the mosaic4 library's C interface on ``lib``: the nvcc
+    build, or a g++ build of ``probe_mosaic4.cuh`` with
+    ``-DLZP_HOST_ENTRY``."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.lzm4_table_chain.restype = ci
+    lib.lzm4_table_chain.argtypes = [ci, vp, ci] + [vp] * 5 + [ci, vp]
+    lib.lzm4_error_string.restype = ctypes.c_char_p
+    lib.lzm4_error_string.argtypes = [ci]
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def load_mosaic4() -> ctypes.CDLL:
+    """Build (if needed) and bind the mosaic4 probe kernel; one handle per
+    process."""
+    return bind_mosaic4(ctypes.CDLL(build_library(MOSAIC4).path))
+
+
+def bind_round4(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the round4 library's C interface on ``lib``: the nvcc
+    build, or a g++ build of ``probe_round4.cuh`` with
+    ``-DLZP_HOST_ENTRY``."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for fn, args in (
+        (lib.lzr4_select_chain, [ci, ci, ci, vp, ci, ci, ci, vp, vp, ci,
+                                 vp]),
+        (lib.lzr4_blend_chain, [ci, ci, vp, ci, ci, vp, vp, ci, vp]),
+    ):
+        fn.restype, fn.argtypes = ci, args
+    lib.lzr4_error_string.restype = ctypes.c_char_p
+    lib.lzr4_error_string.argtypes = [ci]
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def load_round4() -> ctypes.CDLL:
+    """Build (if needed) and bind the round4 probe kernels; one handle per
+    process."""
+    return bind_round4(ctypes.CDLL(build_library(ROUND4).path))

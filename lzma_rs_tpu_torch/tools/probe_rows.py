@@ -1,10 +1,10 @@
 """Rows of the probe tools: what a row runs, how it is timed, its bound.
 
 A probe tool (``probe_lane2d``, ``probe_state_in_ref``, ``probe_mosaic``,
-``probe_mosaic2``, ``probe_mosaic3``) is a list of rows ``(name,
-build)``; ``build(device)`` returns ``(fn, args, lanes)`` as the JAX
-package's tools do, where ``fn`` is a :class:`Probe`, ``args`` its inputs
-and ``lanes`` its threads.
+``probe_mosaic2``, ``probe_mosaic3``, ``probe_mosaic4``, ``probe_round4``)
+is a list of rows ``(name, build)``; ``build(device)`` returns ``(fn,
+args, lanes)`` as the JAX package's tools do, where ``fn`` is a
+:class:`Probe`, ``args`` its inputs and ``lanes`` its threads.
 :func:`run` times every row (CUDA events on the card, the host clock for
 the plain version on the CPU) and prints the tools' columns, plus, on the
 card, the time per iteration of a long run and the least time the card
@@ -30,7 +30,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM = 64    # Hopper architecture white paper
 
 
-_NUMPY = {torch.int32: np.int32, torch.uint8: np.uint8}
+_NUMPY = {torch.int32: np.int32, torch.int16: np.int16, torch.int8: np.int8,
+          torch.uint8: np.uint8}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +50,11 @@ class Probe:
     (drawn, then wrapped to the input's type), or a function ``(rng,
     shape) -> array`` that draws it. ``ran``, where the loop can end early,
     is ``ran(*inputs, iters=n)``: the iterations the function runs on those
-    inputs when asked for ``n``."""
+    inputs when asked for ``n``. ``long_iters`` is the second count of the
+    slope (above ``iters``); ``check_iters``, where set, the count at which
+    a kernel is held against its plain version (``iters`` otherwise: a
+    smaller count where the plain version at the tool's would take
+    minutes)."""
 
     wrapper: Callable
     view: Callable
@@ -60,6 +65,8 @@ class Probe:
     seeded: tuple
     iters: int = probes.ITERS
     ran: Optional[Callable] = None
+    long_iters: int = LONG_ITERS
+    check_iters: Optional[int] = None
 
     def __call__(self, *xs, **kw):
         """The row on its inputs; ``kw`` may override the parameters."""
@@ -167,7 +174,8 @@ def measure(name: str, fn: Probe, xs: tuple, lanes: int, *,
     (with the library's build when it is the first), the median of 5 at
     the tool's iterations (``ms``: the whole wrapper call, its copy of the
     table and its state set-up included), at 0 iterations (``setup_ms``:
-    that set-up and an empty launch) and at LONG_ITERS, and the slope
+    that set-up and an empty launch) and at the row's ``long_iters``
+    (LONG_ITERS unless the row sets another), and the slope
     between the two (set-up and launch drop out), per iteration run where
     the row's loop can end early. On the CPU: one call of the plain
     version."""
@@ -182,9 +190,9 @@ def measure(name: str, fn: Probe, xs: tuple, lanes: int, *,
         r["first_s"] = time.perf_counter() - t
         r["ms"] = median_ms(lambda: fn(*xs))
         r["setup_ms"] = median_ms(lambda: fn(*xs, iters=0))
-        r["ms_long"] = median_ms(lambda: fn(*xs, iters=LONG_ITERS))
+        r["ms_long"] = median_ms(lambda: fn(*xs, iters=fn.long_iters))
         r["iters_run"] = fn.ran_for(*xs, iters=its)
-        r["iters_run_long"] = fn.ran_for(*xs, iters=LONG_ITERS)
+        r["iters_run_long"] = fn.ran_for(*xs, iters=fn.long_iters)
         if r["iters_run_long"] > r["iters_run"]:
             r["ns_per_iter"] = ((r["ms_long"] - r["ms"]) * 1e6
                                 / (r["iters_run_long"] - r["iters_run"]))

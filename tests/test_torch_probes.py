@@ -69,17 +69,19 @@ class OpenLoop:
     into the kernel's scratch just before the loop, ``carry`` (leaf index
     -> array) replaces those leaves of the loop's start carry, and after it
     ``final`` holds every scratch ref the loop's body uses and the loop's
-    carry (``"carry"``: its leaves). The probes' own code is not
-    changed."""
+    carry (``"carry"``: its leaves). Only the outermost loop of a probe is
+    opened: a loop inside its body (``tools/probe_mosaic4.py``'s rounds of
+    16 steps) runs as it is. The probes' own code is not changed."""
 
     def __init__(self, real):
         self.real, self.start, self.carry, self.final = real, {}, {}, None
+        self.inside = False  # tracing an opened loop's body
 
     def __call__(self, cond, body, init):
         import jax
 
         code = body.__code__
-        if not code.co_filename.startswith(TOOLS + os.sep):
+        if self.inside or not code.co_filename.startswith(TOOLS + os.sep):
             return self.real(cond, body, init)
         refs = {n: c.cell_contents for n, c in
                 zip(code.co_freevars, body.__closure__ or ())
@@ -96,7 +98,11 @@ class OpenLoop:
                 leaves[k] = jax.pure_callback(
                     lambda v=v: v, jax.ShapeDtypeStruct(v.shape, v.dtype))
             init = jax.tree.unflatten(tree, leaves)
-        out = self.real(cond, body, init)
+        self.inside = True
+        try:
+            out = self.real(cond, body, init)
+        finally:
+            self.inside = False
         jax.debug.callback(self._record,
                            {n: r[...] for n, r in refs.items()}, out)
         return out
@@ -404,11 +410,13 @@ def test_the_tools_list_the_tpu_probes_rows():
     ("probes.cu", "probes"), ("probe_lane.cuh", "probes"),
     ("lzma_lane.cuh", "segdec"), ("decode_segments.cu", "segdec"),
     ("probes_mosaic.cu", "mosaic"), ("probe_mosaic.cuh", "mosaic"),
-    ("probes_mosaic3.cu", "mosaic3"), ("probe_mosaic3.cuh", "mosaic3")))
+    ("probes_mosaic3.cu", "mosaic3"), ("probe_mosaic3.cuh", "mosaic3"),
+    ("probes_mosaic4.cu", "mosaic4"), ("probe_mosaic4.cuh", "mosaic4"),
+    ("probes_round4.cu", "round4"), ("probe_round4.cuh", "round4")))
 def test_an_edit_rebuilds_only_its_library(edited, changed, tmp_path):
     """An edit rebuilds the libraries whose sources hold the file, and no
-    other: ``changed``, and ``mosaic3`` too for ``probe_mosaic.cuh``, which
-    ``probe_mosaic3.cuh`` includes."""
+    other: ``changed``, and ``mosaic3``, ``mosaic4`` and ``round4`` too for
+    ``probe_mosaic.cuh``, which their headers include."""
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     libs = build.LIBRARIES
@@ -416,7 +424,8 @@ def test_an_edit_rebuilds_only_its_library(edited, changed, tmp_path):
     with open(csrc / edited, "a") as f:
         f.write("\n// edited\n")
     after = {lib.name: build.source_hash(lib, str(csrc)) for lib in libs}
-    also = {"probe_mosaic.cuh": {"mosaic3"}}.get(edited, set())
+    also = {"probe_mosaic.cuh": {"mosaic3", "mosaic4", "round4"}}.get(
+        edited, set())
     assert {n for n in before if before[n] != after[n]} == {changed} | also
 
 
