@@ -75,9 +75,24 @@ builds the segment-decoder kernel and the probe kernels from
     slots over the full int32 range), timed at the tool's 16,384
     iterations, 32,768 and 0; each row's kernel against its plain version
     on both inputs at 1,024 iterations (the plain version at 16,384 would
-    take minutes), bit for bit (output, final table, four state slots).
+    take minutes), bit for bit (output, final table, four state slots);
+12. the bisect probe kernel (``csrc/probes_bisect.cu``): the 16 rows of
+    ``lzma_rs_tpu_torch/tools/probe_lane2d_bisect.py`` (the bit decode's
+    stages added one by one) on the tool's input and on a seeded one (a
+    table and starts over the full int32 range), timed at the tool's 32
+    iterations, 8,192 and 0; each row's kernel against its plain version
+    on both inputs, bit for bit (output, final table, final state); the
+    stage costs (differences between rows) and whether nvcc kept w1's and
+    w2's loop-invariant loads inside the loop (``cuobjdump -sass``);
+13. lane batching: (a) through ``xz_decompress`` with
+    ``LZMA_RS_TPU_VMEM_L=256``, 8 launches on one card (bit-exact, engine
+    ``cuda``, no fallbacks, ``stats.devices == 1``), its slabs' summed
+    kernel time beside phase 4's single launch; the dry run
+    (``graft_entry.dryrun_multichip(1)``: flagship-shaped, stock-shaped
+    and corrupt archives in slabs); ``graft_entry.entry()`` once against
+    its plain version.
 
-The six kernel libraries build in parallel (one nvcc per library, with
+The seven kernel libraries build in parallel (one nvcc per library, with
 the native host library's g++) in phase 2.
 
 Every phase checks its result; any failure exits nonzero before the result
@@ -319,6 +334,19 @@ ROUND4_REPLACES = {
     "blend_chain": ["tools/probe_round4.py:88"],
 }
 ROUND4_MAIN_ROW = {"select_chain": "sel1", "blend_chain": "blend_par3"}
+BISECT_REPLACES = {"bisect_chain": ["tools/probe_lane2d_bisect.py:33"]}
+BISECT_MAIN_ROW = {"bisect_chain": "v4 +masked-write"}
+# stage costs: (what, row, the row it adds to)
+BISECT_STAGES = (("the load", "v2 +onehot-read", "v1 idx-only"),
+                 ("the range coder", "v3 +uint-arith", "v2 +onehot-read"),
+                 ("the store", "v4 +masked-write", "v3 +uint-arith"),
+                 ("a load without the climb", "w5 sel-tab-reduce",
+                  "w3 mask-reduce"))
+# rows that are one function on the card, timed apart
+BISECT_CONTROLS = (("v2 +onehot-read", "v2m mult-mask", "v2bt broadcast_to"),
+                   ("w5 sel-tab-reduce", "w6 mult-tab-reduce",
+                    "w7 split-reduce"),
+                   ("v4 +masked-write", "v5 blend-write"))
 
 
 def slope_text(r: dict) -> str:
@@ -332,10 +360,11 @@ def slope_text(r: dict) -> str:
 
 
 def probes_phase(torch, dev, phase: str, rows, wrappers, source: str,
-                 replaces: dict, main_row: dict) -> list:
-    """Phases 7-11: the probe tools' rows on the card, then each row's
+                 replaces: dict, main_row: dict) -> tuple:
+    """Phases 7-12: the probe tools' rows on the card, then each row's
     kernel against its plain version (at the row's ``check_iters`` where
-    it sets one). Returns the kernel-line entries."""
+    it sets one). Returns the kernel-line entries and the measurements by
+    (row, input)."""
     from lzma_rs_tpu_torch.tools import probe_rows
 
     for w in wrappers:
@@ -411,12 +440,12 @@ def probes_phase(torch, dev, phase: str, rows, wrappers, source: str,
         if checked_at[row] is not None:  # the plain version's count
             entries[-1]["iters"] = r["iters"]
             entries[-1]["plain_iters"] = checked_at[row]
-    return entries
+    return entries, by
 
 
-def sass_by_kernel(path: str) -> dict:
-    """Each kernel's SASS instructions in ``path`` (``cuobjdump -sass``),
-    by mangled name, the padding NOPs left out; {} without cuobjdump."""
+def sass_listing(path: str) -> dict:
+    """Each kernel's SASS in ``path`` (``cuobjdump -sass``), by mangled
+    name: (address, instruction) pairs; {} without cuobjdump."""
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(exe):
         return {}
@@ -425,10 +454,50 @@ def sass_by_kernel(path: str) -> dict:
     kernels = {}
     for part in out.split("Function : ")[1:]:
         name, _, body = part.partition("\n")
-        ins = [" ".join(m.group(1).split())
-               for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", body)]
-        kernels[name.strip()] = [i for i in ins if i != "NOP"]
+        kernels[name.strip()] = [
+            (int(m.group(1), 16), " ".join(m.group(2).split()))
+            for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
     return kernels
+
+
+def sass_by_kernel(path: str) -> dict:
+    """Each kernel's SASS instructions in ``path``, by mangled name, the
+    padding NOPs left out; {} without cuobjdump."""
+    return {k: [i for _, i in v if i != "NOP"]
+            for k, v in sass_listing(path).items()}
+
+
+def opcode(ins: str) -> str:
+    return next(w for w in ins.split() if not w.startswith("@"))
+
+
+def loads_in_loops(listing) -> tuple:
+    """(global loads inside a loop, global loads) of one kernel's SASS: a
+    loop spans a backward branch's target to the branch."""
+    spans = []
+    for addr, ins in listing:
+        m = re.search(r"\bBRA\s+`?\(?(0x[0-9a-f]+)", ins)
+        if m and int(m.group(1), 16) < addr:
+            spans.append((int(m.group(1), 16), addr))
+    loads = [a for a, ins in listing if opcode(ins).startswith("LDG")]
+    return sum(any(lo <= a <= hi for lo, hi in spans) for a in loads), \
+        len(loads)
+
+
+def bisect_sass_text(path: str) -> str:
+    """Whether nvcc kept w1's column loads and w2's row-5 load (reads of
+    an input nobody writes) inside the iteration loop."""
+    sass = sass_listing(path)
+    out = []
+    for row, mode in (("w1", 5), ("w2", 6)):
+        kern = [v for k, v in sass.items()
+                if f"bisect_chain_kernelILi{mode}E" in k]
+        if len(kern) != 1:
+            return f"not measured (cuobjdump found {len(kern)} {row} kernels)"
+        inside, total = loads_in_loops(kern[0])
+        out.append(f"{row}: {inside} of its {total} loads inside a loop "
+                   + ("(kept in the loop)" if inside else "(hoisted out)"))
+    return "; ".join(out)
 
 
 def byte_sass_text(path: str) -> str:
@@ -586,6 +655,7 @@ def main() -> None:
     build.load_mosaic3()
     build.load_mosaic4()
     build.load_round4()
+    build.load_bisect()
     for lib, b in zip(build.LIBRARIES, built_libs):
         say("2 build", f"{lib.sources[0]} -> {os.path.relpath(b.path, ROOT)}"
             f" in {b.seconds:.2f} s; {ptxas_summary(b.log)}")
@@ -813,7 +883,7 @@ def main() -> None:
     from lzma_rs_tpu_torch.tools import (probe_lane2d, probe_mosaic,
                                          probe_mosaic2, probe_state_in_ref)
 
-    probe_entries = probes_phase(
+    probe_entries, _ = probes_phase(
         torch, dev, "7", probe_lane2d.ROWS_OF_TOOL
         + probe_state_in_ref.ROWS_OF_TOOL, probes.WRAPPERS,
         "lzma_rs_tpu_torch/csrc/probes.cu", PROBE_REPLACES, PROBE_MAIN_ROW)
@@ -823,7 +893,7 @@ def main() -> None:
         torch, dev, "8", probe_mosaic.ROWS_OF_TOOL
         + probe_mosaic2.ROWS_OF_TOOL, probes_mosaic.WRAPPERS,
         "lzma_rs_tpu_torch/csrc/probes_mosaic.cu", MOSAIC_REPLACES,
-        MOSAIC_MAIN_ROW)
+        MOSAIC_MAIN_ROW)[0]
 
     # -- 9. the mosaic3 probe kernels --------------------------------
     from lzma_rs_tpu_torch.ops import probes_mosaic3
@@ -832,7 +902,7 @@ def main() -> None:
     probe_entries += probes_phase(
         torch, dev, "9", probe_mosaic3.ROWS_OF_TOOL, probes_mosaic3.WRAPPERS,
         "lzma_rs_tpu_torch/csrc/probes_mosaic3.cu", MOSAIC3_REPLACES,
-        MOSAIC3_MAIN_ROW)
+        MOSAIC3_MAIN_ROW)[0]
     say("9 probes", "byte_chain (P11a shift, P11b select): "
         + byte_sass_text(build.build_library(build.MOSAIC3).path))
 
@@ -843,13 +913,92 @@ def main() -> None:
     probe_entries += probes_phase(
         torch, dev, "10", probe_mosaic4.ROWS_OF_TOOL, probes_mosaic4.WRAPPERS,
         "lzma_rs_tpu_torch/csrc/probes_mosaic4.cu", MOSAIC4_REPLACES,
-        MOSAIC4_MAIN_ROW)
+        MOSAIC4_MAIN_ROW)[0]
 
     # -- 11. the round4 probe kernels --------------------------------
     probe_entries += probes_phase(
         torch, dev, "11", probe_round4.ROWS_OF_TOOL, probes_round4.WRAPPERS,
         "lzma_rs_tpu_torch/csrc/probes_round4.cu", ROUND4_REPLACES,
-        ROUND4_MAIN_ROW)
+        ROUND4_MAIN_ROW)[0]
+
+    # -- 12. the bisect probe kernel ---------------------------------
+    from lzma_rs_tpu_torch.ops import probes_bisect
+    from lzma_rs_tpu_torch.tools import probe_lane2d_bisect
+
+    entries, by = probes_phase(
+        torch, dev, "12", probe_lane2d_bisect.ROWS_OF_TOOL,
+        probes_bisect.WRAPPERS, "lzma_rs_tpu_torch/csrc/probes_bisect.cu",
+        BISECT_REPLACES, BISECT_MAIN_ROW)
+    probe_entries += entries
+    cyc = {k: r["cycles_per_iter"] for k, r in by.items()}
+    say("12 probes", "stage costs, cycles per iteration (tool's / seeded "
+        "input): " + "; ".join(
+            f"{what} ({row.split()[0]} - {base.split()[0]}) "
+            f"{cyc[row, 'tool'] - cyc[base, 'tool']:.1f} / "
+            f"{cyc[row, 'seeded'] - cyc[base, 'seeded']:.1f}"
+            for what, row, base in BISECT_STAGES))
+    say("12 probes", "one function, timed apart (largest spread over the "
+        "smallest, tool's / seeded): " + "; ".join(
+            " = ".join(r.split()[0] for r in rows) + " " + " / ".join(
+                f"{(max(c) / min(c) - 1) * 100:.1f}%" for c in (
+                    [cyc[r, w] for r in rows] for w in ("tool", "seeded")))
+            for rows in BISECT_CONTROLS))
+    say("12 probes", "loop-invariant reads: "
+        + bisect_sass_text(build.build_library(build.BISECT).path))
+
+    # -- 13. lane batching: (a) in slabs, the dry run, entry() -------
+    from lzma_rs_tpu_torch import graft_entry
+
+    os.environ["LZMA_RS_TPU_VMEM_L"] = "256"
+    try:
+        sd.decode_segments.launches = 0  # count this path's launches
+        with stats.collect() as st:
+            out = decode(xa, "cuda")
+        slab_launches = sd.decode_segments.launches
+        secs13 = best_seconds(lambda: decode(xa, "cuda"))
+    finally:
+        del os.environ["LZMA_RS_TPU_VMEM_L"]
+    check(out == corpus, "phase 13: output differs from corpus")
+    check(st.engine == "cuda" and st.fallbacks == [] and st.devices == 1,
+          f"phase 13: engine {st.engine!r}, fallbacks {st.fallbacks}, "
+          f"devices {st.devices}")
+    staged13 = runtime.stage_plans(xa, plans_a)
+    n13 = len(staged13.lanes)
+    slabs13 = [ab for launch in runtime.slab_launches(n13, 256, 1)
+               for ab in launch]
+    check(slab_launches == len(slabs13) == 8,
+          f"phase 13: {slab_launches} launches for {len(slabs13)} slabs")
+    slab_ms = []
+    for a, b in slabs13:
+        inputs13 = staged13.tensors(dev, a, b)
+        cfg13 = staged13.slab_config(a, b)
+        slab_ms.append(cuda_ms(torch, lambda: sd.decode_segments(
+            *inputs13, config=cfg13), 3))
+    del inputs13, staged13
+    say("13 slabs", f"(a) with LZMA_RS_TPU_VMEM_L=256: {slab_launches} "
+        f"launches of {[b - a for a, b in slabs13]} lanes on one card, "
+        f"bit-exact, engine cuda, no fallbacks, stats.devices 1; summed "
+        f"kernel time {sum(slab_ms):.1f} ms "
+        f"({', '.join(f'{t:.1f}' for t in slab_ms)}) against phase 4's "
+        f"single launch {main_a['ms']:.1f} ms; end to end "
+        f"{len(corpus) / 1e6 / secs13:.2f} MB/s (best of 3, "
+        f"{secs13 * 1e3:.1f} ms) against phase 4's "
+        f"{len(corpus) / 1e6 / e2e['a'][0]:.2f}")
+    t = time.perf_counter()
+    for line in graft_entry.dryrun_multichip(1):
+        say("13 dry run", line)
+    say("13 dry run", f"three classes passed in {time.perf_counter() - t:.1f}"
+        " s")
+    fn13, args13 = graft_entry.entry()
+    sd.decode_segments.launches = 0
+    win13 = fn13(*args13)
+    check(sd.decode_segments.launches == 1, "phase 13: entry() launches "
+          f"{sd.decode_segments.launches}")
+    want13 = fn13.reference(*args13)
+    check(torch.equal(win13.cpu(), want13.cpu()),
+          "phase 13: entry() differs from its plain version")
+    say("13 entry", f"entry(): decode_segments on {args13[0].shape[0]} "
+        f"lanes == its plain version ({tuple(win13.shape)} window)")
 
     check("jax" not in sys.modules, "jax was imported")
     jax_pkg = sorted(m for m in sys.modules

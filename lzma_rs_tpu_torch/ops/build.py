@@ -4,7 +4,7 @@
 PyTorch headers: seconds, not minutes) into
 ``lzma_rs_tpu_torch/build/liblzl_<name>-<hash>.so``, where the hash covers
 that library's own sources and the flags, so an edited source rebuilds its
-library alone and an unchanged one loads at once. Six libraries:
+library alone and an unchanged one loads at once. Seven libraries:
 
 - ``segdec``: the segment decoder (``decode_segments.cu`` +
   ``lzma_lane.cuh``), :func:`load`;
@@ -18,7 +18,9 @@ library alone and an unchanged one loads at once. Six libraries:
 - ``mosaic4``: the mosaic4 probe kernel (``probes_mosaic4.cu`` +
   ``probe_mosaic4.cuh`` + ``probe_mosaic.cuh``), :func:`load_mosaic4`;
 - ``round4``: the round4 probe kernels (``probes_round4.cu`` +
-  ``probe_round4.cuh`` + ``probe_mosaic.cuh``), :func:`load_round4`.
+  ``probe_round4.cuh`` + ``probe_mosaic.cuh``), :func:`load_round4`;
+- ``bisect``: the bisect probe kernel (``probes_bisect.cu`` +
+  ``probe_bisect.cuh`` + ``probe_lane.cuh``), :func:`load_bisect`.
 
 Each is bound with ``ctypes``. Nothing here runs at import time; every
 failure raises, except in :func:`unavailable`, which the ``auto`` router
@@ -63,7 +65,9 @@ MOSAIC4 = Library("mosaic4", ("probes_mosaic4.cu", "probe_mosaic4.cuh",
                               "probe_mosaic.cuh"))
 ROUND4 = Library("round4", ("probes_round4.cu", "probe_round4.cuh",
                             "probe_mosaic.cuh"))
-LIBRARIES = (SEGDEC, PROBES, MOSAIC, MOSAIC3, MOSAIC4, ROUND4)
+BISECT = Library("bisect", ("probes_bisect.cu", "probe_bisect.cuh",
+                            "probe_lane.cuh"))
+LIBRARIES = (SEGDEC, PROBES, MOSAIC, MOSAIC3, MOSAIC4, ROUND4, BISECT)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -260,3 +264,22 @@ def load_round4() -> ctypes.CDLL:
     """Build (if needed) and bind the round4 probe kernels; one handle per
     process."""
     return bind_round4(ctypes.CDLL(build_library(ROUND4).path))
+
+
+def bind_bisect(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the bisect library's C interface on ``lib``: the nvcc
+    build, or a g++ build of ``probe_bisect.cuh`` with
+    ``-DLZP_HOST_ENTRY``."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.lzb_bisect.restype = ci
+    lib.lzb_bisect.argtypes = [ci] + [vp] * 4 + [ci, ci, vp]
+    lib.lzb_error_string.restype = ctypes.c_char_p
+    lib.lzb_error_string.argtypes = [ci]
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def load_bisect() -> ctypes.CDLL:
+    """Build (if needed) and bind the bisect probe kernel; one handle per
+    process."""
+    return bind_bisect(ctypes.CDLL(build_library(BISECT).path))

@@ -61,15 +61,15 @@ STATES = ("registers", "slots", "arrays")  # registers; y1's; y2's
 # decode, 10 x (compare, add) for idx, 2 for the clip, then p & 0x7FF,
 # rng >> 11, the product, the compare, p >> 5, the subtract, the add, the
 # select, rng - bound, rng | 1, the select, cod ^ bit, acc << 1, | bit, the
-# compare, the select, and the address of the row: 35.
+# compare, the select, and the address of the row: 39.
 TINYOPS_OPS = 3 * TINY_ROUNDS
-BITDECODE_OPS = 35
+BITDECODE_OPS = 39
 _U32 = 0xFFFFFFFF
 
 
 def realweight_ops(rounds: int) -> int:
     """y4's count: 3 per tiny-op round; idx's and, add and clip (3); the
-    bit decode without idx's climb (35 - 22 = 13); the ring's four row
+    bit decode without idx's climb (39 - 22 = 17); the ring's four row
     addresses, three masks, the merge's and, two ors (10)."""
     return 3 * rounds + 3 + (BITDECODE_OPS - 22) + 10
 
@@ -90,14 +90,16 @@ def _tiny_rounds(a, b, d, rounds: int):
     return a, b, d
 
 
-def _decode_bit(tab, idx, rng, cod):
+def _decode_bit(tab, idx, rng, cod, write: bool = True):
     """The bit decode at row ``idx`` of every lane's column of ``tab``
-    (updated in place). Returns (bit, rng, cod)."""
+    (updated in place, unless ``write`` is false). Returns (bit, rng,
+    cod)."""
     rows = idx.long()[None]
     p = tab.gather(0, rows)[0]
     bound = (rng >> 11) * (p & 0x7FF).long()
     bit = cod >= bound
-    tab.scatter_(0, rows, torch.where(bit, p - (p >> 5), p + 3)[None])
+    if write:
+        tab.scatter_(0, rows, torch.where(bit, p - (p >> 5), p + 3)[None])
     rng = torch.where(bit, (rng - bound) & _U32, rng | 1)
     return bit, rng, cod ^ bit.long()
 

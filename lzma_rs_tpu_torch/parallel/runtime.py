@@ -11,8 +11,10 @@ Two halves:
 - The device half: :func:`choose_config` picks the shape bucket with the
   JAX package's rules (gen-2's by default, gen-1's under
   ``LZMA_RS_TPU_VMEM_GEN=1``), and :func:`execute_plan_device` stages every
-  lane of the plans into one batch on a torch device and runs
-  ``ops/segment_decoder.decode_segments`` on it.
+  lane of the plans, cuts them into slabs (by default one slab a card,
+  so one launch of every lane on a one-card host; ``LZMA_RS_TPU_VMEM_L``
+  lanes a slab where set) and runs ``ops/segment_decoder.decode_segments``
+  on each slab.
 
 Engines: ``cuda`` (the kernel on ``device``, by default the current CUDA
 device; it raises when there is none or the kernel does not build),
@@ -38,6 +40,7 @@ from lzma_rs_tpu_torch.formats import xz as xz_fmt
 from lzma_rs_tpu_torch.ops import build
 from lzma_rs_tpu_torch.ops import segment_decoder as sd
 from lzma_rs_tpu_torch.ops.lzma_consts import SegmentConfig, pack_chunk_meta
+from lzma_rs_tpu_torch.parallel import mesh
 from lzma_rs_tpu_torch.utils import logging as log
 from lzma_rs_tpu_torch.utils import stats as stats_mod
 from lzma_rs_tpu_torch.utils.cursor import ByteCursor
@@ -653,19 +656,28 @@ class StagedLanes:
     win_init: Optional[np.ndarray]  # [L, W] u8; None: no stored chunks
     tables: Tuple[np.ndarray, ...]  # in_start, in_end, out_start, out_end,
                                     # chunk_meta: [L, K] i32
+    prefilled: np.ndarray    # [L] bool: the lanes win_init holds bytes of
 
-    def tensors(self, device) -> tuple:
-        """The seven ``decode_segments`` inputs on ``device`` (a window of
-        zeros is made there when no lane holds a stored chunk)."""
-        cfg = self.config
-        win = (
-            torch.zeros((cfg.L, cfg.W), dtype=torch.uint8, device=device)
-            if self.win_init is None
-            else torch.from_numpy(self.win_init).to(device)
-        )
-        return (torch.from_numpy(self.inbuf).to(device), win) + tuple(
-            torch.from_numpy(t).to(device) for t in self.tables
-        )
+    def slab_config(self, a: int, b: int) -> SegmentConfig:
+        """The bucket of lanes ``a:b``: the batch's, at ``b - a`` lanes."""
+        return dataclasses.replace(self.config, L=b - a)
+
+    def tensors(self, device, a: int = 0, b: Optional[int] = None) -> tuple:
+        """The seven ``decode_segments`` inputs of lanes ``a:b`` (all by
+        default) on ``device``. A window of zeros is made there when none
+        of those lanes holds a stored chunk."""
+        b = len(self.lanes) if b is None else b
+        cfg = self.slab_config(a, b)
+
+        def put(arr):
+            return torch.from_numpy(arr[a:b]).to(device)
+
+        if self.win_init is None or not self.prefilled[a:b].any():
+            win = torch.zeros((cfg.L, cfg.W), dtype=torch.uint8,
+                              device=device)
+        else:
+            win = put(self.win_init)
+        return (put(self.inbuf), win) + tuple(put(t) for t in self.tables)
 
 
 def stage_plans(data: bytes, plans: List[DecodePlan]) -> StagedLanes:
@@ -690,12 +702,14 @@ def stage_plans(data: bytes, plans: List[DecodePlan]) -> StagedLanes:
     (in_start, in_end, out_start, out_end, reset, lcs, lps, pbs) = tabs
     valid = np.zeros((L, K), dtype=np.int32)
     win_init = None  # only when a lane's segment holds a stored chunk
-    prefilled = _prefill_test(prefill)
+    overlaps = _prefill_test(prefill)
+    prefilled = np.zeros(L, dtype=bool)
     seg_lens = np.zeros(L, dtype=np.int64)
     for i, lane in enumerate(lanes):
         seg_len = lane.out_end[-1] - lane.seg_base
         seg_lens[i] = seg_len
-        if prefilled(lane, seg_len):
+        if overlaps(lane, seg_len):
+            prefilled[i] = True
             if win_init is None:
                 win_init = np.zeros((L, cfg.W), dtype=np.uint8)
             win_init[i, :seg_len] = out[lane.seg_base:lane.seg_base + seg_len]
@@ -712,16 +726,77 @@ def stage_plans(data: bytes, plans: List[DecodePlan]) -> StagedLanes:
         valid[i, : len(lane.in_start)] = 1
     meta = pack_chunk_meta(reset, lcs, lps, pbs, valid)
     return StagedLanes(cfg, lanes, seg_lens, out, inbuf, win_init,
-                       (in_start, in_end, out_start, out_end, meta))
+                       (in_start, in_end, out_start, out_end, meta),
+                       prefilled)
+
+
+def _n_local_devices(device=None) -> int:
+    """Devices the decode runtime may spread slabs over: the CUDA cards
+    from ``device``'s on (``torch.cuda.device_count()`` less the cards
+    before it), capped by ``LZMA_RS_TPU_DEVICES``. Under an explicit CPU
+    ``device`` the variable alone sets the count (default 1): the CPU
+    slabs stand in for cards, as the reference's tests' XLA host devices
+    do (``lzma_rs_tpu/parallel/runtime.py:650``)."""
+    cap = os.environ.get("LZMA_RS_TPU_DEVICES")
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cpu":
+        return max(1, int(cap)) if cap else 1
+    n = 1
+    if torch.cuda.is_available():
+        n = torch.cuda.device_count() - mesh.first_card(device)
+    if cap:
+        n = min(n, max(1, int(cap)))
+    return max(1, n)
+
+
+def slab_lanes(n_lanes: int, n_dev: int) -> int:
+    """Lanes a slab: one slab a device (``ceil(n_lanes / n_dev)``), so one
+    launch of every lane where there is one device; or
+    ``LZMA_RS_TPU_VMEM_L`` where set.
+
+    The reference sizes its slab by window bucket (256 / 128 / 32 lanes,
+    ``lzma_rs_tpu/parallel/runtime.py:489``) to fit the TPU's scoped VMEM,
+    and ``LZMA_RS_TPU_VMEM_L`` overrides that (``:494-496``). A card keeps
+    each lane's window and tables in device memory and has no such budget,
+    so the port splits the lanes evenly over the devices it has. The
+    variable stays for launches of a fixed lane count: the dry run's
+    shape classes (``graft_entry.py``) and ``chip_smoke.py``'s slab
+    timing set it."""
+    env = os.environ.get("LZMA_RS_TPU_VMEM_L")
+    if env:
+        return max(1, int(env))
+    return max(1, -(-n_lanes // max(1, n_dev)))
+
+
+def slab_launches(n_lanes: int, lanes: int, n_dev: int) -> List[list]:
+    """The launches of ``n_lanes`` sorted lanes in slabs of ``lanes`` over
+    ``n_dev`` devices, as at ``lzma_rs_tpu/parallel/runtime.py:926-931``:
+    each launch takes ``lanes * n_dev`` lanes, slab ``j`` of a launch
+    (lanes ``a:b`` of the sorted list) goes to device ``j``; the last
+    launch may hold fewer slabs, and its last slab fewer lanes."""
+    step = lanes * n_dev
+    return [
+        [(a, min(a + lanes, n_lanes))
+         for a in range(base, min(base + step, n_lanes), lanes)]
+        for base in range(0, n_lanes, step)
+    ]
 
 
 def execute_plan_device(
     data: bytes, plans: List[DecodePlan], device: torch.device
 ) -> bytes:
-    """Decode the plans' lanes in one ``decode_segments`` call on
-    ``device``; returns the concatenated output. Raises
-    :class:`VmemIneligible` when a lane does not fit the bucket rules and
-    ``_KernelError`` when a lane fails (the caller replays on the host)."""
+    """Decode the plans' lanes with ``decode_segments``; returns the
+    concatenated output. The lanes, biggest first, go in slabs of
+    :func:`slab_lanes` lanes, one slab a device, over ``n_dev`` devices a
+    launch (``n_dev`` is :func:`_n_local_devices`, at most one device a
+    slab): by default one slab a card, so one launch of every lane on a
+    one-card host. The slabs go to ``n_dev`` cards from ``device``'s on
+    (:func:`~lzma_rs_tpu_torch.parallel.mesh.devices`), or to ``n_dev``
+    CPU slabs under a CPU ``device``. Every slab is launched before any
+    result is read. Raises :class:`VmemIneligible` when a lane does not fit
+    the bucket rules and ``_KernelError`` (with the lane's index in the
+    whole sorted list) when a lane fails; the caller replays on the
+    host."""
     device = torch.device(device)
     staged = stage_plans(data, plans)
     lanes, seg_lens, out = staged.lanes, staged.seg_lens, staged.out
@@ -737,28 +812,44 @@ def execute_plan_device(
     if not lanes:
         return out.tobytes()
 
-    with stats_mod.launch_timer(st):
-        win, err, outp, steps = sd.decode_segments(
-            *staged.tensors(device), config=staged.config
-        )
-        # copy back the used columns and the per-lane results only
-        cols = int(seg_lens.max())
-        host = [t.to("cpu", non_blocking=True)
-                for t in (win[:, :cols], err, outp, steps)]
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        win_h, err_h, outp_h, steps_h = (t.numpy() for t in host)
+    have = _n_local_devices(device)
+    per_slab = slab_lanes(len(lanes), have)
+    n_dev = min(have, -(-len(lanes) // per_slab))
+    devs = [device] if n_dev == 1 else mesh.devices(n_dev, device)
     if st is not None:
-        st.kernel_iters += int(steps_h.max())
+        st.devices = max(st.devices, n_dev)
 
-    bad = np.nonzero((err_h != 0) | (outp_h != seg_lens))[0]
-    if bad.size:
-        i = int(bad[0])
-        # a lane that stopped short without a code counts as corrupt (1)
-        raise _KernelError(i, int(err_h[i]) or 1)
-    for i, lane in enumerate(lanes):
-        n = int(seg_lens[i])
-        out[lane.seg_base:lane.seg_base + n] = win_h[i, :n]
+    with stats_mod.launch_timer(st):
+        results = []  # per launch: (a, b, host results), in lane order
+        for slabs in slab_launches(len(lanes), per_slab, n_dev):
+            results.append([])
+            for (a, b), dev in zip(slabs, devs):
+                win, err, outp, steps = sd.decode_segments(
+                    *staged.tensors(dev, a, b),
+                    config=staged.slab_config(a, b),
+                )
+                # copy back the used columns and the per-lane results only
+                cols = int(seg_lens[a:b].max())
+                results[-1].append((a, b, [
+                    t.to("cpu", non_blocking=True)
+                    for t in (win[:, :cols], err, outp, steps)
+                ]))
+        for dev in {d for d in devs if d.type == "cuda"}:
+            torch.cuda.synchronize(dev)
+    if st is not None:  # a launch lasts as long as its longest lane
+        st.kernel_iters += sum(max(int(host[3].max()) for _, _, host in r)
+                               for r in results)
+
+    for a, b, host in (slab for r in results for slab in r):
+        win_h, err_h, outp_h, _ = (t.numpy() for t in host)
+        bad = np.nonzero((err_h != 0) | (outp_h != seg_lens[a:b]))[0]
+        if bad.size:
+            i = int(bad[0])
+            # a lane that stopped short without a code counts as corrupt (1)
+            raise _KernelError(a + i, int(err_h[i]) or 1)
+        for i in range(b - a):
+            lane, n = lanes[a + i], int(seg_lens[a + i])
+            out[lane.seg_base:lane.seg_base + n] = win_h[i, :n]
     return out.tobytes()
 
 

@@ -1,14 +1,14 @@
 """Rows of the probe tools: what a row runs, how it is timed, its bound.
 
 A probe tool (``probe_lane2d``, ``probe_state_in_ref``, ``probe_mosaic``,
-``probe_mosaic2``, ``probe_mosaic3``, ``probe_mosaic4``, ``probe_round4``)
-is a list of rows ``(name, build)``; ``build(device)`` returns ``(fn,
-args, lanes)`` as the JAX package's tools do, where ``fn`` is a
-:class:`Probe`, ``args`` its inputs and ``lanes`` its threads.
-:func:`run` times every row (CUDA events on the card, the host clock for
+``probe_mosaic2``, ``probe_mosaic3``, ``probe_mosaic4``, ``probe_round4``,
+``probe_lane2d_bisect``) is a list of rows ``(name, build)``;
+``build(device)`` returns ``(fn, args, lanes)`` as the JAX package's tools
+do, where ``fn`` is a :class:`Probe`, ``args`` its inputs and ``lanes``
+its threads. :func:`run` times every row (CUDA events on the card, the host clock for
 the plain version on the CPU) and prints the tools' columns, plus, on the
 card, the time per iteration of a long run and the least time the card
-could take (``bound_ms``).
+could take (``bound_ms``); every row also prints its output's checksum.
 """
 
 from __future__ import annotations
@@ -184,7 +184,7 @@ def measure(name: str, fn: Probe, xs: tuple, lanes: int, *,
     r = {"name": name, "input": what, "kernel": fn.wrapper.__name__,
          "lanes": lanes, "iters": its, "device": str(dev)}
     t = time.perf_counter()
-    fn(*xs)
+    out = fn(*xs)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         r["first_s"] = time.perf_counter() - t
@@ -207,11 +207,13 @@ def measure(name: str, fn: Probe, xs: tuple, lanes: int, *,
         r["ms"] = (time.perf_counter() - t) * 1e3
     r["us_per_it"] = r["ms"] * 1e3 / its
     r["ns_per_lane_bit"] = r["ms"] * 1e6 / its / lanes
+    r["checksum"] = int(out.long().sum())  # the output's, as int64
     return r
 
 
 def row_text(r: dict) -> str:
-    head = f"{r['name'] + ' [' + r['input'] + ']':52s} OK  "
+    head = (f"{r['name'] + ' [' + r['input'] + ']':52s} OK  sum "
+            f"{r['checksum']}  ")
     if "ms_long" not in r:
         return (head + f"cpu plain version {r['us_per_it']:9.3f} us/it  "
                 f"{r['ns_per_lane_bit']:9.3f} ns/lane-bit")
@@ -245,12 +247,14 @@ def run(rows, device, *, seed: int | None = None) -> list:
     return results
 
 
-def main(rows, argv=None, prog=None) -> list:
-    """The tools' command line: ``[which] [--device cuda|cpu] [--seed N]``.
-    """
+def main(rows, argv=None, prog=None, substring: bool = False) -> list:
+    """The tools' command line: ``[which] [--device cuda|cpu] [--seed N]``;
+    ``which`` picks the rows whose name starts with it, or holds it where
+    ``substring`` is set (the bisect tool's filter)."""
     ap = argparse.ArgumentParser(prog=prog)
     ap.add_argument("which", nargs="?", default="",
-                    help="run only the rows whose name starts with this")
+                    help="run only the rows whose name "
+                    + ("holds" if substring else "starts with") + " this")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda (the kernels) or cpu (the plain versions)")
     ap.add_argument("--seed", type=int, default=None,
@@ -263,5 +267,6 @@ def main(rows, argv=None, prog=None) -> list:
         torch.device("cpu")
     if device.type == "cuda":
         print("device:", torch.cuda.get_device_name(device), flush=True)
-    picked = [r for r in rows if r[0].startswith(a.which)]
+    picked = [r for r in rows if (a.which in r[0] if substring
+                                  else r[0].startswith(a.which))]
     return run(picked, device, seed=a.seed)

@@ -412,11 +412,13 @@ def test_the_tools_list_the_tpu_probes_rows():
     ("probes_mosaic.cu", "mosaic"), ("probe_mosaic.cuh", "mosaic"),
     ("probes_mosaic3.cu", "mosaic3"), ("probe_mosaic3.cuh", "mosaic3"),
     ("probes_mosaic4.cu", "mosaic4"), ("probe_mosaic4.cuh", "mosaic4"),
-    ("probes_round4.cu", "round4"), ("probe_round4.cuh", "round4")))
+    ("probes_round4.cu", "round4"), ("probe_round4.cuh", "round4"),
+    ("probes_bisect.cu", "bisect"), ("probe_bisect.cuh", "bisect")))
 def test_an_edit_rebuilds_only_its_library(edited, changed, tmp_path):
     """An edit rebuilds the libraries whose sources hold the file, and no
     other: ``changed``, and ``mosaic3``, ``mosaic4`` and ``round4`` too for
-    ``probe_mosaic.cuh``, which their headers include."""
+    ``probe_mosaic.cuh``, which their headers include, and ``bisect`` for
+    ``probe_lane.cuh``, which its header includes."""
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     libs = build.LIBRARIES
@@ -424,8 +426,8 @@ def test_an_edit_rebuilds_only_its_library(edited, changed, tmp_path):
     with open(csrc / edited, "a") as f:
         f.write("\n// edited\n")
     after = {lib.name: build.source_hash(lib, str(csrc)) for lib in libs}
-    also = {"probe_mosaic.cuh": {"mosaic3", "mosaic4", "round4"}}.get(
-        edited, set())
+    also = {"probe_mosaic.cuh": {"mosaic3", "mosaic4", "round4"},
+            "probe_lane.cuh": {"bisect"}}.get(edited, set())
     assert {n for n in before if before[n] != after[n]} == {changed} | also
 
 

@@ -79,6 +79,9 @@ def test_no_source_of_the_port_imports_the_jax_package():
     # the walk sees the copied host layers and the device half
     rel = {os.path.relpath(f, REPO) for f in files}
     assert {"chip_smoke.py", "lzma_rs_tpu_torch/parallel/runtime.py",
+            "lzma_rs_tpu_torch/parallel/mesh.py",
+            "lzma_rs_tpu_torch/graft_entry.py",
+            "lzma_rs_tpu_torch/ops/probes_bisect.py",
             "lzma_rs_tpu_torch/native/loader.py",
             "lzma_rs_tpu_torch/models/codecs.py",
             "lzma_rs_tpu_torch/encode/lzma2_enc.py"} <= rel
