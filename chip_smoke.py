@@ -7,8 +7,8 @@ toolkit (nvcc) and g++:
     python3 chip_smoke.py
 
 It imports only ``lzma_rs_tpu_torch`` (no JAX, nothing of ``lzma_rs_tpu``),
-builds the segment-decoder kernel and the probe kernels from
-``lzma_rs_tpu_torch/csrc`` and the port's native host library into
+builds the segment-decoder kernel, its variants and the probe kernels
+from ``lzma_rs_tpu_torch/csrc`` and the port's native host library into
 ``lzma_rs_tpu_torch/build/``, then runs:
 
 1. device: the card's name and power limit (``nvidia-smi``);
@@ -23,7 +23,10 @@ builds the segment-decoder kernel and the probe kernels from
    stdlib sources (cycled if the installation holds fewer), as (a) the
    tpu_profile archive (8 KiB blocks, lc=0) and (b) a stock-shaped archive
    (stdlib ``lzma`` preset 6 per 64 KiB block, CRC64); end-to-end,
-   kernel-only and native MB/s; the kernel against its plain version in
+   kernel-only and native MB/s; the kernel's cycles a step (its time at
+   the max SM clock over the longest lane's steps), its shared memory a
+   lane and the lanes resident on an SM (the CUDA occupancy query, held
+   to every lane in one wave); the kernel against its plain version in
    each archive's own bucket: (a)'s whole batch, and four lanes of (b)
    (its tail block whole, three lanes cut to that length: the plain
    version's time is its longest lane's); then the default ``auto``
@@ -90,9 +93,19 @@ builds the segment-decoder kernel and the probe kernels from
     kernel time beside phase 4's single launch; the dry run
     (``graft_entry.dryrun_multichip(1)``: flagship-shaped, stock-shaped
     and corrupt archives in slabs); ``graft_entry.entry()`` once against
-    its plain version.
+    its plain version;
+14. the decoder's variants (``csrc/decode_variants.cu``,
+    ``ops/segment_variants.py``: V0 a thread a lane with everything in
+    global memory, V1 a warp a lane, V2 the table in shared memory, V3 the
+    window too (the decoder), V4 one thread copying, V5 the input
+    look-ahead, S3 V4 run by one thread a lane and a block, without the
+    warp team) on (a)'s and (b)'s whole batch, in turns (V0, V3, V1, ...,
+    V1, V3, V0), CUDA events, median of 3 a visit;
+    each variant's outputs held equal to the decoder's (which phases 3, 4
+    and 6 hold against the plain version); ms and cycles a step of each,
+    and the differences as stage costs.
 
-The seven kernel libraries build in parallel (one nvcc per library, with
+The eight kernel libraries build in parallel (one nvcc per library, with
 the native host library's g++) in phase 2.
 
 Every phase checks its result; any failure exits nonzero before the result
@@ -532,6 +545,80 @@ def ptxas_summary(log: str) -> str:
     return "; ".join(out) or log.strip()[-300:]
 
 
+def cycles_per_step(ms: float, longest: int, peaks) -> float:
+    """Cycles at the max SM clock a step of the longest lane takes, when a
+    launch lasts that lane's serial chain."""
+    return ms * 1e-3 * peaks.clock_mhz * 1e6 / longest
+
+
+# Visits of phase 14: the first design and the decoder at both ends.
+VARIANT_TURNS = ("V0", "V3", "V1", "V2", "V4", "V5", "S3")
+# Stage costs: (what, variant, the variant it changes)
+VARIANT_STAGES = (("a warp a lane over every SM", "V1", "V0"),
+                  ("tables to shared memory", "V2", "V1"),
+                  ("the window to shared memory", "V3", "V2"),
+                  ("one thread copying", "V4", "V3"),
+                  ("the look-ahead", "V5", "V3"),
+                  ("the warp team beyond copies", "V4", "S3"),
+                  ("the warp team", "V3", "S3"))
+
+
+def median_ms(torch, fn, reps: int = 3) -> float:
+    """Median device milliseconds of ``reps`` single calls (CUDA events)."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return sorted(times)[len(times) // 2]
+
+
+def variants_phase(torch, dev, archives, peaks, runtime, sd) -> None:
+    """Phase 14: every variant on each archive's whole batch, held equal to
+    the decoder's outputs and timed in turns."""
+    from lzma_rs_tpu_torch.ops import segment_variants as sv
+
+    sv.decode_variant.launches = 0
+    for key, x in archives.items():
+        staged = runtime.stage_plans(x, runtime.plan_xz(x)[0])
+        cfg = staged.config
+        inputs = staged.tensors(dev)
+        want = sd.decode_segments(*inputs, config=cfg)
+        torch.cuda.synchronize()
+        longest = int(want[3].max())
+        occ = {}
+        for name in VARIANT_TURNS:
+            got = sv.decode_variant(name, *inputs, config=cfg)
+            held_equal(got, want, f"phase 14 ({key}) {name} against the "
+                       "decoder")
+            occ[name] = sv.variant_occupancy(name, cfg)
+            del got
+        t = {name: [] for name in VARIANT_TURNS}
+        for name in VARIANT_TURNS + VARIANT_TURNS[::-1]:
+            t[name].append(median_ms(torch, lambda: sv.decode_variant(
+                name, *inputs, config=cfg)))
+        cyc = {n: cycles_per_step(sum(v) / len(v), longest, peaks)
+               for n, v in t.items()}
+        for name in VARIANT_TURNS:
+            say(f"14 variants ({key})", f"{name} ({sv.VARIANTS[name].what}):"
+                f" {' / '.join(f'{ms:.2f}' for ms in t[name])} ms, "
+                f"{cyc[name]:.1f} cycles a step; {occ[name]} blocks an SM; "
+                "== the decoder (win, err, outp, steps)")
+        say(f"14 variants ({key})", f"{cfg.L} lanes, W={cfg.W} NLIT="
+            f"{cfg.NLIT}, longest lane {longest} steps; stage costs, cycles a"
+            " step: " + "; ".join(f"{what} ({a} - {b}) {cyc[a] - cyc[b]:.1f}"
+                                  for what, a, b in VARIANT_STAGES))
+        del inputs, want
+        torch.cuda.empty_cache()
+    launches = sv.decode_variant.launches
+    check(launches == len(archives) * len(VARIANT_TURNS) * 7,
+          f"phase 14: {launches} variant launches")
+
+
 def phase3_lanes(corpus: bytes, runtime):
     """Streams for the kernel-against-plain check, planned into one blob.
     Returns (blob, plans, expected output, corrupted seg_bases,
@@ -650,6 +737,7 @@ def main() -> None:
         built_libs = [j.result() for j in jobs]
         native_s = native_s.result()
     build.load()
+    build.load_variants()
     build.load_probes()
     build.load_mosaic()
     build.load_mosaic3()
@@ -739,15 +827,28 @@ def main() -> None:
           "main path")
 
     main_a = {}  # the gen-2 entry: the kernel on (a)'s whole batch
+    cycles = {}  # cycles a step of the kernel on each archive
     for key, x in archives.items():
         staged_x = runtime.stage_plans(x, runtime.plan_xz(x)[0])
         inputs_x = staged_x.tensors(dev)
         run = lambda: sd.decode_segments(*inputs_x, config=staged_x.config)
-        b_x = bound(staged_x, run()[3], peaks)  # this run's steps, whole batch
+        steps_x = run()[3]
+        b_x = bound(staged_x, steps_x, peaks)  # this run's steps, whole batch
         k_ms = cuda_ms(torch, run, 3)
         n_s = best_seconds(lambda: decode(x, "native"))
         secs, lanes, steps = e2e[key]
         c = staged_x.config
+        longest = int(steps_x.max())
+        cycles[key] = cycles_per_step(k_ms, longest, peaks)
+        occ = sd.decoder_occupancy(c)
+        check(occ * peaks.sms >= c.L, f"phase 4 ({key}): {occ} lanes an SM "
+              f"x {peaks.sms} SMs < {c.L} lanes: not one wave")
+        say(f"4 main ({key})", f"kernel {k_ms:.2f} ms = "
+            f"{cycles[key]:.1f} cycles a step at {peaks.clock_mhz:.0f} MHz "
+            f"over the longest lane's {longest} steps; shared memory "
+            f"{sd.smem_bytes(c)} B a lane: {occ} lanes an SM by the "
+            f"occupancy query ({sd.lanes_per_sm(c)} by shared memory alone), "
+            f"{occ * peaks.sms} >= {c.L} lanes in one wave")
         say(f"4 main ({key})", f"bit-exact, engine cuda, no fallbacks; "
             f"{lanes} lanes, W={c.W} W_IN={c.W_IN} NLIT={c.NLIT}, longest "
             f"lane {steps} steps; end-to-end {len(corpus) / 1e6 / secs:.2f} "
@@ -778,7 +879,8 @@ def main() -> None:
             f"{int(want_x[3].max())} steps; plain {x_plain_s:.1f} s")
         if key == "a":
             main_a = {"ms": k_ms, "plain_ms": x_plain_s * 1e3,
-                      "plain_lanes": c.L, "bound_ms": b_x[0],
+                      "plain_lanes": c.L, "cycles_per_step": cycles["a"],
+                      "longest_lane_steps": longest, "bound_ms": b_x[0],
                       "bound_by": b_x[1], "win": got_x[0].cpu(),
                       "res": [t.cpu() for t in got_x[1:]]}
         del inputs_x, inputs_c, staged_x, got_x, want_x
@@ -1000,6 +1102,9 @@ def main() -> None:
     say("13 entry", f"entry(): decode_segments on {args13[0].shape[0]} "
         f"lanes == its plain version ({tuple(win13.shape)} window)")
 
+    # -- 14. the decoder's variants, in turns --------------------------
+    variants_phase(torch, dev, archives, peaks, runtime, sd)
+
     check("jax" not in sys.modules, "jax was imported")
     jax_pkg = sorted(m for m in sys.modules
                      if m == "lzma_rs_tpu" or m.startswith("lzma_rs_tpu."))
@@ -1013,6 +1118,7 @@ def main() -> None:
          "replaces": "lzma_rs_tpu/ops/vmem2_decoder.py:2121",
          "launches": launches, "max_abs_err": max_abs_err,
          **{k: main_a[k] for k in ("ms", "plain_ms", "plain_lanes",
+                                   "cycles_per_step", "longest_lane_steps",
                                    "bound_ms", "bound_by")}},
         {"name": "decode_segments (gen-1 bucket)", **common,
          "replaces": "lzma_rs_tpu/ops/vmem_decoder.py:1087",

@@ -9,7 +9,7 @@ and changed only in its imports and in where the native library is built
 
 Decoding goes through this package's backends (``backends.py``): bulk
 LZMA2 and `.xz` streams split into independent dict-reset segments that a
-hand-written CUDA kernel decodes one thread per segment
+hand-written CUDA kernel decodes one warp per segment
 (``ops/segment_decoder.py``, ``csrc/``). Encoding is the host encoder.
 
 The public API is the eight functions of the JAX package (and of the

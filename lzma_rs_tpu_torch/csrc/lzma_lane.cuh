@@ -1,8 +1,9 @@
 // One lane of the segment decoder: decodes one LZMA2 dict-reset segment
-// (a schedule of LZMA chunks) to completion in scalar code.
+// (a schedule of LZMA chunks) to completion, run by a team of threads.
 //
-// Compiled for the card by decode_segments.cu (one thread per lane) and,
-// as a test aid, for the host by g++ (-x c++ -DLZL_HOST_ENTRY), so the
+// Compiled for the card by segment_kernel.cuh (the decoder: a warp a lane;
+// the variants of decode_variants.cu: a thread or a warp a lane) and, as a
+// test aid, for the host by g++ (-x c++ -DLZL_HOST_ENTRY), so the
 // decoder's logic is checked on the CPU against the plain PyTorch version
 // (ops/segment_decoder.py::decode_segments_reference).
 //
@@ -24,6 +25,18 @@
 // one step, exactly as the plain version's lockstep iterations do, and a
 // lane stops with ERR_STEP_CAP when its step budget is spent.
 //
+// The team. Every thread of a team runs the same scalar decoder on its own
+// copy of the state, so control flow is uniform and every load and store
+// of the tables and the window goes to one address for all of them. Work
+// is split over the team only where the format allows it: the probability
+// refill and match copies (each byte of a copy reads only bytes that
+// existed before it). The caller places the table and the window (shared
+// or global memory). Ordering inside a warp is explicit, never assumed
+// from lockstep execution: a team barrier between each probability's load
+// and its store, so no thread's store can overtake another's load of the
+// same entry, and after every cooperative step. On the host a warp is one
+// thread playing each rank in turn, with the same index arithmetic.
+//
 // The probability table uses models/state.py's flat layout for
 // lc + lp <= log2(nlit): literals first, then is_match, is_rep, ... .
 #ifndef LZMA_RS_TPU_TORCH_LZMA_LANE_CUH_
@@ -31,6 +44,7 @@
 
 #include <stddef.h>
 #include <stdint.h>
+#include <string.h>
 
 #if defined(__CUDACC__)
 #define LZL_FN __host__ __device__ inline
@@ -55,6 +69,12 @@ constexpr int LEN_LOW = 2;
 constexpr int LEN_MID = 2 + 16 * 8;
 constexpr int LEN_HIGH = 2 + 16 * 8 * 2;
 
+// Options of a decoder build (bits of the kOpts template argument).
+constexpr int kWarpCopy = 1;   // a match copy split over the team; else one
+                               // thread copies a byte a step
+constexpr int kLookahead = 2;  // input read through two words held ahead
+constexpr int kDecoder = kWarpCopy;  // the decoder's build
+
 // Offsets of models/state.py's make_layout(log2(nlit)).
 struct Layout {
   int is_match, is_rep, is_rep_g0, is_rep_g1, is_rep_g2, is_rep_0long,
@@ -76,13 +96,89 @@ struct Layout {
   }
 };
 
+// Bytes of a lane's probability table in shared memory, rounded up to 16
+// so that the window placed after it is 16-byte aligned
+// (ops/segment_decoder.py::probs_bytes).
+LZL_FN int probs_bytes(int nlit) {
+  return (2 * Layout(nlit).total + 15) & ~15;
+}
+
+// A thread alone (one lane a thread).
+struct Solo {
+  static constexpr int kSize = 1;
+  LZL_FN void sync() const {}
+  template <class F>
+  LZL_FN void each(F&& f) const { f(0); }
+  template <class F>
+  LZL_FN void one(F&& f) const { f(); }
+};
+
+// A warp (one lane a warp). each(f) runs f(rank) on every rank and then a
+// warp barrier; one(f) runs f on rank 0 and then a warp barrier. On the
+// host one thread plays every rank in turn, the last rank first: a rank
+// that read a byte a lower rank writes in the same step would read it
+// stale, as it may on the card (lzl_match_copy_host tries both orders).
+struct Warp {
+  static constexpr int kSize = 32;
+  LZL_FN void sync() const {
+#if defined(__CUDA_ARCH__)
+    __syncwarp();
+#endif
+  }
+  template <class F>
+  LZL_FN void each(F&& f) const {
+#if defined(__CUDA_ARCH__)
+    f(int(threadIdx.x & 31u));
+    __syncwarp();
+#else
+    for (int r = kSize - 1; r >= 0; --r) f(r);
+#endif
+  }
+  template <class F>
+  LZL_FN void one(F&& f) const {
+#if defined(__CUDA_ARCH__)
+    if ((threadIdx.x & 31u) == 0) f();
+    __syncwarp();
+#else
+    f();
+#endif
+  }
+};
+
+// Staged input, read-only for the whole launch: the card's read-only path.
+LZL_FN uint32_t load_byte(const uint8_t* p) {
+#if defined(__CUDA_ARCH__)
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
+// A little-endian 4-byte word at a 4-byte-aligned address.
+LZL_FN uint32_t load_word(const uint8_t* p) {
+#if defined(__CUDA_ARCH__)
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
+#else
+  uint32_t v;
+  memcpy(&v, p, 4);  // the host build runs on little-endian machines
+  return v;
+#endif
+}
+
 // Range decoder over the lane's staged input, with the lane's step budget.
+template <class Team, int kOpts>
 struct Coder {
   const uint8_t* in;
-  uint32_t range, code;
-  int pos, end;
-  int steps, max_steps;
-  int err;
+  int w_in;
+  uint32_t range = 0xFFFFFFFFu, code = 0;
+  int pos = 0, end = 0;
+  int steps = 0, max_steps;
+  int err = ERR_NONE;
+  uint32_t w0 = 0, w1 = 0;  // kLookahead: the words holding pos and pos + 4
+  Team team;
+
+  LZL_FN Coder(const uint8_t* in_, int w_in_, int max_steps_, Team team_)
+      : in(in_), w_in(w_in_), max_steps(max_steps_), team(team_) {}
 
   // Count one micro-op; false (err set) once the budget is spent.
   LZL_FN bool step() {
@@ -94,6 +190,32 @@ struct Coder {
     return true;
   }
 
+  // Word i of the lane's input, 0 past its end (never consumed: a chunk's
+  // bytes end at or before w_in).
+  LZL_FN uint32_t word(int i) const {
+    return 4 * i + 4 <= w_in ? load_word(in + 4 * i) : 0u;
+  }
+
+  LZL_FN void seek(int p) {
+    pos = p;
+    if (kOpts & kLookahead) {
+      w0 = word(p >> 2);
+      w1 = word((p >> 2) + 1);
+    }
+  }
+
+  // The byte at pos, then pos + 1. With kLookahead the next word's load is
+  // issued four bytes (some 32 bits) before its first byte is needed.
+  LZL_FN uint32_t next_byte() {
+    if (!(kOpts & kLookahead)) return load_byte(in + pos++);
+    const uint32_t b = (w0 >> ((pos & 3) * 8)) & 0xFFu;
+    if ((++pos & 3) == 0) {
+      w0 = w1;
+      w1 = word((pos >> 2) + 1);
+    }
+    return b;
+  }
+
   LZL_FN bool normalize() {
     if (range < (1u << 24)) {
       if (pos >= end) {
@@ -101,7 +223,7 @@ struct Coder {
         return false;
       }
       range <<= 8;
-      code = (code << 8) | in[pos++];
+      code = (code << 8) | next_byte();
     }
     return true;
   }
@@ -110,6 +232,7 @@ struct Coder {
   LZL_FN int bit(uint16_t* p) {
     if (!step()) return -1;
     const uint32_t pv = *p;
+    team.sync();  // every rank has read *p
     const uint32_t bound = (range >> 11) * pv;
     int b;
     if (code < bound) {
@@ -159,7 +282,8 @@ struct Coder {
 };
 
 // Match length minus 2 (0..271), or -1.
-LZL_FN int decode_len(Coder& c, uint16_t* base, int pos_state) {
+template <class C>
+LZL_FN int decode_len(C& c, uint16_t* base, int pos_state) {
   int b = c.bit(&base[0]);
   if (b < 0) return -1;
   if (!b) return c.tree(base + LEN_LOW + pos_state * 8, 3);
@@ -174,8 +298,9 @@ LZL_FN int decode_len(Coder& c, uint16_t* base, int pos_state) {
 }
 
 // Distance field (rep0 to be) of a new match; false on error.
-LZL_FN bool decode_distance(Coder& c, uint16_t* P, const Layout& lay,
-                            int len, uint32_t* out) {
+template <class C>
+LZL_FN bool decode_distance(C& c, uint16_t* P, const Layout& lay, int len,
+                            uint32_t* out) {
   const int len_state = len < 3 ? len : 3;
   const int slot = c.tree(P + lay.pos_slot + len_state * 64, 6);
   if (slot < 0) return false;
@@ -203,20 +328,73 @@ LZL_FN bool decode_distance(Coder& c, uint16_t* P, const Layout& lay,
   return true;
 }
 
-// Copy len bytes from dist back (dist <= outp checked by the caller), one
-// step per byte; stops with ERR_SIZE at the chunk's end.
-LZL_FN bool copy_match(Coder& c, uint8_t* win, int& outp, int outend,
-                       uint32_t dist, int len) {
-  for (int i = 0; i < len; ++i) {
-    if (!c.step()) return false;
-    if (outp >= outend) {
-      c.err = ERR_SIZE;
-      return false;
-    }
-    win[outp] = win[outp - int(dist)];
-    ++outp;
+// How a match copy of len bytes ends. The lockstep decoder runs, for each
+// byte, one step (ERR_STEP_CAP once the budget is spent) and then the
+// chunk-end test (ERR_SIZE at outend). With s = max_steps - steps steps
+// left and o = outend - outp bytes left in the chunk:
+//   len <= min(s, o):    all len bytes, len steps;
+//   s <= o and s < len:  s bytes, s steps, ERR_STEP_CAP;
+//   else (o < s, o < len): o bytes, o + 1 steps, ERR_SIZE.
+struct CopySplit {
+  int n, steps, err;
+};
+
+LZL_FN CopySplit split_copy(int len, int steps, int max_steps, int outp,
+                            int outend) {
+  const int s = max_steps - steps, o = outend - outp;
+  if (len <= s && len <= o) return CopySplit{len, len, ERR_NONE};
+  if (s <= o) return CopySplit{s, s, ERR_STEP_CAP};
+  return CopySplit{o, o + 1, ERR_SIZE};
+}
+
+// Rank r of a team of t threads writes bytes r, r + t, ... of an n-byte
+// copy from dist back. Byte i of the copy is win[outp - dist + i % dist]:
+// a byte that existed before the copy, so every distance works (dist < n
+// overlaps) and the ranks need no order among themselves.
+LZL_FN void copy_rank(uint8_t* win, int outp, int dist, int n, int r,
+                      int t) {
+  if (r >= n) return;
+  const uint8_t* src = win + (outp - dist);
+  int j = r < dist ? r : r % dist;
+  const int dj = t < dist ? t : t % dist;
+  for (int i = r; i < n; i += t) {
+    win[outp + i] = src[j];
+    j += dj;
+    if (j >= dist) j -= dist;
+  }
+}
+
+// A match copy of len bytes from dist back (dist <= outp checked by the
+// caller), split as split_copy says; false (err set) if the lane stops.
+template <class Team, int kOpts>
+LZL_FN bool copy_match(Coder<Team, kOpts>& c, uint8_t* win, int& outp,
+                       int outend, int dist, int len) {
+  const CopySplit s = split_copy(len, c.steps, c.max_steps, outp, outend);
+  const int at = outp;
+  if (kOpts & kWarpCopy) {
+    c.team.each([&](int r) { copy_rank(win, at, dist, s.n, r, Team::kSize); });
+  } else {
+    c.team.one([&] {
+      for (int i = 0; i < s.n; ++i) win[at + i] = win[at + i - dist];
+    });
+  }
+  outp += s.n;
+  c.steps += s.steps;
+  if (s.err != ERR_NONE) {
+    c.err = s.err;
+    return false;
   }
   return true;
+}
+
+// Every probability back to PROB_INIT, split over the team; the barrier
+// before it keeps a slower rank's last store from landing after the fill.
+template <class Team>
+LZL_FN void refill(const Team& team, uint16_t* P, int total) {
+  team.sync();
+  team.each([&](int r) {
+    for (int i = r; i < total; i += Team::kSize) P[i] = PROB_INIT;
+  });
 }
 
 struct LaneResult {
@@ -226,15 +404,16 @@ struct LaneResult {
 // Decode one lane. in: w_in staged bytes; win: w bytes, prefilled with the
 // segment's stored chunks; P: Layout(nlit).total probabilities; chunk
 // tables: k entries each (lane-local offsets, pack_chunk_meta fields).
-LZL_FN LaneResult decode_lane(const uint8_t* in, int w_in, uint8_t* win,
-                              int w, uint16_t* P, int nlit,
+template <class Team, int kOpts>
+LZL_FN LaneResult decode_lane(Team team, const uint8_t* in, int w_in,
+                              uint8_t* win, int w, uint16_t* P, int nlit,
                               const int32_t* in_start, const int32_t* in_end,
                               const int32_t* out_start,
                               const int32_t* out_end, const int32_t* meta,
                               int k, int max_steps) {
   const Layout lay(nlit);
-  for (int i = 0; i < lay.total; ++i) P[i] = PROB_INIT;
-  Coder c{in, 0xFFFFFFFFu, 0u, 0, 0, 0, max_steps, ERR_NONE};
+  refill(team, P, lay.total);
+  Coder<Team, kOpts> c(in, w_in, max_steps, team);
   int outp = 0, state = 0, lc = 0, lp = 0, pb = 0;
   uint32_t rep0 = 0, rep1 = 0, rep2 = 0, rep3 = 0;
 
@@ -249,7 +428,7 @@ LZL_FN LaneResult decode_lane(const uint8_t* in, int w_in, uint8_t* win,
       break;
     }
     if ((m & 3) == 1) {
-      for (int i = 0; i < lay.total; ++i) P[i] = PROB_INIT;
+      refill(team, P, lay.total);
       state = 0;
       rep0 = rep1 = rep2 = rep3 = 0;
     }
@@ -258,9 +437,9 @@ LZL_FN LaneResult decode_lane(const uint8_t* in, int w_in, uint8_t* win,
     lp = (m >> 6) & 7;
     pb = (m >> 9) & 7;
     c.range = 0xFFFFFFFFu;
-    c.code = (uint32_t(in[s + 1]) << 24) | (uint32_t(in[s + 2]) << 16) |
-             (uint32_t(in[s + 3]) << 8) | uint32_t(in[s + 4]);
-    c.pos = s + 5;
+    c.code = (load_byte(in + s + 1) << 24) | (load_byte(in + s + 2) << 16) |
+             (load_byte(in + s + 3) << 8) | load_byte(in + s + 4);
+    c.seek(s + 5);
     c.end = e;
     outp = os;
 
@@ -296,7 +475,7 @@ LZL_FN LaneResult decode_lane(const uint8_t* in, int w_in, uint8_t* win,
           if (b < 0) goto done;
           sym = (sym << 1) | uint32_t(b);
         }
-        win[outp++] = uint8_t(sym);
+        win[outp++] = uint8_t(sym);  // every rank stores the same byte
         state = state < 4 ? 0 : (state < 10 ? state - 3 : state - 6);
         continue;
       }
@@ -316,7 +495,7 @@ LZL_FN LaneResult decode_lane(const uint8_t* in, int w_in, uint8_t* win,
               c.err = ERR_DIST_OUT;
               goto done;
             }
-            if (!copy_match(c, win, outp, oe, rep0 + 1, 1)) goto done;
+            if (!copy_match(c, win, outp, oe, int(rep0) + 1, 1)) goto done;
             continue;
           }
         } else {
@@ -363,7 +542,7 @@ LZL_FN LaneResult decode_lane(const uint8_t* in, int w_in, uint8_t* win,
         c.err = ERR_DIST_OUT;
         goto done;
       }
-      if (!copy_match(c, win, outp, oe, rep0 + 1, len + 2)) goto done;
+      if (!copy_match(c, win, outp, oe, int(rep0) + 1, len + 2)) goto done;
     }
   }
 done:
@@ -373,25 +552,74 @@ done:
 }  // namespace lzl
 
 #if defined(LZL_HOST_ENTRY) && !defined(__CUDACC__)
-// Host loop over lanes with the kernel's buffer layout (tests only).
+// Host loop over lanes with the kernel's buffer layout (tests only). code
+// picks the decoder build, as the variant's code: 0 a thread a lane, one
+// byte copied a step (V0 and S3); 1 the decoder (a warp a lane; V1-V3
+// place its table and window, which the host build does not model); 4 a
+// warp with one thread copying (V4); 5 the decoder with the input
+// look-ahead (V5). The window is decoded in place.
+template <class Team, int kOpts>
+static void lzl_host_lanes(const uint8_t* inbuf, uint8_t* win,
+                           uint16_t* probs, const int32_t* in_start,
+                           const int32_t* in_end, const int32_t* out_start,
+                           const int32_t* out_end, const int32_t* chunk_meta,
+                           int32_t* err, int32_t* outp, int32_t* steps,
+                           int L, int w_in, int w, int nprobs, int nlit,
+                           int k, int max_steps) {
+  for (int l = 0; l < L; ++l) {
+    const size_t t = size_t(l) * size_t(k);
+    const lzl::LaneResult r = lzl::decode_lane<Team, kOpts>(
+        Team{}, inbuf + size_t(l) * size_t(w_in), w_in,
+        win + size_t(l) * size_t(w), w, probs + size_t(l) * size_t(nprobs),
+        nlit, in_start + t, in_end + t, out_start + t, out_end + t,
+        chunk_meta + t, k, max_steps);
+    err[l] = r.err;
+    outp[l] = r.outp;
+    steps[l] = r.steps;
+  }
+}
+
 extern "C" int lzl_decode_segments_host(
     const uint8_t* inbuf, uint8_t* win, uint16_t* probs,
     const int32_t* in_start, const int32_t* in_end, const int32_t* out_start,
     const int32_t* out_end, const int32_t* chunk_meta, int32_t* err,
     int32_t* outp, int32_t* steps, int L, int w_in, int w, int nprobs,
-    int nlit, int k, int max_steps) {
-  for (int l = 0; l < L; ++l) {
-    const size_t t = size_t(l) * size_t(k);
-    const lzl::LaneResult r = lzl::decode_lane(
-        inbuf + size_t(l) * size_t(w_in), w_in, win + size_t(l) * size_t(w),
-        w, probs + size_t(l) * size_t(nprobs), nlit, in_start + t, in_end + t,
-        out_start + t, out_end + t, chunk_meta + t, k, max_steps);
-    err[l] = r.err;
-    outp[l] = r.outp;
-    steps[l] = r.steps;
+    int nlit, int k, int max_steps, int code) {
+  using lzl::Solo;
+  using lzl::Warp;
+#define LZL_HOST_RUN(TEAM, OPTS)                                           \
+  lzl_host_lanes<TEAM, OPTS>(inbuf, win, probs, in_start, in_end,          \
+                             out_start, out_end, chunk_meta, err, outp,    \
+                             steps, L, w_in, w, nprobs, nlit, k, max_steps)
+  switch (code) {
+    case 0: LZL_HOST_RUN(Solo, 0); return 0;
+    case 1: LZL_HOST_RUN(Warp, lzl::kDecoder); return 0;
+    case 4: LZL_HOST_RUN(Warp, 0); return 0;
+    case 5: LZL_HOST_RUN(Warp, lzl::kDecoder | lzl::kLookahead); return 0;
+    default: return -1;
   }
+#undef LZL_HOST_RUN
+}
+
+// One match copy as the decoder's warp runs it (split_copy, then every
+// rank's copy_rank, the ranks in order, or the last first when reverse is
+// set): res = {outp, steps, err} after it.
+extern "C" int lzl_match_copy_host(uint8_t* win, int outp, int outend,
+                                   int dist, int len, int steps,
+                                   int max_steps, int reverse, int32_t* res) {
+  const lzl::CopySplit s = lzl::split_copy(len, steps, max_steps, outp,
+                                           outend);
+  constexpr int t = lzl::Warp::kSize;
+  for (int i = 0; i < t; ++i) {
+    lzl::copy_rank(win, outp, dist, s.n, reverse ? t - 1 - i : i, t);
+  }
+  res[0] = outp + s.n;
+  res[1] = steps + s.steps;
+  res[2] = s.err;
   return 0;
 }
+
+extern "C" int lzl_probs_bytes_host(int nlit) { return lzl::probs_bytes(nlit); }
 #endif
 
 #endif  // LZMA_RS_TPU_TORCH_LZMA_LANE_CUH_

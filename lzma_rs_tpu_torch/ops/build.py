@@ -4,10 +4,12 @@
 PyTorch headers: seconds, not minutes) into
 ``lzma_rs_tpu_torch/build/liblzl_<name>-<hash>.so``, where the hash covers
 that library's own sources and the flags, so an edited source rebuilds its
-library alone and an unchanged one loads at once. Seven libraries:
+library alone and an unchanged one loads at once. Eight libraries:
 
 - ``segdec``: the segment decoder (``decode_segments.cu`` +
-  ``lzma_lane.cuh``), :func:`load`;
+  ``segment_kernel.cuh`` + ``lzma_lane.cuh``), :func:`load`;
+- ``segvar``: the decoder's variants (``decode_variants.cu`` over the same
+  two headers), :func:`load_variants`;
 - ``probes``: the lane2d and state-in-ref probe kernels (``probes.cu`` +
   ``probe_lane.cuh``), :func:`load_probes`;
 - ``mosaic``: the mosaic probe kernels (``probes_mosaic.cu`` +
@@ -56,7 +58,10 @@ class Library:
                     # first, which includes the others
 
 
-SEGDEC = Library("segdec", ("decode_segments.cu", "lzma_lane.cuh"))
+SEGDEC = Library("segdec", ("decode_segments.cu", "segment_kernel.cuh",
+                            "lzma_lane.cuh"))
+SEGVAR = Library("segvar", ("decode_variants.cu", "segment_kernel.cuh",
+                            "lzma_lane.cuh"))
 PROBES = Library("probes", ("probes.cu", "probe_lane.cuh"))
 MOSAIC = Library("mosaic", ("probes_mosaic.cu", "probe_mosaic.cuh"))
 MOSAIC3 = Library("mosaic3", ("probes_mosaic3.cu", "probe_mosaic3.cuh",
@@ -67,7 +72,7 @@ ROUND4 = Library("round4", ("probes_round4.cu", "probe_round4.cuh",
                             "probe_mosaic.cuh"))
 BISECT = Library("bisect", ("probes_bisect.cu", "probe_bisect.cuh",
                             "probe_lane.cuh"))
-LIBRARIES = (SEGDEC, PROBES, MOSAIC, MOSAIC3, MOSAIC4, ROUND4, BISECT)
+LIBRARIES = (SEGDEC, SEGVAR, PROBES, MOSAIC, MOSAIC3, MOSAIC4, ROUND4, BISECT)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,8 +153,25 @@ def load() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.lzl_decode_segments.restype = ci
     lib.lzl_decode_segments.argtypes = [vp] * 11 + [ci] * 7 + [vp]
+    lib.lzl_decoder_occupancy.restype = ci
+    lib.lzl_decoder_occupancy.argtypes = [ci, vp]
     lib.lzl_error_string.restype = ctypes.c_char_p
     lib.lzl_error_string.argtypes = [ci]
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def load_variants() -> ctypes.CDLL:
+    """Build (if needed) and bind the decoder's variants; one handle per
+    process."""
+    lib = ctypes.CDLL(build_library(SEGVAR).path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.lzl_decode_variant.restype = ci
+    lib.lzl_decode_variant.argtypes = [ci] + [vp] * 12 + [ci] * 8 + [vp]
+    lib.lzl_variant_occupancy.restype = ci
+    lib.lzl_variant_occupancy.argtypes = [ci, ci, vp]
+    lib.lzl_variant_error_string.restype = ctypes.c_char_p
+    lib.lzl_variant_error_string.argtypes = [ci]
     return lib
 
 

@@ -4,14 +4,18 @@ The port of ``lzma_rs_tpu/ops/vmem2_decoder.py::decode_segments_vmem2``
 (gen-2) and, at gen-1's bucket (``W_IN == W``), of
 ``lzma_rs_tpu/ops/vmem_decoder.py::decode_segments_vmem`` (gen-1): the two
 TPU kernels compute one function with one contract and differ only in
-Mosaic layout and workarounds, which a kernel of one CUDA thread per lane
+Mosaic layout and workarounds, which a kernel of one CUDA warp per lane
 has neither of. Gen-1's ring mode (``ERR_RING`` and its full-window retry)
 is such a workaround and has no counterpart here.
 
 - :func:`decode_segments` is the wrapper. On a CUDA tensor it launches the
-  hand-written kernel (``csrc/decode_segments.cu``, one thread per lane)
-  or raises; on a CPU tensor it runs :func:`decode_segments_reference`.
+  hand-written kernel (``csrc/decode_segments.cu``: one warp a lane, its
+  probability table and window in shared memory) or raises; on a CPU
+  tensor it runs :func:`decode_segments_reference`.
   ``decode_segments.launches`` counts kernel launches.
+- :func:`smem_bytes` is the shared memory a lane takes on the card,
+  :func:`lanes_per_sm` how many lanes that leaves resident on an SM, and
+  :func:`check_fits` raises for a bucket that does not fit a block.
 - :func:`decode_segments_reference` is the plain PyTorch version: every
   lane advances one micro-op per iteration (one range-coder bit, one
   copied byte or one chunk setup) under masks, the lockstep design of
@@ -28,6 +32,8 @@ i32.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -35,14 +41,61 @@ from lzma_rs_tpu_torch.ops import lzma_consts as C
 from lzma_rs_tpu_torch.ops.lzma_consts import SegmentConfig, prob_layout
 
 __all__ = [
+    "check_fits",
     "decode_segments",
     "decode_segments_reference",
+    "decoder_occupancy",
     "default_max_steps",
     "from_jax_layout",
+    "lanes_per_sm",
+    "probs_bytes",
+    "smem_bytes",
     "to_jax_layout",
 ]
 
 _U32 = 0xFFFFFFFF
+
+# Hopper's shared memory (sm_90, the CUDA C++ programming guide): a block
+# may take 227 KB (above 48 KB only as dynamic shared memory after the
+# opt-in), an SM holds 228 KB, of which the runtime reserves 1 KB a
+# block, and at most 32 blocks are resident on an SM.
+SMEM_PER_BLOCK = 232_448
+SMEM_PER_SM = 233_472
+SMEM_RESERVED_PER_BLOCK = 1_024
+MAX_BLOCKS_PER_SM = 32
+
+
+def probs_bytes(nlit: int) -> int:
+    """Bytes of a lane's probability table in shared memory: the u16
+    table rounded up to 16, so the window after it is 16-byte aligned
+    (``csrc/lzma_lane.cuh::probs_bytes``)."""
+    return (2 * prob_layout(nlit).total + 15) & ~15
+
+
+def smem_bytes(cfg: SegmentConfig) -> int:
+    """Dynamic shared memory of one lane (one block) of the kernel: its
+    probability table, then its ``W``-byte window."""
+    return probs_bytes(cfg.NLIT) + cfg.W
+
+
+def lanes_per_sm(cfg: SegmentConfig) -> int:
+    """Lanes of ``cfg``'s bucket that shared memory leaves resident on one
+    SM (a one-warp block uses few registers, so shared memory is the
+    limit)."""
+    return min(MAX_BLOCKS_PER_SM,
+               SMEM_PER_SM // (smem_bytes(cfg) + SMEM_RESERVED_PER_BLOCK))
+
+
+def check_fits(cfg: SegmentConfig) -> int:
+    """``smem_bytes(cfg)``, or ValueError when a lane's table and window
+    do not fit one block's shared memory."""
+    need = smem_bytes(cfg)
+    if need > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"bucket W={cfg.W} NLIT={cfg.NLIT} needs {need} B of shared "
+            f"memory a lane; a block holds {SMEM_PER_BLOCK}"
+        )
+    return need
 
 
 def default_max_steps(cfg: SegmentConfig) -> int:
@@ -101,21 +154,20 @@ def decode_segments(
 
     from lzma_rs_tpu_torch.ops import build
 
+    smem = check_fits(config)
     lib = build.load()
     L = config.L
-    nprobs = prob_layout(config.NLIT).total
     with torch.cuda.device(dev):
-        win = win_init.clone()
-        probs = torch.empty((L, nprobs), dtype=torch.uint16, device=dev)
+        win = torch.empty_like(win_init)
         err, outp, steps = (
             torch.empty(L, dtype=torch.int32, device=dev) for _ in range(3)
         )
         rc = lib.lzl_decode_segments(
-            inbuf.data_ptr(), win.data_ptr(), probs.data_ptr(),
+            inbuf.data_ptr(), win_init.data_ptr(), win.data_ptr(),
             *(t.data_ptr() for t in tables),
             err.data_ptr(), outp.data_ptr(), steps.data_ptr(),
-            L, config.W_IN, config.W, nprobs, config.NLIT, config.K,
-            int(max_steps), torch.cuda.current_stream(dev).cuda_stream,
+            L, config.W_IN, config.W, config.NLIT, config.K,
+            int(max_steps), smem, torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -127,6 +179,21 @@ def decode_segments(
 
 
 decode_segments.launches = 0
+
+
+def decoder_occupancy(cfg: SegmentConfig) -> int:
+    """Lanes of ``cfg``'s bucket that the CUDA runtime keeps resident on one
+    SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` with the kernel's
+    attributes set); needs the card."""
+    from lzma_rs_tpu_torch.ops import build
+
+    lib = build.load()
+    blocks = ctypes.c_int(0)
+    rc = lib.lzl_decoder_occupancy(check_fits(cfg), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError("decoder occupancy query failed: "
+                           + lib.lzl_error_string(rc).decode())
+    return blocks.value
 
 
 def decode_segments_reference(

@@ -409,6 +409,7 @@ def test_the_tools_list_the_tpu_probes_rows():
 @pytest.mark.parametrize("edited,changed", (
     ("probes.cu", "probes"), ("probe_lane.cuh", "probes"),
     ("lzma_lane.cuh", "segdec"), ("decode_segments.cu", "segdec"),
+    ("segment_kernel.cuh", "segdec"), ("decode_variants.cu", "segvar"),
     ("probes_mosaic.cu", "mosaic"), ("probe_mosaic.cuh", "mosaic"),
     ("probes_mosaic3.cu", "mosaic3"), ("probe_mosaic3.cuh", "mosaic3"),
     ("probes_mosaic4.cu", "mosaic4"), ("probe_mosaic4.cuh", "mosaic4"),
@@ -418,7 +419,8 @@ def test_an_edit_rebuilds_only_its_library(edited, changed, tmp_path):
     """An edit rebuilds the libraries whose sources hold the file, and no
     other: ``changed``, and ``mosaic3``, ``mosaic4`` and ``round4`` too for
     ``probe_mosaic.cuh``, which their headers include, and ``bisect`` for
-    ``probe_lane.cuh``, which its header includes."""
+    ``probe_lane.cuh``, which its header includes; ``segvar`` too for the
+    decoder's two headers, which its variants instantiate."""
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     libs = build.LIBRARIES
@@ -427,7 +429,8 @@ def test_an_edit_rebuilds_only_its_library(edited, changed, tmp_path):
         f.write("\n// edited\n")
     after = {lib.name: build.source_hash(lib, str(csrc)) for lib in libs}
     also = {"probe_mosaic.cuh": {"mosaic3", "mosaic4", "round4"},
-            "probe_lane.cuh": {"bisect"}}.get(edited, set())
+            "probe_lane.cuh": {"bisect"}, "lzma_lane.cuh": {"segvar"},
+            "segment_kernel.cuh": {"segvar"}}.get(edited, set())
     assert {n for n in before if before[n] != after[n]} == {changed} | also
 
 
