@@ -20,7 +20,8 @@ from ``lzma_rs_tpu_torch/csrc`` and the port's native host library into
    ``decode_segments`` and ``decode_segments_reference`` on the card;
 4. the main path at full size: ``xz_decompress`` with
    ``LZMA_RS_TPU_BACKEND=cuda`` on 16,000,000 bytes of the interpreter's
-   stdlib sources (cycled if the installation holds fewer), as (a) the
+   stdlib sources (cycled if the installation holds fewer;
+   ``lzma_rs_tpu_torch/tools/corpus.py``), as (a) the
    tpu_profile archive (8 KiB blocks, lc=0) and (b) a stock-shaped archive
    (stdlib ``lzma`` preset 6 per 64 KiB block, CRC64); end-to-end,
    kernel-only and native MB/s; the kernel's cycles a step (its time at
@@ -103,7 +104,19 @@ from ``lzma_rs_tpu_torch/csrc`` and the port's native host library into
     V1, V3, V0), CUDA events, median of 3 a visit;
     each variant's outputs held equal to the decoder's (which phases 3, 4
     and 6 hold against the plain version); ms and cycles a step of each,
-    and the differences as stage costs.
+    and the differences as stage costs;
+15. the measurement modules, on (a) and (b) and on (c), the corpus in
+    1 MiB blocks (stdlib ``lzma`` preset 6, CRC64):
+    ``parallel/devbench.device_throughput`` on each batch (bit-exact, its
+    kernel time within 10% of phase 4's); the stage breakdown
+    (``tools/probe_vmem2_time.py``, 3 calls: each stage's median, min and
+    max, the bytes equal to the corpus, the stages' sum within 0.5-1.5 x
+    the whole call); the device CRC (``ops/crc_device.py``) of every (c)
+    block equal to its stored check, timed against the host checks; a
+    ``torch.profiler`` timeline of one (a) call
+    (``tools/profile_pipeline.py``: its kernel events, where the trace
+    holds device events, equal to the call's launches; the device's busy
+    time and idle share; the longest gaps and the stage in each).
 
 The eight kernel libraries build in parallel (one nvcc per library, with
 the native host library's g++) in phase 2.
@@ -119,16 +132,14 @@ it) and the device JSON line.
 
 from __future__ import annotations
 
-import glob
 import hashlib
 import json
-import lzma
 import os
 import re
 import shutil
 import subprocess
 import sys
-import sysconfig
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -153,51 +164,6 @@ def check(cond, msg: str) -> None:
 
 def say(phase: str, msg: str) -> None:
     print(f"[{phase} +{time.perf_counter() - T0:.1f}s] {msg}", flush=True)
-
-
-def stdlib_corpus() -> tuple:
-    """CORPUS_BYTES of the interpreter's stdlib ``.py`` sources, files in
-    sorted path order (installed packages left out), cycled when the
-    installation holds fewer bytes: blocks decode independently, so a
-    repeat changes no block's work. Returns (corpus, distinct bytes)."""
-    root = sysconfig.get_paths()["stdlib"]
-    parts, n = [], 0
-    for path in sorted(glob.glob(os.path.join(root, "**", "*.py"),
-                                 recursive=True)):
-        rel = os.path.relpath(path, root)
-        if "site-packages" in rel or "dist-packages" in rel:
-            continue
-        with open(path, "rb") as f:
-            parts.append(f.read())
-        n += len(parts[-1])
-        if n >= CORPUS_BYTES:
-            break
-    data = b"".join(parts)
-    check(len(data) >= 1 << 20, f"stdlib sources hold only {len(data)} B")
-    return (data * -(-CORPUS_BYTES // len(data)))[:CORPUS_BYTES], len(data)
-
-
-def raw_lzma2(data: bytes, preset: int = 6, **props) -> bytes:
-    filt = {"id": lzma.FILTER_LZMA2, "preset": preset, **props}
-    return lzma.compress(data, format=lzma.FORMAT_RAW, filters=[filt])
-
-
-def stock_archive(data: bytes) -> bytes:
-    """stdlib ``lzma`` raw LZMA2 (preset 6, lc=3) per 64 KiB block, in an
-    `.xz` container with CRC64 checks, written by the repo's writers."""
-    from lzma_rs_tpu_torch.formats import xz as fmt
-    from lzma_rs_tpu_torch.utils.cursor import ByteWriter
-
-    blocks = [data[i:i + 65536] for i in range(0, len(data), 65536)]
-    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
-        payloads = list(pool.map(raw_lzma2, blocks))
-    flags = fmt.StreamFlags(check_method=fmt.CHECK_CRC64)
-    w = ByteWriter()
-    fmt.write_stream_header(w, flags)
-    records = [fmt.write_block(w, p, b, check_method=fmt.CHECK_CRC64)
-               for p, b in zip(payloads, blocks)]
-    fmt.write_footer(w, flags, fmt.write_index(w, records))
-    return w.getvalue()
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -619,11 +585,64 @@ def variants_phase(torch, dev, archives, peaks, runtime, sd) -> None:
           f"phase 14: {launches} variant launches")
 
 
+def measurement_phase(torch, dev, archives, corpus: bytes, kernel_ms: dict,
+                      sd) -> None:
+    """Phase 15: devbench, the stage breakdown, the device CRC and the
+    timeline on phase 4's archives, and (c), the corpus in 1 MiB blocks."""
+    from lzma_rs_tpu_torch.parallel import devbench
+    from lzma_rs_tpu_torch.tools import corpus as corpus_mod
+    from lzma_rs_tpu_torch.tools import probe_vmem2_time as pv
+    from lzma_rs_tpu_torch.tools import profile_pipeline as pp
+
+    for key, x in archives.items():
+        r = devbench.device_throughput(x, dev, verify=corpus)
+        ratio = r["ms"] / kernel_ms[key]
+        check(abs(ratio - 1) <= 0.10, f"phase 15 ({key}): device_throughput "
+              f"{r['ms']:.3f} ms against phase 4's {kernel_ms[key]:.3f} ms")
+        say(f"15 devbench ({key})", f"bit-exact; {r['mb_s']:.2f} MB/s "
+            f"device-resident (warm L2), {r['ms']:.3f} ms a launch "
+            f"({ratio:.3f} x phase 4's), {r['cycles_per_step']:.1f} cycles a "
+            f"step over {r['steps']} steps, {r['lanes']} lanes")
+    for key, x in archives.items():
+        b = pv.breakdown(x, dev, calls=3, expected=corpus)
+        check(list(b["stages"]) == list(pv.STAGES)
+              and all(len(v["samples"]) == 3 for v in b["stages"].values()),
+              f"phase 15 ({key}): stages {list(b['stages'])}")
+        check(0.5 <= b["sum_over_call"] <= 1.5, f"phase 15 ({key}): the "
+              f"stages sum to {b['sum_over_call']:.3f} x the call")
+        say(f"15 breakdown ({key})", f"{b['calls']} calls, bytes == corpus, "
+            f"ms, median (min-max): {pv.stage_text(b)}")
+    xc = corpus_mod.stock_archive(corpus, 1 << 20)
+    c = pv.crc_rows(xc, dev)  # raises unless every block's CRC matches
+    say("15 crc (c)", f"{len(xc)} B, {c['blocks']} blocks of <= "
+        f"{c['block_bytes']} B, CRC{c['width']}: crc_device == each block's "
+        f"stored check; device CRC {c['device_ms']:.2f} ms (the product "
+        f"alone {c['product_ms']:.3f} ms, bound {c['bound_ms']:.4f} ms by "
+        f"{c['bound_by']} at the int8 rate, {c['fp32_ops_ms']:.3f} ms of "
+        f"float32 operations) against the host checks {c['host_ms']:.2f} ms "
+        "(best of 3)")
+    with tempfile.TemporaryDirectory() as tmp:
+        sd.decode_segments.launches = 0  # the warm call's and the traced
+        trace, out, traced = pp.capture(archives["a"], dev,
+                                        os.path.join(tmp, "trace.json"))
+        launches = sd.decode_segments.launches
+    check(out == corpus and traced == 1 and launches == 2,
+          f"phase 15: the traced call (bytes equal {out == corpus}, "
+          f"{traced} launches; {launches} with the warm call)")
+    s = pp.summarize(trace)
+    if s["device_events"]:
+        check(s["launches"] == traced, f"phase 15: the trace holds "
+              f"{s['launches']} kernel events for {traced} launches")
+    say("15 timeline (a)", f"one call, {traced} launch: "
+        f"{pp.summary_text(s)}")
+
+
 def phase3_lanes(corpus: bytes, runtime):
     """Streams for the kernel-against-plain check, planned into one blob.
     Returns (blob, plans, expected output, corrupted seg_bases,
     truncations {seg_base: new in_end relative to in_start or -n})."""
     from lzma_rs_tpu_torch.encode.lzma2_enc import lzma2_compress
+    from lzma_rs_tpu_torch.tools.corpus import raw_lzma2
 
     def piece(k: int, n: int = 4096) -> bytes:
         off = (k * 389_017) % (len(corpus) - n)
@@ -702,6 +721,7 @@ def main() -> None:
     from lzma_rs_tpu_torch.ops import build
     from lzma_rs_tpu_torch.ops import segment_decoder as sd
     from lzma_rs_tpu_torch.parallel import runtime
+    from lzma_rs_tpu_torch.tools import corpus as corpus_mod
     from lzma_rs_tpu_torch.tools import probe_rows
     from lzma_rs_tpu_torch.utils import stats
 
@@ -751,7 +771,7 @@ def main() -> None:
         f"{os.path.relpath(native_loader._so_path(), ROOT)} ready in "
         f"{native_s:.1f} s")
 
-    corpus, distinct = stdlib_corpus()
+    corpus, distinct = corpus_mod.stdlib_corpus(CORPUS_BYTES)
     say("4 corpus", f"{len(corpus)} B of stdlib sources ({distinct} B "
         f"distinct, cycled), sha256 {hashlib.sha256(corpus).hexdigest()}")
 
@@ -799,7 +819,7 @@ def main() -> None:
     t = time.perf_counter()
     xa = lzma_rs_tpu_torch.xz_compress(corpus, tpu_profile=True,
                                        check_method=1)
-    xb = stock_archive(corpus)
+    xb = corpus_mod.stock_archive(corpus)
     say("4 archives", f"(a) tpu_profile {len(xa)} B, (b) stock-shaped "
         f"{len(xb)} B, encoded in {time.perf_counter() - t:.1f} s")
     archives = {"a": xa, "b": xb}
@@ -828,13 +848,14 @@ def main() -> None:
 
     main_a = {}  # the gen-2 entry: the kernel on (a)'s whole batch
     cycles = {}  # cycles a step of the kernel on each archive
+    kernel_ms = {}  # the kernel's ms on each archive's whole batch
     for key, x in archives.items():
         staged_x = runtime.stage_plans(x, runtime.plan_xz(x)[0])
         inputs_x = staged_x.tensors(dev)
         run = lambda: sd.decode_segments(*inputs_x, config=staged_x.config)
         steps_x = run()[3]
         b_x = bound(staged_x, steps_x, peaks)  # this run's steps, whole batch
-        k_ms = cuda_ms(torch, run, 3)
+        k_ms = kernel_ms[key] = cuda_ms(torch, run, 3)
         n_s = best_seconds(lambda: decode(x, "native"))
         secs, lanes, steps = e2e[key]
         c = staged_x.config
@@ -1104,6 +1125,9 @@ def main() -> None:
 
     # -- 14. the decoder's variants, in turns --------------------------
     variants_phase(torch, dev, archives, peaks, runtime, sd)
+
+    # -- 15. the measurement modules ----------------------------------
+    measurement_phase(torch, dev, archives, corpus, kernel_ms, sd)
 
     check("jax" not in sys.modules, "jax was imported")
     jax_pkg = sorted(m for m in sys.modules

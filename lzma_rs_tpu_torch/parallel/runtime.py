@@ -27,6 +27,7 @@ the kernel's plain PyTorch version; the tests use it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -782,24 +783,122 @@ def slab_launches(n_lanes: int, lanes: int, n_dev: int) -> List[list]:
     ]
 
 
+_stage_hook = None
+
+
+@contextlib.contextmanager
+def stage(name: str):
+    """One named stage of the main path: a ``torch.profiler`` span, so that
+    a timeline names the host work in each device gap, and, while a
+    measurement has set a hook (:func:`stage_hook`), a call of it at the
+    stage's start and end (``hook(name, True)``, ``hook(name, False)``)."""
+    hook = _stage_hook
+    if hook is not None:
+        hook(name, True)
+    with torch.profiler.record_function(name):
+        yield
+    if hook is not None:
+        hook(name, False)
+
+
+@contextlib.contextmanager
+def stage_hook(hook):
+    """Call ``hook`` at every :func:`stage`'s start and end, in any thread,
+    while the ``with`` lasts: the stage breakdown
+    (``tools/probe_vmem2_time.py``) times the main path's own stages so."""
+    global _stage_hook
+    old, _stage_hook = _stage_hook, hook
+    try:
+        yield
+    finally:
+        _stage_hook = old
+
+
+def slab_devices(n_lanes: int, device: torch.device) -> tuple:
+    """``(lanes a slab, devices)`` for ``n_lanes`` sorted lanes: one slab a
+    device (:func:`slab_lanes`) over the devices from ``device``'s on
+    (:func:`_n_local_devices`, at most one device a slab), so one launch
+    of every lane on a one-card host."""
+    have = _n_local_devices(device)
+    per_slab = slab_lanes(n_lanes, have)
+    n_dev = min(have, -(-n_lanes // per_slab))
+    return per_slab, [device] if n_dev == 1 else mesh.devices(n_dev, device)
+
+
+def copy_back(outs: tuple, cols: int) -> list:
+    """Start the copy of one launch's results to the host: the window's
+    first ``cols`` columns (the slab's longest segment) and the per-lane
+    ``err``, ``outp`` and ``steps``. The copies do not wait for the
+    device; synchronize before reading them."""
+    win, err, outp, steps = outs
+    return [t.to("cpu", non_blocking=True)
+            for t in (win[:, :cols], err, outp, steps)]
+
+
+def run_slabs(staged: StagedLanes, per_slab: int, devices: list) -> list:
+    """The slab stage of :func:`execute_plan_device`: every slab of
+    ``staged`` put on its device, decoded by ``decode_segments`` and its
+    results copied back (:func:`copy_back`), every slab launched before
+    any result is read, then every card synchronized. Returns one list a
+    launch of ``(a, b, host results)`` in lane order."""
+    with stage("slabs"):
+        launches = []
+        for slabs in slab_launches(len(staged.lanes), per_slab, len(devices)):
+            launches.append([])
+            for (a, b), dev in zip(slabs, devices):
+                with stage("h2d"):
+                    inputs = staged.tensors(dev, a, b)
+                with stage("decode_segments"):
+                    outs = sd.decode_segments(
+                        *inputs, config=staged.slab_config(a, b))
+                with stage("d2h"):
+                    host = copy_back(outs, int(staged.seg_lens[a:b].max()))
+                launches[-1].append((a, b, host))
+        for dev in {d for d in devices if d.type == "cuda"}:
+            torch.cuda.synchronize(dev)
+    return launches
+
+
+def place_results(staged: StagedLanes, launches: list) -> bytes:
+    """The placement stage of :func:`execute_plan_device`: each lane's
+    decoded bytes into the output at its segment's offset. Raises
+    ``_KernelError`` (with the lane's index in the whole sorted list) at
+    the first lane in lane order that flagged an error or stopped short."""
+    lanes, seg_lens, out = staged.lanes, staged.seg_lens, staged.out
+    with stage("placement"):
+        for a, b, host in (slab for r in launches for slab in r):
+            win_h, err_h, outp_h, _ = (t.numpy() for t in host)
+            bad = np.nonzero((err_h != 0) | (outp_h != seg_lens[a:b]))[0]
+            if bad.size:
+                i = int(bad[0])
+                # a lane that stopped short without a code counts as
+                # corrupt (1)
+                raise _KernelError(a + i, int(err_h[i]) or 1)
+            for i in range(b - a):
+                lane, n = lanes[a + i], int(seg_lens[a + i])
+                out[lane.seg_base:lane.seg_base + n] = win_h[i, :n]
+        return out.tobytes()
+
+
 def execute_plan_device(
     data: bytes, plans: List[DecodePlan], device: torch.device
 ) -> bytes:
     """Decode the plans' lanes with ``decode_segments``; returns the
-    concatenated output. The lanes, biggest first, go in slabs of
-    :func:`slab_lanes` lanes, one slab a device, over ``n_dev`` devices a
-    launch (``n_dev`` is :func:`_n_local_devices`, at most one device a
-    slab): by default one slab a card, so one launch of every lane on a
-    one-card host. The slabs go to ``n_dev`` cards from ``device``'s on
-    (:func:`~lzma_rs_tpu_torch.parallel.mesh.devices`), or to ``n_dev``
-    CPU slabs under a CPU ``device``. Every slab is launched before any
-    result is read. Raises :class:`VmemIneligible` when a lane does not fit
-    the bucket rules and ``_KernelError`` (with the lane's index in the
-    whole sorted list) when a lane fails; the caller replays on the
+    concatenated output. Three stages, each a function of its own that the
+    measurement tools time: :func:`stage_plans`; :func:`run_slabs`, the
+    lanes, biggest first, in slabs of :func:`slab_lanes` lanes, one slab a
+    device, over ``n_dev`` devices a launch (:func:`slab_devices`: by
+    default one slab a card, so one launch of every lane on a one-card
+    host; the slabs go to ``n_dev`` cards from ``device``'s on, or to
+    ``n_dev`` CPU slabs under a CPU ``device``); and
+    :func:`place_results`. Raises :class:`VmemIneligible` when a lane does
+    not fit the bucket rules and ``_KernelError`` (with the lane's index in
+    the whole sorted list) when a lane fails; the caller replays on the
     host."""
     device = torch.device(device)
-    staged = stage_plans(data, plans)
-    lanes, seg_lens, out = staged.lanes, staged.seg_lens, staged.out
+    with stage("stage_plans"):
+        staged = stage_plans(data, plans)
+    lanes = staged.lanes
     st = stats_mod.current()
     if st is not None:
         st.engine = device.type
@@ -807,50 +906,20 @@ def execute_plan_device(
         st.chunks += sum(len(lane.in_start) for lane in lanes)
         st.prefill_bytes += sum(n for p in plans for _, _, n in p.prefill)
         st.packed_bytes += len(data)
-        st.unpacked_bytes += len(out)
+        st.unpacked_bytes += len(staged.out)
         st.devices = max(st.devices, 1)
     if not lanes:
-        return out.tobytes()
+        return staged.out.tobytes()
 
-    have = _n_local_devices(device)
-    per_slab = slab_lanes(len(lanes), have)
-    n_dev = min(have, -(-len(lanes) // per_slab))
-    devs = [device] if n_dev == 1 else mesh.devices(n_dev, device)
+    per_slab, devs = slab_devices(len(lanes), device)
     if st is not None:
-        st.devices = max(st.devices, n_dev)
-
+        st.devices = max(st.devices, len(devs))
     with stats_mod.launch_timer(st):
-        results = []  # per launch: (a, b, host results), in lane order
-        for slabs in slab_launches(len(lanes), per_slab, n_dev):
-            results.append([])
-            for (a, b), dev in zip(slabs, devs):
-                win, err, outp, steps = sd.decode_segments(
-                    *staged.tensors(dev, a, b),
-                    config=staged.slab_config(a, b),
-                )
-                # copy back the used columns and the per-lane results only
-                cols = int(seg_lens[a:b].max())
-                results[-1].append((a, b, [
-                    t.to("cpu", non_blocking=True)
-                    for t in (win[:, :cols], err, outp, steps)
-                ]))
-        for dev in {d for d in devs if d.type == "cuda"}:
-            torch.cuda.synchronize(dev)
+        launches = run_slabs(staged, per_slab, devs)
     if st is not None:  # a launch lasts as long as its longest lane
         st.kernel_iters += sum(max(int(host[3].max()) for _, _, host in r)
-                               for r in results)
-
-    for a, b, host in (slab for r in results for slab in r):
-        win_h, err_h, outp_h, _ = (t.numpy() for t in host)
-        bad = np.nonzero((err_h != 0) | (outp_h != seg_lens[a:b]))[0]
-        if bad.size:
-            i = int(bad[0])
-            # a lane that stopped short without a code counts as corrupt (1)
-            raise _KernelError(a + i, int(err_h[i]) or 1)
-        for i in range(b - a):
-            lane, n = lanes[a + i], int(seg_lens[a + i])
-            out[lane.seg_base:lane.seg_base + n] = win_h[i, :n]
-    return out.tobytes()
+                               for r in launches)
+    return place_results(staged, launches)
 
 
 def _resolve_auto(plans: List[DecodePlan], device) -> str:
@@ -984,23 +1053,50 @@ def xz_decode(data: bytes, engine: str = "auto", device=None) -> bytes:
         device = cuda_device(device)
     data = bytes(data)
     try:
-        return _xz_decode_parallel(data, engine, device)
+        with stage("xz_decode"):
+            return _xz_decode_parallel(data, engine, device)
     except UnparallelizableStream:
         _record_fallback("host: stream carries prob state across dict reset")
         return _sequential_xz_replay(data)
 
 
+def check_blocks(data: bytes, out: bytes, block_spans, header_flags) -> None:
+    """The block checks of a decoded archive, on the host: each block's
+    stored check against its bytes of ``out``, hashed on a small thread
+    pool, one task a block; the first error in stream order wins."""
+    outv = memoryview(out)
+
+    def check_one(span):
+        _, check_off, out0, outn = span
+        xz_fmt.validate_block_check(
+            ByteCursor(data, check_off), outv[out0:out0 + outn],
+            header_flags.check_method,
+        )
+
+    with stage("check_blocks"):
+        if len(block_spans) > 1:
+            with ThreadPoolExecutor(
+                    max_workers=min(8, os.cpu_count() or 1)) as pool:
+                for f in [pool.submit(check_one, s) for s in block_spans]:
+                    f.result()  # stream order: the first error wins
+        else:
+            for span in block_spans:
+                check_one(span)
+
+
 def _xz_decode_parallel(data: bytes, engine: str, device) -> bytes:
     try:
-        (plans, block_spans, header_flags, records, cursor,
-         deferred) = plan_xz(data, stop_on_error=True)
+        with stage("plan_xz"):
+            (plans, block_spans, header_flags, records, cursor,
+             deferred) = plan_xz(data, stop_on_error=True)
+            if deferred is None:
+                index_size = xz_fmt.check_index(cursor, records)
         if deferred is not None:
             # malformed archive with a decodable prefix: decode and check
             # the prefix in parallel, then raise the deferred error
             return _bounded_error_replay(
                 data, plans, block_spans, header_flags, deferred
             )
-        index_size = xz_fmt.check_index(cursor, records)
     except (LzmaError, XzError, IoError):
         _record_fallback("host replay: container error during planning")
         return _sequential_xz_replay(data)
@@ -1027,22 +1123,7 @@ def _xz_decode_parallel(data: bytes, engine: str, device) -> bytes:
         xz_fmt.check_footer(cursor, header_flags, index_size)
         return out
 
-    # block checks on the host, hashed on a small pool, errors in order
-    outv = memoryview(out)
-
-    def check_one(span):
-        _, check_off, out0, outn = span
-        xz_fmt.validate_block_check(
-            ByteCursor(data, check_off), outv[out0:out0 + outn],
-            header_flags.check_method,
-        )
-
-    if len(block_spans) > 1:
-        with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
-            for f in [pool.submit(check_one, s) for s in block_spans]:
-                f.result()  # stream order: the first error wins
-    else:
-        for span in block_spans:
-            check_one(span)
-    xz_fmt.check_footer(cursor, header_flags, index_size)
+    check_blocks(data, out, block_spans, header_flags)
+    with stage("check_footer"):
+        xz_fmt.check_footer(cursor, header_flags, index_size)
     return out

@@ -82,6 +82,14 @@ def test_no_source_of_the_port_imports_the_jax_package():
             "lzma_rs_tpu_torch/parallel/mesh.py",
             "lzma_rs_tpu_torch/graft_entry.py",
             "lzma_rs_tpu_torch/ops/probes_bisect.py",
+            "lzma_rs_tpu_torch/ops/crc_device.py",
+            "lzma_rs_tpu_torch/parallel/devbench.py",
+            "lzma_rs_tpu_torch/bench.py",
+            "lzma_rs_tpu_torch/tools/corpus.py",
+            "lzma_rs_tpu_torch/tools/probe_vmem2_time.py",
+            "lzma_rs_tpu_torch/tools/time_vmem_step.py",
+            "lzma_rs_tpu_torch/tools/profile_decode.py",
+            "lzma_rs_tpu_torch/tools/profile_pipeline.py",
             "lzma_rs_tpu_torch/native/loader.py",
             "lzma_rs_tpu_torch/models/codecs.py",
             "lzma_rs_tpu_torch/encode/lzma2_enc.py"} <= rel
@@ -139,6 +147,10 @@ def test_a_fresh_interpreter_loads_only_the_port():
     loaded = ast.literal_eval(proc.stdout.strip().splitlines()[-1])
     assert "lzma_rs_tpu_torch.native.loader" in loaded
     assert "lzma_rs_tpu_torch.parallel.runtime" in loaded
+    assert {"lzma_rs_tpu_torch.bench", "lzma_rs_tpu_torch.ops.crc_device",
+            "lzma_rs_tpu_torch.parallel.devbench",
+            "lzma_rs_tpu_torch.tools.probe_vmem2_time",
+            "lzma_rs_tpu_torch.tools.profile_pipeline"} <= set(loaded)
     assert [m for m in loaded if m != "lzma_rs_tpu_torch"
             and not m.startswith("lzma_rs_tpu_torch.")] == []
 
