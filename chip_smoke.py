@@ -116,7 +116,20 @@ from ``lzma_rs_tpu_torch/csrc`` and the port's native host library into
     ``torch.profiler`` timeline of one (a) call
     (``tools/profile_pipeline.py``: its kernel events, where the trace
     holds device events, equal to the call's launches; the device's busy
-    time and idle share; the longest gaps and the stage in each).
+    time and idle share; the longest gaps and the stage in each);
+16. the router: the auto router's constants measured by
+    ``lzma_rs_tpu_torch/tools/calibrate.py`` (the residency ladder, the
+    fitted step cost, steps a byte, the device path's host-side rate,
+    the native rate) into a temporary calibration file
+    (``LZMA_RS_TPU_CAL_FILE``; nothing is left in the home directory);
+    then stock-shaped archives of 64, 128 and 245 blocks of 64 KiB, (a)
+    and (a) at 1 MiB through ``xz_decompress`` under ``auto`` with it:
+    each archive's route and the model's device and native ms, held to
+    the bytes, to ``stats.engine`` and to the JAX router's record, beside
+    the measured ms of ``engine="cuda"`` and ``engine="native"`` (best of
+    3 after a warm call); where those differ by more than 2x, the route
+    must be the faster engine. Phase 4's ``auto`` check runs before it,
+    with no calibration file: the port's defaults route there.
 
 The eight kernel libraries build in parallel (one nvcc per library, with
 the native host library's g++) in phase 2.
@@ -637,6 +650,99 @@ def measurement_phase(torch, dev, archives, corpus: bytes, kernel_ms: dict,
         f"{pp.summary_text(s)}")
 
 
+# the JAX router's record of a modeled route to the host
+MODELED_NATIVE = re.compile(
+    r"^auto->native: modeled device [0-9.]+ ms vs native [0-9.]+ ms$")
+
+
+def router_phase(torch, dev, corpus: bytes, archives: dict, runtime,
+                 stats) -> None:
+    """Phase 16: the auto router's constants measured into a temporary
+    calibration file, then a ladder of archives routed with them through
+    ``xz_decompress`` (``auto``), each beside both engines' measured
+    time."""
+    import lzma_rs_tpu_torch
+    from lzma_rs_tpu_torch.tools import calibrate
+    from lzma_rs_tpu_torch.tools import corpus as corpus_mod
+
+    block = 65536
+    ladder = [(f"stock {n} blocks", corpus_mod.stock_archive(
+        corpus[:n * block]), corpus[:n * block]) for n in (64, 128)]
+    ladder += [(f"stock {-(-len(corpus) // block)} blocks (b)",
+                archives["b"], corpus),
+               ("tpu_profile 16 MB (a)", archives["a"], corpus),
+               ("tpu_profile 1 MiB", corpus_mod.tpu_archive(
+                   corpus[:1 << 20]), corpus[:1 << 20])]
+    home_file = os.path.join(os.path.expanduser("~"), ".cache",
+                             "lzma_rs_tpu_torch", "calibration.json")
+    home_before = os.path.exists(home_file)
+    old = os.environ.get("LZMA_RS_TPU_CAL_FILE")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["LZMA_RS_TPU_CAL_FILE"] = os.path.join(tmp, "cal.json")
+        try:
+            cal = calibrate.calibrate(dev, corpus=corpus, xa=archives["a"],
+                                      xb=archives["b"])
+            for line in calibrate.report(cal):
+                say("16 calibration", line)
+            check(runtime._auto_calibration() == {
+                k: cal[k] for k, _, _ in runtime._CAL_KEYS},
+                "phase 16: the router does not read the calibration")
+            for what, x, want in ladder:
+                route_rung(dev, what, x, want, runtime, stats,
+                           lzma_rs_tpu_torch)
+        finally:
+            if old is None:
+                del os.environ["LZMA_RS_TPU_CAL_FILE"]
+            else:
+                os.environ["LZMA_RS_TPU_CAL_FILE"] = old
+    check(os.path.exists(home_file) == home_before,
+          f"phase 16 left {home_file} behind")
+
+
+def route_rung(dev, what: str, x: bytes, want: bytes, runtime, stats,
+               package) -> None:
+    """One archive of phase 16's ladder: its route under ``auto`` and the
+    model's two times, against both engines' best of 3 after a warm
+    call."""
+    plans = runtime.plan_xz(x)[0]
+    cfg = runtime.choose_config(plans)
+    device_s, native_s = runtime._estimate_engine_seconds(
+        plans, cfg, runtime._n_local_devices(dev), runtime.sm_count(dev))
+    route = "cuda" if device_s < native_s * 0.9 else "native"
+    ran_on = {"cuda": dev.type, "native": "native"}  # stats.engine
+    with stats.collect() as st:
+        out = package.xz_decompress(x)
+    routed = st.fallbacks
+    check(out == want, f"phase 16 ({what}): auto decoded other bytes")
+    check(st.engine == ran_on[route], f"phase 16 ({what}): engine "
+          f"{st.engine!r}, the model's route {route}")
+    if route == "native":
+        check(len(routed) == 1 and MODELED_NATIVE.match(routed[0]),
+              f"phase 16 ({what}): fallbacks {routed}")
+    else:
+        check(routed == [], f"phase 16 ({what}): fallbacks {routed}")
+    measured = {}
+    for engine in ("cuda", "native"):
+        with stats.collect() as st:
+            out = runtime.xz_decode(x, engine=engine)
+        check(out == want and st.engine == ran_on[engine]
+              and st.fallbacks == [],
+              f"phase 16 ({what}): engine {engine} gave engine "
+              f"{st.engine!r}, fallbacks {st.fallbacks}")
+        measured[engine] = best_seconds(
+            lambda: runtime.xz_decode(x, engine=engine)) * 1e3
+    faster = min(measured, key=measured.get)
+    ratio = max(measured.values()) / min(measured.values())
+    if ratio > 2:
+        check(route == faster, f"phase 16 ({what}): routed to {route}, but "
+              f"{faster} is {ratio:.2f}x faster ({measured})")
+    say("16 router", f"{what}: {len(x)} B, {cfg.L} lanes, W={cfg.W}: route "
+        f"{route} (modeled device {device_s * 1e3:.2f} ms, native "
+        f"{native_s * 1e3:.2f} ms); measured cuda {measured['cuda']:.2f} ms, "
+        f"native {measured['native']:.2f} ms: {faster} faster by "
+        f"{ratio:.2f}x; fallbacks {routed}")
+
+
 def phase3_lanes(corpus: bytes, runtime):
     """Streams for the kernel-against-plain check, planned into one blob.
     Returns (blob, plans, expected output, corrupted seg_bases,
@@ -1128,6 +1234,9 @@ def main() -> None:
 
     # -- 15. the measurement modules ----------------------------------
     measurement_phase(torch, dev, archives, corpus, kernel_ms, sd)
+
+    # -- 16. the router -------------------------------------------------
+    router_phase(torch, dev, corpus, archives, runtime, stats)
 
     check("jax" not in sys.modules, "jax was imported")
     jax_pkg = sorted(m for m in sys.modules

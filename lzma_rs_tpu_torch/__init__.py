@@ -12,9 +12,14 @@ LZMA2 and `.xz` streams split into independent dict-reset segments that a
 hand-written CUDA kernel decodes one warp per segment
 (``ops/segment_decoder.py``, ``csrc/``). Encoding is the host encoder.
 
-The public API is the eight functions of the JAX package (and of the
-reference's ``src/lib.rs``). ``LZMA_RS_TPU_BACKEND`` picks the decode
-engine: ``auto`` (default), ``cuda``, ``native`` or ``spec``.
+The public API is the JAX package's whole surface: the eight functions of
+the reference's ``src/lib.rs``, the namespaces ``compress`` (options) and
+``decompress`` (options, ``raw``, the streaming classes ``Stream``,
+``Lzma2Stream`` and ``XzStream``), ``error``, the option types and
+``LzmaRsError``; the streaming classes and ``raw`` are copies
+(``stream.py``, ``streams2.py``, ``raw.py``). ``LZMA_RS_TPU_BACKEND``
+picks the decode engine: ``auto`` (default), ``cuda``, ``native`` or
+``spec``.
 ``LZMA_RS_TPU_VMEM_GEN=1`` picks the JAX package's gen-1 shape bucket (one
 bucket for window and staged input) instead of gen-2's; the same kernel
 runs either.
@@ -24,20 +29,17 @@ from __future__ import annotations
 
 from typing import BinaryIO, Optional, Union
 
-from lzma_rs_tpu_torch.utils.options import CompressOptions, Options
+# -- copied from lzma_rs_tpu/__init__.py:27-35
 
-__all__ = [
-    "lzma_decompress",
-    "lzma_decompress_with_options",
-    "lzma_compress",
-    "lzma_compress_with_options",
-    "lzma2_decompress",
-    "lzma2_compress",
-    "xz_decompress",
-    "xz_compress",
-    "Options",
-    "CompressOptions",
-]
+from lzma_rs_tpu_torch.utils import errors as error  # noqa: F401  (public module)
+from lzma_rs_tpu_torch.utils.cursor import ByteCursor
+from lzma_rs_tpu_torch.utils.errors import LzmaRsError
+from lzma_rs_tpu_torch.utils.options import (
+    CompressOptions,
+    Options,
+    UnpackedSize,
+    WriteUnpackedSize,
+)
 
 # -- copied from lzma_rs_tpu/__init__.py:39, 48-58
 
@@ -175,3 +177,91 @@ def xz_decompress(
     from lzma_rs_tpu_torch import backends
 
     return _emit(backends.xz_decode(_as_bytes(input)), output)
+
+
+# -- copied from lzma_rs_tpu/__init__.py:194-277
+
+class compress:  # noqa: N801 — namespace mirroring `lzma_rs::compress`
+    """Compression options namespace."""
+
+    Options = CompressOptions
+    UnpackedSize = WriteUnpackedSize
+
+
+class _RawNamespace:
+    """Lazy proxy for the raw decoding primitives (`decompress::raw`)."""
+
+    def __getattr__(self, name):
+        import importlib
+
+        raw_mod = importlib.import_module("lzma_rs_tpu_torch.raw")
+        return getattr(raw_mod, name)
+
+
+class _DecompressMeta(type):
+    @property
+    def Stream(cls):
+        from lzma_rs_tpu_torch.stream import Stream as _Stream
+
+        return _Stream
+
+    @property
+    def Lzma2Stream(cls):
+        from lzma_rs_tpu_torch.streams2 import Lzma2Stream as _S
+
+        return _S
+
+    @property
+    def XzStream(cls):
+        from lzma_rs_tpu_torch.streams2 import XzStream as _S
+
+        return _S
+
+
+class decompress(metaclass=_DecompressMeta):  # noqa: N801 — `lzma_rs::decompress`
+    """Decompression options / streaming / raw namespace."""
+
+    Options = Options
+    UnpackedSize = UnpackedSize
+    raw = _RawNamespace()
+
+
+def __getattr__(name):
+    # Lazy imports to keep `import lzma_rs_tpu` light (no JAX import).
+    if name == "Stream":
+        from lzma_rs_tpu_torch.stream import Stream
+
+        return Stream
+    if name in ("Lzma2Stream", "XzStream"):
+        import importlib
+
+        return getattr(
+            importlib.import_module("lzma_rs_tpu_torch.streams2"), name
+        )
+    if name == "raw":
+        import importlib
+
+        return importlib.import_module("lzma_rs_tpu_torch.raw")
+    raise AttributeError(name)
+
+
+__all__ = [
+    "lzma_decompress",
+    "lzma_decompress_with_options",
+    "lzma_compress",
+    "lzma_compress_with_options",
+    "lzma2_decompress",
+    "lzma2_compress",
+    "xz_decompress",
+    "xz_compress",
+    "compress",
+    "decompress",
+    "error",
+    "Options",
+    "CompressOptions",
+    "UnpackedSize",
+    "WriteUnpackedSize",
+    "LzmaRsError",
+    "Stream",
+    "raw",
+]

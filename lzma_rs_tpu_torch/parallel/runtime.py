@@ -20,9 +20,11 @@ Engines: ``cuda`` (the kernel on ``device``, by default the current CUDA
 device; it raises when there is none or the kernel does not build),
 ``native`` (the host thread pool) and ``auto`` (``cuda`` when the workload
 is large enough, the plans pass the eligibility gate, a CUDA device is
-present and the kernel builds; ``native`` otherwise, with the reason in
-``stats.fallbacks``). An explicit CPU ``device`` runs the same path through
-the kernel's plain PyTorch version; the tests use it.
+present, the kernel builds and the cost model, calibrated on the card,
+finds the card clearly faster; ``native`` otherwise, with the reason in
+``stats.fallbacks``: :func:`_resolve_auto`). An explicit CPU ``device``
+runs the same path through the kernel's plain PyTorch version; the tests
+use it.
 """
 
 from __future__ import annotations
@@ -922,14 +924,172 @@ def execute_plan_device(
     return place_results(staged, launches)
 
 
+# -- the auto router's cost model
+#
+# The copy of lzma_rs_tpu/parallel/runtime.py:1081-1104 with two edits: the
+# defaults are the port's, and its file is ~/.cache/lzma_rs_tpu_torch/, so
+# that constants of one package never reach the other's router. Every
+# default was measured by ``python -m lzma_rs_tpu_torch.tools.calibrate``
+# on one "NVIDIA H100 80GB HBM3, 700.00 W" (nvidia-smi
+# --query-gpu=name,power.limit; 132 SMs, 1,980 MHz max SM clock, 8 host
+# cores), 16 MB of the interpreter's stdlib sources.
+
+_CAL_KEYS = (
+    # (key, env var, default measured on the H100 above)
+    # the native engine, 16 blocks of 1 MiB: 52.34 ms
+    ("native_mbs", "LZMA_RS_TPU_CAL_NATIVE_MBS", 305.666),
+    # the device path's host side: 1,954 lanes x (W_IN + 2 W) over the
+    # 42.47 ms of stage_plans, h2d, d2h and placement on the tpu_profile
+    # archive (the lower of it and the stock archive's 2,051.75 MB/s)
+    ("link_mbs", "LZMA_RS_TPU_CAL_LINK_MBS", 942.246),
+    # us a step = step_a + step_b x resident lanes an SM: the slope of the
+    # tpu_profile prefixes (163.9-197.6 cycles a step at 1-15 lanes an
+    # SM), the intercept of the stock archive's (135.1, 137.4 at 1, 2)
+    ("step_a", "LZMA_RS_TPU_CAL_STEP_A", 0.0669242),
+    ("step_b", "LZMA_RS_TPU_CAL_STEP_B", 0.00125614),
+    # the stock archive's longest lane: 246,299 steps for 65,536 B
+    ("steps_per_byte", "LZMA_RS_TPU_CAL_STEPS_PER_B", 3.75822),
+)
+
+
+def calibration_path() -> str:
+    """Measured-calibration file location (host-specific cache;
+    LZMA_RS_TPU_CAL_FILE overrides)."""
+    import os
+
+    return os.environ.get(
+        "LZMA_RS_TPU_CAL_FILE",
+        os.path.join(
+            os.path.expanduser("~"), ".cache", "lzma_rs_tpu_torch",
+            "calibration.json",
+        ),
+    )
+
+
+# -- copied from lzma_rs_tpu/parallel/runtime.py:1107-1152
+
+def write_calibration(**vals) -> str:
+    """Merge measured constants into the calibration file (bench.py and
+    tools/calibrate.py call this so the auto-router's model reflects
+    THIS host, not the v5e defaults)."""
+    import json
+    import os
+
+    path = calibration_path()
+    data = {}
+    try:
+        with open(path) as f:
+            data = json.load(f)
+    except Exception:
+        pass
+    data.update({k: float(v) for k, v in vals.items() if v is not None})
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(data, f, indent=1)
+    os.replace(tmp, path)
+    return path
+
+
+def _auto_calibration() -> dict:
+    """Auto-router model constants. Precedence per key: env var >
+    measured calibration file (``calibration_path()``) > built-in v5e
+    default — so a bench/calibrate run fixes the model for this host
+    while explicit env pins still win."""
+    import json
+    import os
+
+    file_vals = {}
+    try:
+        with open(calibration_path()) as f:
+            file_vals = json.load(f)
+    except Exception:
+        pass
+    out = {}
+    for key, env, default in _CAL_KEYS:
+        if env in os.environ:
+            out[key] = float(os.environ[env])
+        elif key in file_vals:
+            out[key] = float(file_vals[key])
+        else:
+            out[key] = default
+    return out
+
+
+# the SMs the model prices an explicit CPU device at: one H100 SXM's
+CPU_SMS = 132
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of ``device`` (a CUDA card, or
+    :data:`CPU_SMS` for a CPU device)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return CPU_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _estimate_engine_seconds(
+    plans: List[DecodePlan], cfg, n_devices: int, sms: int
+) -> Tuple[float, float]:
+    """(device_seconds, native_seconds) modeled from the plan: the JAX
+    model (``lzma_rs_tpu/parallel/runtime.py:1155-1193``) for the Hopper
+    kernel.
+
+    Device = kernel time + the device path's host-side work. The kernel
+    runs a lane a block, and shared memory leaves ``sd.lanes_per_sm(cfg)``
+    of them resident on an SM, so a card decodes the lanes, sorted as the
+    JAX model and the executor sort them (biggest first), in waves of
+    ``sms * lanes_per_sm`` lanes; a wave lasts as long as its longest
+    lane: its output bytes x ``steps_per_byte`` x the microseconds a step,
+    ``step_a + step_b * r``, where ``r`` is the wave's resident lanes an
+    SM, ``min(lanes_per_sm, ceil(wave lanes / sms))``. Kernel time divides
+    over ``n_devices``, as in the JAX model. The rest is priced per lane at
+    the bytes the JAX model counts, ``W_IN + 2 * W``, over ``link_mbs``:
+    a rate fitted over the device path's staging, copies and placement
+    (``tools/calibrate.py``), so far below the link's own. Native =
+    ``total_out / native_mbs``."""
+    cal = _auto_calibration()
+    lanes = sorted((lane for p in plans for lane in p.lanes), key=_packed,
+                   reverse=True)
+    total_out = sum(p.total_out for p in plans)
+    per_sm = sd.lanes_per_sm(cfg)
+    wave = sms * per_sm
+    kernel_us = 0.0
+    for i in range(0, len(lanes), wave):
+        batch = lanes[i:i + wave]
+        resident = min(per_sm, -(-len(batch) // sms))
+        us_per_step = cal["step_a"] + cal["step_b"] * resident
+        max_out = max(lane.out_end[-1] - lane.seg_base for lane in batch)
+        kernel_us += max_out * cal["steps_per_byte"] * us_per_step
+    transfer_bytes = len(lanes) * (cfg.W_IN + 2 * cfg.W)
+    device_s = (
+        kernel_us * 1e-6 / max(1, n_devices)
+        + transfer_bytes / (cal["link_mbs"] * 1e6)
+    )
+    native_s = total_out / (cal["native_mbs"] * 1e6)
+    return device_s, native_s
+
+
 def _resolve_auto(plans: List[DecodePlan], device) -> str:
-    """``auto``: ``cuda`` when the workload passes the JAX package's
-    small-workload gate (``LZMA_RS_TPU_AUTO_MIN_LANES``, default 64 lanes,
-    and ``LZMA_RS_TPU_AUTO_MIN_OUT``, default 1 MiB out) and the
-    eligibility gate, a CUDA device is present (or ``device`` is given)
-    and the kernel library builds or loads; else ``native``, with the
-    reason recorded unless there is no card (the JAX router records none
-    without a TPU). Nothing is staged before the verdict."""
+    """``auto``: the JAX router (``_resolve_auto_engine``,
+    ``lzma_rs_tpu/parallel/runtime.py:1196-1244``) on the card. In order:
+
+    1. the small-workload gate (``LZMA_RS_TPU_AUTO_MIN_LANES``, default 64
+       lanes, and ``LZMA_RS_TPU_AUTO_MIN_OUT``, default 1 MiB out), else
+       ``native`` with the reason recorded;
+    2. the eligibility gate, else ``native`` with its reason;
+    3. a device: without a CUDA device and without ``device``, ``native``
+       with no record (the JAX router records none without a TPU); for a
+       card, the kernel library must build or load, else ``native`` with
+       the reason;
+    4. the cost model (:func:`_estimate_engine_seconds`, ``sm_count``
+       SMs): ``cuda`` only on a clear modeled win, ``device_s < native_s *
+       0.9`` (the JAX router's 10% headroom, ``:1235-1238``), else
+       ``native`` with the two modeled times recorded in the JAX
+       router's words (``:1240-1243``).
+
+    Nothing is staged before the verdict."""
     lanes = [lane for p in plans for lane in p.lanes]
     min_lanes = int(os.environ.get("LZMA_RS_TPU_AUTO_MIN_LANES", "64"))
     min_out = int(os.environ.get("LZMA_RS_TPU_AUTO_MIN_OUT", str(1 << 20)))
@@ -940,8 +1100,9 @@ def _resolve_auto(plans: List[DecodePlan], device) -> str:
             f"{total_out} B out)"
         )
         return "native"
+    cfg = choose_config(plans)
     try:
-        check_vmem_eligibility(lanes, choose_config(plans))
+        check_vmem_eligibility(lanes, cfg)
     except VmemIneligible as e:
         _record_fallback(f"auto->native: {e.reason}")
         return "native"
@@ -952,7 +1113,16 @@ def _resolve_auto(plans: List[DecodePlan], device) -> str:
         if why is not None:
             _record_fallback(f"auto->native: CUDA kernel unavailable: {why}")
             return "native"
-    return "cuda"
+    device = cuda_device(device)
+    device_s, native_s = _estimate_engine_seconds(
+        plans, cfg, _n_local_devices(device), sm_count(device))
+    if device_s < native_s * 0.9:
+        return "cuda"
+    _record_fallback(
+        f"auto->native: modeled device {device_s * 1e3:.1f} ms "
+        f"vs native {native_s * 1e3:.1f} ms"
+    )
+    return "native"
 
 
 def _check_engine(engine: str) -> None:

@@ -1,10 +1,10 @@
 """The port's copies of the host layers against their originals.
 
 ``lzma_rs_tpu_torch`` keeps its own copy of every JAX-free host module it
-uses (``utils/``, ``formats/``, ``models/``, ``encode/``, ``native/`` and the
-host half of ``parallel/runtime.py``). Each copy's text differs from its
-original only in import lines and the few lines listed here (the native
-library's name and location), and each is held against the original on
+uses (``utils/``, ``formats/``, ``models/``, ``encode/``, ``native/``, the
+stream classes, ``raw.py`` and the host half of ``parallel/runtime.py``).
+Each copy's text differs from its original only in import lines and the
+few lines listed here (the native library's name and location), and each is held against the original on
 the same inputs, with exact equality: the planners' fields, the encoders'
 bytes, and the decoders' bytes or their exception (class name and
 message: each package raises its own classes) together with the fallback
@@ -38,11 +38,20 @@ from test_torch_kernel_hostbuild import runs, stored_mid_segment, text
 DATA = text(24000, 50)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_IMPORT = re.compile(r"^(\s*)(from|import) lzma_rs_tpu_torch(?=[.\s])")
+# ... and so does a module the port imports by name
+PORT_MODULE = re.compile(r'(import_module\(\s*")lzma_rs_tpu_torch(?=[."])')
+
+
+def as_original(line: str) -> str:
+    """A line of the port with its imports of the port's modules written as
+    the original's."""
+    return PORT_MODULE.sub(r"\1lzma_rs_tpu",
+                           PORT_IMPORT.sub(r"\1\2 lzma_rs_tpu", line))
 
 # Each copied module, with the original's lines that may differ beyond
 # import lines: (kind, first line, last line) as difflib reports them.
 COPIES = {
-    **{f"{pkg}/{mod}.py": [] for pkg, mods in (
+    **{os.path.join(pkg, f"{mod}.py"): [] for pkg, mods in (
         ("utils", ("__init__", "errors", "logging", "cursor", "options",
                    "crc")),
         ("formats", ("__init__", "lzma_header", "lzma2", "xz")),
@@ -50,6 +59,7 @@ COPIES = {
         ("encode", ("__init__", "rangecoder", "lzma_enc", "lzma2_enc",
                     "xz_enc")),
         ("native", ("__init__",)),
+        ("", ("stream", "streams2", "raw")),
     ) for mod in mods},
     "native/lzma_native.cpp": [],
     # the usage example names the port
@@ -83,8 +93,7 @@ def test_a_copy_differs_from_its_original_only_where_allowed(rel):
         orig = f.read().splitlines()
     with open(os.path.join(REPO, "lzma_rs_tpu_torch", rel)) as f:
         # an import of the port's module stands for the original's
-        copy = [PORT_IMPORT.sub(r"\1\2 lzma_rs_tpu", ln)
-                for ln in f.read().splitlines()]
+        copy = [as_original(ln) for ln in f.read().splitlines()]
     ops = difflib.SequenceMatcher(a=orig, b=copy, autojunk=False)
     assert [(kind, i1 + 1, i2) for kind, i1, i2, _, _ in ops.get_opcodes()
             if kind != "equal"] == COPIES[rel]
@@ -108,16 +117,15 @@ def copied_blocks(rel):
             body = body[b - a + 1:]
 
 
-@pytest.mark.parametrize("rel,n_blocks", [("parallel/runtime.py", 7),
-                                          ("__init__.py", 5)])
+@pytest.mark.parametrize("rel,n_blocks", [("parallel/runtime.py", 8),
+                                          ("__init__.py", 7)])
 def test_copied_blocks_equal_their_originals(rel, n_blocks):
     with open(os.path.join(REPO, "lzma_rs_tpu", rel)) as f:
         orig = f.read().splitlines()
     blocks = list(copied_blocks(rel))
     assert len(blocks) == n_blocks
     for a, b, body in blocks:
-        assert [PORT_IMPORT.sub(r"\1\2 lzma_rs_tpu", ln) for ln in body] \
-            == orig[a - 1:b], (rel, a, b)
+        assert [as_original(ln) for ln in body] == orig[a - 1:b], (rel, a, b)
 
 
 # -- the planners ------------------------------------------------------

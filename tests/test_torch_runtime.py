@@ -290,10 +290,16 @@ def test_auto_without_the_kernel_build_takes_native(monkeypatch, tmp_path):
 
 
 @pytest.mark.cuda
-def test_auto_takes_the_card_for_a_large_archive():
+def test_auto_takes_the_card_for_a_large_archive(monkeypatch, tmp_path):
+    """At the router's defaults (no calibration file), a 16 MiB
+    tpu_profile archive is modeled faster on the card
+    (``test_torch_calibration.py`` pins the crossing)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    data = text(1 << 20, 8)
+    monkeypatch.setenv("LZMA_RS_TPU_CAL_FILE", str(tmp_path / "none.json"))
+    for _, env, _ in runtime._CAL_KEYS:
+        monkeypatch.delenv(env, raising=False)
+    data = text(16 << 20, 8)
     xz = lzma_rs_tpu.xz_compress(data, check_method=1, tpu_profile=True)
     before = sd.decode_segments.launches
     with stats.collect() as s:

@@ -90,6 +90,10 @@ def test_no_source_of_the_port_imports_the_jax_package():
             "lzma_rs_tpu_torch/tools/time_vmem_step.py",
             "lzma_rs_tpu_torch/tools/profile_decode.py",
             "lzma_rs_tpu_torch/tools/profile_pipeline.py",
+            "lzma_rs_tpu_torch/tools/calibrate.py",
+            "lzma_rs_tpu_torch/stream.py",
+            "lzma_rs_tpu_torch/streams2.py",
+            "lzma_rs_tpu_torch/raw.py",
             "lzma_rs_tpu_torch/native/loader.py",
             "lzma_rs_tpu_torch/models/codecs.py",
             "lzma_rs_tpu_torch/encode/lzma2_enc.py"} <= rel
@@ -136,6 +140,9 @@ def test_a_fresh_interpreter_loads_only_the_port():
         "                         device=torch.device('cpu')) == data\n"
         "assert t.lzma_decompress(t.lzma_compress(data)) == data\n"
         "assert t.lzma2_decompress(t.lzma2_compress(data)) == data\n"
+        "s = t.decompress.XzStream()\n"
+        "s.write(xz)\n"
+        "assert s.finish() == data and t.decompress.raw.Lzma2Decoder\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.startswith(('lzma_rs_tpu', 'jax'))))\n"
     )
@@ -150,7 +157,10 @@ def test_a_fresh_interpreter_loads_only_the_port():
     assert {"lzma_rs_tpu_torch.bench", "lzma_rs_tpu_torch.ops.crc_device",
             "lzma_rs_tpu_torch.parallel.devbench",
             "lzma_rs_tpu_torch.tools.probe_vmem2_time",
-            "lzma_rs_tpu_torch.tools.profile_pipeline"} <= set(loaded)
+            "lzma_rs_tpu_torch.tools.profile_pipeline",
+            "lzma_rs_tpu_torch.tools.calibrate", "lzma_rs_tpu_torch.stream",
+            "lzma_rs_tpu_torch.streams2",
+            "lzma_rs_tpu_torch.raw"} <= set(loaded)
     assert [m for m in loaded if m != "lzma_rs_tpu_torch"
             and not m.startswith("lzma_rs_tpu_torch.")] == []
 
