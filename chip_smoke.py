@@ -129,7 +129,22 @@ from ``lzma_rs_tpu_torch/csrc`` and the port's native host library into
     the measured ms of ``engine="cuda"`` and ``engine="native"`` (best of
     3 after a warm call); where those differ by more than 2x, the route
     must be the faster engine. Phase 4's ``auto`` check runs before it,
-    with no calibration file: the port's defaults route there.
+    with no calibration file: the port's defaults route there;
+17. multi-process decode: two ranks (``chip_smoke.py --multihost-rank``,
+    spawned with a free port on 127.0.0.1, a gloo group with a timeout,
+    both on ``cuda:0``; where the host has two or more cards, one rank a
+    card over NCCL as well) decode (a) and (b) with
+    ``parallel/multihost.py::xz_decode_multihost(engine="cuda")`` at the
+    default wave size (one wave a rank) and in 1 MiB waves (about eight),
+    best of 2 after a warm call; each rank holds each call to the corpus's
+    sha256, engine ``cuda``, one launch a wave that holds its blocks and
+    no ``jax``; rank 0 prints the wall ms, each rank's decode and
+    gather-wait seconds and the single-process ``runtime.xz_decode``
+    beside them. A rank that fails, hangs or exits nonzero fails the run;
+18. the CLI: ``python -m lzma_rs_tpu_torch decompress`` of (a) under
+    ``LZMA_RS_TPU_BACKEND=cuda`` gives the corpus (its process imports no
+    ``jax``), ``info`` counts 1,954 blocks, and ``compress --block-size
+    65536`` then ``decompress`` round-trips 1 MiB of the corpus.
 
 The eight kernel libraries build in parallel (one nvcc per library, with
 the native host library's g++) in phase 2.
@@ -743,6 +758,190 @@ def route_rung(dev, what: str, x: bytes, want: bytes, runtime, stats,
         f"{ratio:.2f}x; fallbacks {routed}")
 
 
+# phase 17's wave sizes: the default (one wave a rank on (a) and (b)) and
+# 1 MiB (about eight a rank)
+MULTIHOST_WAVES = (None, 1 << 20)
+
+
+def multihost_rank(argv) -> None:
+    """One rank of phase 17, run as ``chip_smoke.py --multihost-rank RANK
+    WORLD PORT BACKEND DIR``: (a) and (b) (``DIR/{a,b}.xz``) through
+    ``xz_decode_multihost(engine="cuda")`` at each of
+    :data:`MULTIHOST_WAVES`, best of 2 after a warm call, each call held to
+    the corpus's sha256 (``DIR/sha256``), to engine ``cuda`` and to one
+    launch a wave that holds blocks of this rank. Rank 0 prints every
+    rank's numbers and the single-process ``runtime.xz_decode(engine=
+    "cuda")`` of each archive beside them."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from lzma_rs_tpu_torch.ops import segment_decoder as sd
+    from lzma_rs_tpu_torch.parallel import multihost, runtime
+    from lzma_rs_tpu_torch.tools import multihost_demo
+    from lzma_rs_tpu_torch.utils import stats
+
+    rank, world, port = (int(a) for a in argv[:3])
+    backend, tmp = argv[3], argv[4]
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    with open(os.path.join(tmp, "sha256")) as f:
+        want = f.read().strip()
+    archives = {}
+    for key in ("a", "b"):
+        with open(os.path.join(tmp, f"{key}.xz"), "rb") as f:
+            archives[key] = f.read()
+    multihost_demo.init_group(rank, world, port, backend, timeout_s=120)
+    rows = []
+    try:
+        multihost.xz_decode_multihost(archives["b"], "cuda", dev)  # warm
+        for key, x in archives.items():
+            _, spans, _ = multihost.scan_blocks(x)
+            owner = multihost.assign_blocks(spans, world)
+            for wave in MULTIHOST_WAVES:
+                host_waves, sizes = multihost.plan_waves(
+                    spans, owner, world, wave or multihost.WAVE_BYTES)
+                mine = sum(1 for w in host_waves[rank] if w)
+                best = None
+                for _ in range(2):
+                    dist.barrier()
+                    before = sd.decode_segments.launches
+                    with stats.collect() as st:
+                        t = time.perf_counter()
+                        out = multihost.xz_decode_multihost(
+                            x, "cuda", dev, wave_bytes=wave)
+                        wall = time.perf_counter() - t
+                    launches = sd.decode_segments.launches - before
+                    what = f"phase 17 rank {rank} ({key}, waves {wave})"
+                    check(hashlib.sha256(out).hexdigest() == want,
+                          f"{what}: output differs from the corpus")
+                    check(st.engine == "cuda" and st.fallbacks == [],
+                          f"{what}: engine {st.engine!r}, fallbacks "
+                          f"{st.fallbacks}")
+                    check(launches == mine, f"{what}: {launches} launches "
+                          f"for {mine} waves that hold blocks")
+                    check(st.multihost_waves == len(sizes),
+                          f"{what}: {st.multihost_waves} waves, planned "
+                          f"{len(sizes)}")
+                    if best is None or wall < best[0]:
+                        best = (wall, st.multihost_decode_seconds,
+                                st.multihost_gather_wait_seconds)
+                rows.append({"key": key, "wave": wave, "waves": len(sizes),
+                             "launches": mine, "wall": best[0],
+                             "decode": best[1], "wait": best[2]})
+        check("jax" not in sys.modules, f"phase 17 rank {rank}: jax loaded")
+        every = [None] * world
+        dist.all_gather_object(every, rows)
+    finally:
+        dist.destroy_process_group()
+    if rank != 0:
+        return
+    single = {key: best_seconds(lambda: runtime.xz_decode(
+        x, engine="cuda", device=dev)) for key, x in archives.items()}
+    for i, row in enumerate(rows):
+        ranks = "; ".join(
+            f"rank {r}: decode {every[r][i]['decode']:.4f} s, gather wait "
+            f"{every[r][i]['wait']:.4f} s, {every[r][i]['launches']} "
+            "launches" for r in range(world))
+        print(f"({row['key']}) waves of "
+              f"{row['wave'] or multihost.WAVE_BYTES} B ({row['waves']} "
+              f"a rank): {world} ranks over {backend}: wall "
+              f"{max(every[r][i]['wall'] for r in range(world)) * 1e3:.1f} "
+              f"ms (the slowest rank, best of 2); {ranks}; single process "
+              f"runtime.xz_decode(engine='cuda') "
+              f"{single[row['key']] * 1e3:.1f} ms (best of 3)", flush=True)
+
+
+def multihost_phase(torch, archives: dict, corpus: bytes) -> None:
+    """Phase 17: two ranks over gloo, both on ``cuda:0``, run
+    :func:`multihost_rank`; where the host has two or more cards, one rank
+    a card over NCCL too. A rank that fails, hangs past the group's
+    timeout or exits nonzero fails the phase."""
+    from lzma_rs_tpu_torch.tools import multihost_demo
+
+    arms = [("gloo", 2)]
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        arms.append(("nccl", cards))
+    else:
+        say("17 multihost", "the NCCL arm (one rank a card) did not run: "
+            f"{cards} card")
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, x in archives.items():
+            with open(os.path.join(tmp, f"{key}.xz"), "wb") as f:
+                f.write(x)
+        with open(os.path.join(tmp, "sha256"), "w") as f:
+            f.write(hashlib.sha256(corpus).hexdigest())
+        for backend, world in arms:
+            port = multihost_demo.free_port()
+            t = time.perf_counter()
+            try:
+                res = multihost_demo.launch(
+                    [[sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                      "--multihost-rank", str(r), str(world), str(port),
+                      backend, tmp] for r in range(world)], timeout_s=300,
+                    env={**os.environ, "PYTHONPATH": ROOT})
+            except RuntimeError as e:
+                fail(f"phase 17 ({backend}): {e}")
+            for r, (rc, out, err) in enumerate(res):
+                check(rc == 0, f"phase 17 ({backend}): rank {r} exited {rc}"
+                      f": {out[-1000:]} {err[-3000:]}")
+            for line in res[0][1].splitlines():
+                say("17 multihost", line)
+            say("17 multihost", f"{world} ranks over {backend}: bytes equal "
+                "the corpus, engine cuda, one launch a wave, no jax; "
+                f"{time.perf_counter() - t:.1f} s with the ranks' start")
+
+
+def cli_phase(corpus: bytes, xa: bytes) -> None:
+    """Phase 18: ``python -m lzma_rs_tpu_torch`` under
+    ``LZMA_RS_TPU_BACKEND=cuda``: ``decompress`` of (a) gives the corpus
+    (its process imports no jax), ``info`` counts (a)'s 1,954 blocks, and
+    ``compress --block-size 65536`` then ``decompress`` round-trips 1 MiB
+    of the corpus."""
+    env = {**os.environ, "PYTHONPATH": ROOT, "LZMA_RS_TPU_BACKEND": "cuda"}
+
+    def cli(*args, python=()):
+        r = subprocess.run([sys.executable, *python, "-m",
+                            "lzma_rs_tpu_torch", *args], cwd=ROOT, env=env,
+                           capture_output=True, timeout=300)
+        check(r.returncode == 0, f"phase 18: {' '.join(args[:1])} exited "
+              f"{r.returncode}: {r.stderr.decode()[-3000:]}")
+        return r
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = {k: os.path.join(tmp, k) for k in ("a.xz", "a.out", "m.txt",
+                                                  "m.xz", "m.out")}
+        with open(path["a.xz"], "wb") as f:
+            f.write(xa)
+        t = time.perf_counter()
+        r = cli("decompress", path["a.xz"], "-o", path["a.out"],
+                python=("-X", "importtime"))
+        secs = time.perf_counter() - t
+        with open(path["a.out"], "rb") as f:
+            check(f.read() == corpus, "phase 18: decompress of (a) differs "
+                  "from the corpus")
+        mods = re.findall(rb"\|\s*(\S+)\s*$", r.stderr, re.M)
+        check(not [m for m in mods if m == b"jax" or m.startswith(b"jax.")
+                   or m == b"lzma_rs_tpu" or m.startswith(b"lzma_rs_tpu.")],
+              "phase 18: the CLI imported jax or the JAX package")
+        r = cli("info", path["a.xz"])
+        check(b"blocks: 1954 " in r.stdout, "phase 18: info printed "
+              f"{r.stdout[:80]!r}")
+        with open(path["m.txt"], "wb") as f:
+            f.write(corpus[:1 << 20])
+        cli("compress", "--block-size", "65536", path["m.txt"], "-o",
+            path["m.xz"])
+        cli("decompress", path["m.xz"], "-o", path["m.out"])
+        with open(path["m.out"], "rb") as f:
+            check(f.read() == corpus[:1 << 20], "phase 18: 1 MiB did not "
+                  "round-trip")
+        say("18 cli", f"decompress of (a) under LZMA_RS_TPU_BACKEND=cuda == "
+            f"the corpus ({secs:.1f} s with the interpreter's start; no "
+            "jax imported); info: blocks: 1954; compress --block-size "
+            "65536 + decompress round-trips 1 MiB")
+
+
 def phase3_lanes(corpus: bytes, runtime):
     """Streams for the kernel-against-plain check, planned into one blob.
     Returns (blob, plans, expected output, corrupted seg_bases,
@@ -1238,6 +1437,12 @@ def main() -> None:
     # -- 16. the router -------------------------------------------------
     router_phase(torch, dev, corpus, archives, runtime, stats)
 
+    # -- 17. multi-process decode on the card --------------------------
+    multihost_phase(torch, archives, corpus)
+
+    # -- 18. the CLI ----------------------------------------------------
+    cli_phase(corpus, xa)
+
     check("jax" not in sys.modules, "jax was imported")
     jax_pkg = sorted(m for m in sys.modules
                      if m == "lzma_rs_tpu" or m.startswith("lzma_rs_tpu."))
@@ -1266,4 +1471,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--multihost-rank"]:
+        multihost_rank(sys.argv[2:])
+    else:
+        main()

@@ -52,10 +52,12 @@ HOST_BLOCK = 1 << 20
 
 
 def log(*a) -> None:
+    """Print a progress line to stderr."""
     print(*a, file=sys.stderr, flush=True)
 
 
 def time_best(fn, reps: int) -> float:
+    """The best wall seconds of ``fn()`` over ``reps`` calls."""
     best = float("inf")
     for _ in range(reps):
         t = time.perf_counter()
@@ -205,6 +207,7 @@ def run(device, host_mb: float = 60, card_mb: float = 16) -> dict:
 
 
 def main() -> None:
+    """Run every lane on the current card and print the JSON line."""
     if not torch.cuda.is_available():
         raise SystemExit("bench: no CUDA device (torch.cuda.is_available() "
                          "is False); the card lanes need one")

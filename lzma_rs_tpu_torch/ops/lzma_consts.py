@@ -123,16 +123,20 @@ def pack_chunk_meta(reset_state, lcs, lps, pbs, valid):
 
 
 def after_lit(state: torch.Tensor) -> torch.Tensor:
+    """The state after a literal."""
     return torch.clamp(state - 3 - 3 * (state >= 10).long(), min=0)
 
 
 def after_match(state: torch.Tensor) -> torch.Tensor:
+    """The state after a match."""
     return 7 + 3 * (state >= 7).long()
 
 
 def after_rep(state: torch.Tensor) -> torch.Tensor:
+    """The state after a rep match."""
     return 8 + 3 * (state >= 7).long()
 
 
 def after_shortrep(state: torch.Tensor) -> torch.Tensor:
+    """The state after a short rep (one byte at rep0)."""
     return 9 + 2 * (state >= 7).long()

@@ -816,12 +816,15 @@ def stage_hook(hook):
         _stage_hook = old
 
 
-def slab_devices(n_lanes: int, device: torch.device) -> tuple:
+def slab_devices(n_lanes: int, device: torch.device,
+                 max_devices: Optional[int] = None) -> tuple:
     """``(lanes a slab, devices)`` for ``n_lanes`` sorted lanes: one slab a
     device (:func:`slab_lanes`) over the devices from ``device``'s on
-    (:func:`_n_local_devices`, at most one device a slab), so one launch
-    of every lane on a one-card host."""
+    (:func:`_n_local_devices`, at most one device a slab, and at most
+    ``max_devices``), so one launch of every lane on a one-card host."""
     have = _n_local_devices(device)
+    if max_devices is not None:
+        have = min(have, max(1, max_devices))
     per_slab = slab_lanes(n_lanes, have)
     n_dev = min(have, -(-n_lanes // per_slab))
     return per_slab, [device] if n_dev == 1 else mesh.devices(n_dev, device)
@@ -883,7 +886,8 @@ def place_results(staged: StagedLanes, launches: list) -> bytes:
 
 
 def execute_plan_device(
-    data: bytes, plans: List[DecodePlan], device: torch.device
+    data: bytes, plans: List[DecodePlan], device: torch.device,
+    max_devices: Optional[int] = None,
 ) -> bytes:
     """Decode the plans' lanes with ``decode_segments``; returns the
     concatenated output. Three stages, each a function of its own that the
@@ -893,10 +897,11 @@ def execute_plan_device(
     default one slab a card, so one launch of every lane on a one-card
     host; the slabs go to ``n_dev`` cards from ``device``'s on, or to
     ``n_dev`` CPU slabs under a CPU ``device``); and
-    :func:`place_results`. Raises :class:`VmemIneligible` when a lane does
-    not fit the bucket rules and ``_KernelError`` (with the lane's index in
-    the whole sorted list) when a lane fails; the caller replays on the
-    host."""
+    :func:`place_results`. ``max_devices`` caps the devices (the
+    multi-process path holds each rank to its own card with 1). Raises
+    :class:`VmemIneligible` when a lane does not fit the bucket rules and
+    ``_KernelError`` (with the lane's index in the whole sorted list) when
+    a lane fails; the caller replays on the host."""
     device = torch.device(device)
     with stage("stage_plans"):
         staged = stage_plans(data, plans)
@@ -913,7 +918,7 @@ def execute_plan_device(
     if not lanes:
         return staged.out.tobytes()
 
-    per_slab, devs = slab_devices(len(lanes), device)
+    per_slab, devs = slab_devices(len(lanes), device, max_devices)
     if st is not None:
         st.devices = max(st.devices, len(devs))
     with stats_mod.launch_timer(st):
@@ -926,9 +931,10 @@ def execute_plan_device(
 
 # -- the auto router's cost model
 #
-# The copy of lzma_rs_tpu/parallel/runtime.py:1081-1104 with two edits: the
-# defaults are the port's, and its file is ~/.cache/lzma_rs_tpu_torch/, so
-# that constants of one package never reach the other's router. Every
+# The copy of lzma_rs_tpu/parallel/runtime.py:1081-1104 with three edits:
+# the defaults are the port's, its file is ~/.cache/lzma_rs_tpu_torch/, so
+# that constants of one package never reach the other's router, and a sixth
+# constant prices the native engine's work a lane beyond its bytes. Every
 # default was measured by ``python -m lzma_rs_tpu_torch.tools.calibrate``
 # on one "NVIDIA H100 80GB HBM3, 700.00 W" (nvidia-smi
 # --query-gpu=name,power.limit; 132 SMs, 1,980 MHz max SM clock, 8 host
@@ -949,6 +955,11 @@ _CAL_KEYS = (
     ("step_b", "LZMA_RS_TPU_CAL_STEP_B", 0.00125614),
     # the stock archive's longest lane: 246,299 steps for 65,536 B
     ("steps_per_byte", "LZMA_RS_TPU_CAL_STEPS_PER_B", 3.75822),
+    # the native engine a lane beyond its bytes at native_mbs and beyond
+    # the block checks that the card's path runs too, on the tpu_profile
+    # archive's 1,954 lanes of 8 KiB: 249.84 ms of the engine, less 84.28
+    # ms of checks and 59.62 ms of bytes at that run's native_mbs (268.35)
+    ("native_lane_us", "LZMA_RS_TPU_CAL_NATIVE_LANE_US", 54.213),
 )
 
 
@@ -1048,7 +1059,9 @@ def _estimate_engine_seconds(
     the bytes the JAX model counts, ``W_IN + 2 * W``, over ``link_mbs``:
     a rate fitted over the device path's staging, copies and placement
     (``tools/calibrate.py``), so far below the link's own. Native =
-    ``total_out / native_mbs``."""
+    ``total_out / native_mbs`` plus ``native_lane_us`` a lane: the JAX
+    model's flat rate alone prices a thousand 8 KiB lanes several times
+    too fast, since each lane is a call of its own on the host's pool."""
     cal = _auto_calibration()
     lanes = sorted((lane for p in plans for lane in p.lanes), key=_packed,
                    reverse=True)
@@ -1067,7 +1080,8 @@ def _estimate_engine_seconds(
         kernel_us * 1e-6 / max(1, n_devices)
         + transfer_bytes / (cal["link_mbs"] * 1e6)
     )
-    native_s = total_out / (cal["native_mbs"] * 1e6)
+    native_s = (total_out / (cal["native_mbs"] * 1e6)
+                + len(lanes) * cal["native_lane_us"] * 1e-6)
     return device_s, native_s
 
 

@@ -1,17 +1,24 @@
 """Measure the auto router's constants on this machine's card, and write them.
 
 The port of ``tools/calibrate.py``. The router (``parallel/runtime.py``,
-``_resolve_auto`` / ``_estimate_engine_seconds``) reads five constants,
+``_resolve_auto`` / ``_estimate_engine_seconds``) reads six constants,
 each from its environment variable, else the calibration file
 (``runtime.calibration_path()``: ``LZMA_RS_TPU_CAL_FILE``, else
 ``~/.cache/lzma_rs_tpu_torch/calibration.json``), else the built-in
-default. This tool measures all five on the stdlib corpus
+default. This tool measures all six on the stdlib corpus
 (``tools/corpus.py``) and merges them into that file
 (``runtime.write_calibration``):
 
 - ``native_mbs``: the native engine on ``--mb`` MB in 1 MiB blocks
   (liblzma preset 6, CRC64), best of 3 (:func:`measure_native`, the host
   half);
+- ``native_lane_us``: the native engine's microseconds a lane beyond its
+  bytes, on (a), the tpu_profile archive (a lane a block of 8 KiB): the
+  engine's decode and checks (``runtime._execute_native_blockwise``, no
+  planning) less the block checks alone (``runtime.check_blocks``, which
+  the card's path runs too) and less the bytes at ``native_mbs``, over
+  the lanes, each best of 3; 0 if negative (:func:`measure_native_lanes`,
+  the host half);
 - ``step_a`` / ``step_b``: the residency ladder. The kernel runs a lane a
   block, so a launch of ``n`` lanes keeps ``ceil(n / SMs)`` of them
   resident on an SM, up to what shared memory allows. The ladder times
@@ -83,6 +90,45 @@ def measure_native(mb: float = 16, data=None) -> dict:
     return {"native_mbs": native_mbs, "native_ms": best * 1e3,
             "bytes": len(data), "blocks": -(-len(data) // HOST_BLOCK),
             "path": path}
+
+
+def measure_native_lanes(archive: bytes, native_mbs: float,
+                         expected=None) -> dict:
+    """``native_lane_us`` on ``archive`` (by the tool, (a)): the native
+    engine's decode and checks less the checks alone and less the bytes
+    at ``native_mbs``, a lane, each best of :data:`NATIVE_REPS` after a
+    warm call; written to the calibration file. Runs on the host
+    alone."""
+    plans, spans, flags = runtime.plan_xz(archive, stop_on_error=True)[:3]
+    lanes = sum(len(p.lanes) for p in plans)
+    total_out = sum(p.total_out for p in plans)
+
+    def engine():
+        return runtime._execute_native_blockwise(archive, plans, spans,
+                                                 flags)
+
+    out = engine()
+    if expected is not None and out != expected:
+        raise RuntimeError("the native engine decoded other bytes")
+    engine_s = best_of(engine)
+    checks_s = best_of(lambda: runtime.check_blocks(archive, out, spans,
+                                                    flags))
+    bytes_s = total_out / (native_mbs * 1e6)
+    lane_us = max(0.0, (engine_s - checks_s - bytes_s) / lanes * 1e6)
+    path = runtime.write_calibration(native_lane_us=lane_us)
+    return {"native_lane_us": lane_us, "lanes": lanes, "out": total_out,
+            "engine_ms": engine_s * 1e3, "checks_ms": checks_s * 1e3,
+            "bytes_ms": bytes_s * 1e3, "path": path}
+
+
+def best_of(fn, reps: int = NATIVE_REPS) -> float:
+    """The least seconds of ``reps`` calls of ``fn``."""
+    best = float("inf")
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t)
+    return best
 
 
 def ladder_point(staged, n: int, device, peaks) -> dict:
@@ -183,11 +229,15 @@ def calibrate(device=None, mb: float = 16, corpus=None, xa=None,
     xa = corpus_mod.tpu_archive(corpus) if xa is None else xa
     xb = corpus_mod.stock_archive(corpus) if xb is None else xb
     native = measure_native(data=corpus)
+    lanes = measure_native_lanes(xa, native["native_mbs"], corpus)
     dev = measure_device(device, corpus, xa, xb)
-    return {**native, **dev, "device": devbench.device_info(device)}
+    return {**native, "native_lanes": lanes,
+            "native_lane_us": lanes["native_lane_us"], **dev,
+            "device": devbench.device_info(device)}
 
 
 def point_text(key: str, p: dict) -> str:
+    """One residency point of the ladder as a line of text."""
     return (f"({key}) {p['lanes']} lanes, {p['resident']} an SM (of "
             f"{p['lanes_per_sm']}): {p['ms']:.3f} ms over {p['steps']} steps"
             f" = {p['us_per_step'] * 1e3:.2f} ns, {p['cycles_per_step']:.1f} "
@@ -216,10 +266,16 @@ def report(cal: dict) -> list:
                  f"{cal['blocks']} blocks, best of 3, {cal['native_ms']:.2f}"
                  f" ms); link_mbs {cal['link_mbs']:.2f}; step_a "
                  f"{cal['step_a']:.6f} us; step_b {cal['step_b']:.6f} us")
+    n = cal["native_lanes"]
+    lines.append(f"native_lane_us {cal['native_lane_us']:.3f} ((a) "
+                 f"{n['lanes']} lanes: the engine {n['engine_ms']:.2f} ms less the checks "
+                 f"{n['checks_ms']:.2f} ms and {n['out']} B at native_mbs "
+                 f"{n['bytes_ms']:.2f} ms, best of 3)")
     return lines
 
 
 def main(argv=None) -> None:
+    """The command line: measure on the card, write the file."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--mb", type=float, default=16)
     ap.add_argument("--out", help="write here, not calibration_path()")

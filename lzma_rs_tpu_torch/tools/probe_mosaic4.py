@@ -62,6 +62,7 @@ def seeded_start(rng, shape):
 
 
 def seeded_it0(rng, shape):
+    """A seeded start of the step counter ``it``, in [0, 56)."""
     return rng.integers(0, 56, size=shape).astype(np.int32)
 
 

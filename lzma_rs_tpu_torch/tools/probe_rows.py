@@ -212,6 +212,7 @@ def measure(name: str, fn: Probe, xs: tuple, lanes: int, *,
 
 
 def row_text(r: dict) -> str:
+    """One probe row's result as a line of text."""
     head = (f"{r['name'] + ' [' + r['input'] + ']':52s} OK  sum "
             f"{r['checksum']}  ")
     if "ms_long" not in r:

@@ -320,6 +320,7 @@ def stage_text(r: dict) -> str:
 
 
 def main(argv=None) -> None:
+    """The command line: the stage breakdown on the card."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("mb", nargs="?", type=float, default=16.0)
     ap.add_argument("block", nargs="?", type=int, default=8192)

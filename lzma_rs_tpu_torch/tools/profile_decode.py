@@ -27,6 +27,7 @@ import time
 
 
 def main(argv=None) -> dict:
+    """The command line: decode FILE under the profiler."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("file")
     ap.add_argument("--engine", default="cuda",

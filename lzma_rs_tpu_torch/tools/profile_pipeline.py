@@ -161,6 +161,7 @@ def summary_text(s: dict) -> str:
 
 
 def main(argv=None) -> None:
+    """The command line: one traced call and its summary."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("mb", nargs="?", type=float, default=16.0)
     ap.add_argument("--out", default="profile_traces")

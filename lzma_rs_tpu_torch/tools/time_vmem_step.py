@@ -29,6 +29,7 @@ import time
 
 
 def main(argv=None) -> dict:
+    """The command line: the kernel's time a step on the card."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("mb", nargs="?", type=float, default=2.0)
     ap.add_argument("block", nargs="?", type=int, default=8192)

@@ -95,8 +95,9 @@ def test_router_uses_written_calibration(no_calibration, monkeypatch):
     monkeypatch.setenv("LZMA_RS_TPU_CAL_FILE", str(path))
     plans = shaped("a")
     assert runtime._resolve_auto(plans, "cpu") == "cuda"
-    runtime.write_calibration(native_mbs=1e9)
+    runtime.write_calibration(native_mbs=1e9, native_lane_us=0.0)
     assert runtime._auto_calibration()["native_mbs"] == 1e9
+    assert runtime._auto_calibration()["native_lane_us"] == 0.0
     with stats.collect() as s:
         assert runtime._resolve_auto(plans, "cpu") == "native"
     assert len(s.fallbacks) == 1 and MODELED.match(s.fallbacks[0])
@@ -109,8 +110,11 @@ def test_the_default_file_and_keys_are_the_ports(monkeypatch):
     assert port != jax_path
     assert port.endswith(os.path.join(".cache", "lzma_rs_tpu_torch",
                                       "calibration.json"))
+    # the JAX keys, then the native engine's cost a lane (the JAX model
+    # has no such term)
     assert [(k, env) for k, env, _ in runtime._CAL_KEYS] == \
-        [(k, env) for k, env, _ in jax_runtime._CAL_KEYS]
+        [(k, env) for k, env, _ in jax_runtime._CAL_KEYS] + \
+        [("native_lane_us", "LZMA_RS_TPU_CAL_NATIVE_LANE_US")]
     assert [d for *_, d in runtime._CAL_KEYS] != \
         [d for *_, d in jax_runtime._CAL_KEYS]
 
@@ -138,7 +142,7 @@ def pin(monkeypatch, **cal):
 
 
 BASE = {"native_mbs": 250.0, "link_mbs": 900.0, "step_a": 0.07,
-        "step_b": 0.0, "steps_per_byte": 3.5}
+        "step_b": 0.0, "steps_per_byte": 3.5, "native_lane_us": 0.0}
 
 
 @pytest.mark.parametrize("name", list(archives()))
@@ -181,6 +185,11 @@ def test_terms_follow_their_formulas(name, no_calibration, monkeypatch):
         rel=1e-12)
     assert nat == pytest.approx(total_out / (BASE["native_mbs"] * 1e6),
                                 rel=1e-12)
+    # the native engine's cost a lane on top of its bytes
+    pin(monkeypatch, **{**BASE, "native_lane_us": 12.5})
+    _, nat = runtime._estimate_engine_seconds(plans, cfg, 2, sms)
+    assert nat == pytest.approx(total_out / (BASE["native_mbs"] * 1e6)
+                                + len(lanes) * 12.5e-6, rel=1e-12)
     # the kernel alone: waves of sms * per_sm lanes, each priced at its
     # longest lane and its resident lanes an SM, over the devices
     cal = {**BASE, "step_b": 0.004, "link_mbs": 1e30}
@@ -291,18 +300,19 @@ def shaped(name):
 
 # The defaults' verdicts (the model's arithmetic). On the H100, phase 16
 # (PERF.md, the routing ladder) measured the 64-block rung faster on the
-# host (1.37-1.61x), (a) faster on the card (1.42-1.51x), and (b) faster
-# on the card by 1.05-1.21x, which the model sends to the host: a
-# misroute inside the 2x that phase 16 allows.
+# host (1.37-1.66x) or, on a loaded host, on the card (1.27-1.83x), (a)
+# faster on the card (1.31-2.22x), and (b) faster on the card by
+# 1.05-2.20x, which the defaults send to the host by 1%: the native
+# engine's cost a lane (``native_lane_us``) takes (a) and its first 1 MiB
+# to the card.
 CROSSING = {
-    "b": "auto->native: modeled device 59.7 ms vs native 52.3 ms",
+    "b": "auto->native: modeled device 59.7 ms vs native 65.6 ms",
     "stock 64 blocks": "auto->native: modeled device 27.9 ms vs native "
-                       "13.7 ms",
+                       "17.2 ms",
     "stock 128 blocks": "auto->native: modeled device 39.0 ms vs native "
-                        "27.4 ms",
+                        "34.4 ms",
     "a": None,
-    "tpu_profile 1 MiB": "auto->native: modeled device 4.9 ms vs native "
-                         "3.4 ms",
+    "tpu_profile 1 MiB": None,
 }
 
 
@@ -331,6 +341,30 @@ def test_measure_native_writes_native_mbs_alone(no_calibration,
     vals = json.loads(path.read_text())
     assert list(vals) == ["native_mbs"] and vals["native_mbs"] > 0
     assert vals["native_mbs"] == r["native_mbs"]
+
+
+@pytest.mark.parametrize("native_mbs", [1e9, 1e-3])
+def test_measure_native_lanes_writes_native_lane_us_alone(
+        native_mbs, no_calibration, monkeypatch):
+    """The engine's time less the checks' and the bytes' over the lanes, 0
+    where the bytes alone take longer than the engine."""
+    path = no_calibration / "cal.json"
+    monkeypatch.setenv("LZMA_RS_TPU_CAL_FILE", str(path))
+    data = text(64 * 1024, 7)
+    x = corpus_mod.tpu_archive(data)
+    r = calibrate.measure_native_lanes(x, native_mbs, data)
+    plans = runtime.plan_xz(x)[0]
+    assert r["lanes"] == sum(len(p.lanes) for p in plans) > 1
+    assert r["out"] == len(data)
+    assert r["engine_ms"] > 0 and r["checks_ms"] > 0
+    want = (r["engine_ms"] - r["checks_ms"] - r["bytes_ms"]) / r["lanes"]
+    assert r["native_lane_us"] == pytest.approx(max(0.0, want * 1e3))
+    if native_mbs < 1:  # the bytes alone: 65 s
+        assert r["native_lane_us"] == 0.0
+    vals = json.loads(path.read_text())
+    assert vals == {"native_lane_us": r["native_lane_us"]}
+    with pytest.raises(RuntimeError, match="other bytes"):
+        calibrate.measure_native_lanes(x, native_mbs, data[:-1])
 
 
 def test_fit_takes_the_slope_of_a_and_the_intercept_of_b():
@@ -362,5 +396,6 @@ def test_the_tool_on_the_card(monkeypatch, tmp_path):
     calibrate.main(["--mb", "4", "--out", str(out)])
     vals = json.loads(out.read_text())
     assert sorted(vals) == sorted(KEYS)
-    assert all(v > 0 for k, v in vals.items() if k != "step_b")
-    assert vals["step_b"] >= 0
+    assert all(v > 0 for k, v in vals.items()
+               if k not in ("step_b", "native_lane_us"))
+    assert vals["step_b"] >= 0 and vals["native_lane_us"] >= 0

@@ -64,6 +64,21 @@ COPIES = {
     "native/lzma_native.cpp": [],
     # the usage example names the port
     "utils/stats.py": [("replace", 13, 13)],
+    # the usage lines and prog= name the port, which is imported under the
+    # original's name (line 67)
+    "__main__.py": [("replace", 1, 1), ("replace", 7, 7), ("replace", 10, 11),
+                    ("replace", 46, 46), ("replace", 67, 67)],
+    # the docstring (1-21) and xz_decode_multihost (171-307), written for
+    # torch.distributed; the host half between them is the original's
+    "parallel/multihost.py": [
+        ("replace", 1, 1), ("replace", 3, 7), ("replace", 9, 16),
+        ("replace", 18, 21), ("replace", 171, 172), ("replace", 174, 180),
+        ("replace", 182, 184), ("insert", 187, 186), ("insert", 188, 187),
+        ("replace", 189, 189), ("replace", 194, 197), ("replace", 199, 205),
+        ("insert", 207, 206), ("replace", 210, 210), ("replace", 212, 212),
+        ("replace", 215, 245), ("insert", 247, 246), ("delete", 248, 254),
+        ("replace", 258, 271),
+    ],
     # the library's name and build location; the instrumented (fuzzing)
     # build at the end serves only the JAX package's fuzz tests
     "native/loader.py": [

@@ -96,7 +96,12 @@ def test_no_source_of_the_port_imports_the_jax_package():
             "lzma_rs_tpu_torch/raw.py",
             "lzma_rs_tpu_torch/native/loader.py",
             "lzma_rs_tpu_torch/models/codecs.py",
-            "lzma_rs_tpu_torch/encode/lzma2_enc.py"} <= rel
+            "lzma_rs_tpu_torch/encode/lzma2_enc.py",
+            "lzma_rs_tpu_torch/__main__.py",
+            "lzma_rs_tpu_torch/parallel/multihost.py",
+            "lzma_rs_tpu_torch/tools/multihost_demo.py",
+            "lzma_rs_tpu_torch/tools/scaling.py",
+            "lzma_rs_tpu_torch/tools/check_docs.py"} <= rel
     bad = {os.path.relpath(f, REPO): hits for f in files
            if (hits := imports_of_the_jax_package(f))}
     assert bad == {}
@@ -159,8 +164,12 @@ def test_a_fresh_interpreter_loads_only_the_port():
             "lzma_rs_tpu_torch.tools.probe_vmem2_time",
             "lzma_rs_tpu_torch.tools.profile_pipeline",
             "lzma_rs_tpu_torch.tools.calibrate", "lzma_rs_tpu_torch.stream",
-            "lzma_rs_tpu_torch.streams2",
-            "lzma_rs_tpu_torch.raw"} <= set(loaded)
+            "lzma_rs_tpu_torch.streams2", "lzma_rs_tpu_torch.raw",
+            "lzma_rs_tpu_torch.__main__",
+            "lzma_rs_tpu_torch.parallel.multihost",
+            "lzma_rs_tpu_torch.tools.multihost_demo",
+            "lzma_rs_tpu_torch.tools.scaling",
+            "lzma_rs_tpu_torch.tools.check_docs"} <= set(loaded)
     assert [m for m in loaded if m != "lzma_rs_tpu_torch"
             and not m.startswith("lzma_rs_tpu_torch.")] == []
 
