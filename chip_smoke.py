@@ -7,8 +7,9 @@ toolkit (nvcc) and g++:
     python3 chip_smoke.py
 
 It imports only ``lzma_rs_tpu_torch`` (no JAX, nothing of ``lzma_rs_tpu``),
-builds the segment-decoder kernel, its variants and the probe kernels
-from ``lzma_rs_tpu_torch/csrc`` and the port's native host library into
+builds the segment-decoder kernel, its variants, its step-cost builds and
+the probe kernels from ``lzma_rs_tpu_torch/csrc`` and the port's native
+host library into
 ``lzma_rs_tpu_torch/build/``, then runs:
 
 1. device: the card's name and power limit (``nvidia-smi``);
@@ -144,9 +145,34 @@ from ``lzma_rs_tpu_torch/csrc`` and the port's native host library into
 18. the CLI: ``python -m lzma_rs_tpu_torch decompress`` of (a) under
     ``LZMA_RS_TPU_BACKEND=cuda`` gives the corpus (its process imports no
     ``jax``), ``info`` counts 1,954 blocks, and ``compress --block-size
-    65536`` then ``decompress`` round-trips 1 MiB of the corpus.
+    65536`` then ``decompress`` round-trips 1 MiB of the corpus;
+19. the step-cost builds (``csrc/step_cost.cu``, ``ops/step_cost.py``: the
+    decoder spinning, alone and with the probability read, its store, the
+    window's reads, its stores, the input byte's load or all five taken
+    out): ``python -m lzma_rs_tpu_torch.tools.probe_step_cost`` and
+    ``probe_step_cost2`` at their defaults (their RESULT lines); then the
+    seven builds and the decoder in turns (CUDA events, median of 3 a
+    visit) on (a)'s first 264 lanes and (b)'s 245, about 2 lanes an SM,
+    every build running every lane for the shortest lane's steps (the
+    decoder capped there): µs and cycles a step, restarts, and each part's
+    cost as ``spin`` less the case; every spinning lane ends at its budget,
+    ``spin`` within 15% of the decoder, and each build's kernel equals its
+    plain version bit for bit (restarts too) on 4 lanes of (a) at 4,096
+    steps;
+20. mutants on the card: 220 seeded mutants (single, stacked 1-4 deep,
+    splices) of each of two 1 MiB archives, the tpu_profile one (128
+    blocks) and a stock-shaped one (16 blocks of 64 KiB), through
+    ``xz_decompress`` with ``LZMA_RS_TPU_BACKEND=cuda``: the same bytes or
+    error class as the native engine, the same verdict as liblzma (the
+    two sides' one-sided cases counted apart), nothing but typed errors,
+    every launch within the step budget; then 256 mutated lanes of the
+    first (input bytes flipped or set, chunk ends moved) in one
+    ``decode_segments`` launch, equal to the g++ host build of
+    ``lzma_lane.cuh`` (win, err, outp, steps), to the native engine's
+    per-lane verdict and clean bytes, and, on the 8 that stop soonest, to
+    the plain version.
 
-The eight kernel libraries build in parallel (one nvcc per library, with
+The nine kernel libraries build in parallel (one nvcc per library, with
 the native host library's g++) in phase 2.
 
 Every phase checks its result; any failure exits nonzero before the result
@@ -942,6 +968,242 @@ def cli_phase(corpus: bytes, xa: bytes) -> None:
             "65536 + decompress round-trips 1 MiB")
 
 
+# Phase 19's lanes: (a)'s first 264 and (b)'s 245, about 2 lanes an SM on
+# 132 SMs, a rung of phase 16's residency ladder (PERF.md: (a) 162-163 and
+# (b) 135-137 cycles a step there); and the bit-for-bit check's lanes and
+# steps.
+STEP_COST_LANES = {"a": 264, "b": 245}
+STEP_COST_CHECK = (4, 4096)
+
+
+def step_cost_phase(torch, dev, archives, peaks, runtime, sd) -> None:
+    """Phase 19: the two step-cost tools at their defaults; then every
+    step-cost case on (a)'s and (b)'s lanes of ``STEP_COST_LANES``, in
+    turns with the decoder on the same lanes and the same budget: the
+    shortest lane's steps, so that the decoder ends no lane early and
+    every build runs every lane for the same steps (spinning for the
+    longest lane's would set a launch's time by the lane dearest a step,
+    where the decoder's is set by the longest lane); and each case's
+    kernel against its plain version bit for bit on (a)'s first lanes."""
+    from lzma_rs_tpu_torch.ops import step_cost as stc
+    from lzma_rs_tpu_torch.tools import probe_step_cost, probe_step_cost2
+
+    timed = [c for c in probe_step_cost.CASES if c in stc.ABLATIONS]
+    for tool in (probe_step_cost, probe_step_cost2):
+        t = time.perf_counter()
+        res = tool.main([])
+        check([r.case for r in res] == timed and all(
+            r.steps == probe_step_cost.STEPS for r in res),
+            f"phase 19: {tool.__name__} gave {[r.case for r in res]}")
+        say("19 step cost", f"{tool.__name__.rsplit('.', 1)[1]} at its "
+            f"defaults: {len(res)} timed cases and the flush case in "
+            f"{time.perf_counter() - t:.1f} s")
+    stc.decode_ablated.launches = 0
+    turns = ("decoder",) + tuple(stc.ABLATIONS)
+    for key, x in archives.items():
+        staged = runtime.stage_plans(x, runtime.plan_xz(x)[0])
+        n = min(STEP_COST_LANES[key], len(staged.lanes))
+        cfg = staged.slab_config(0, n)
+        inputs = staged.tensors(dev, 0, n)
+        whole = sd.decode_segments(*inputs, config=cfg)[3]
+        budget, longest = int(whole.min()), int(whole.max())
+        whole_ms = median_ms(torch, lambda: sd.decode_segments(
+            *inputs, config=cfg))
+        runs = {"decoder": lambda: sd.decode_segments(
+            *inputs, config=cfg, max_steps=budget)}
+        for case in stc.ABLATIONS:
+            runs[case] = lambda case=case: stc.decode_ablated(
+                case, *inputs, config=cfg, max_steps=budget)
+        restarts = {}
+        for case in stc.ABLATIONS:
+            got = runs[case]()
+            torch.cuda.synchronize()
+            check(bool((got[3] == budget).all()), f"phase 19 ({key}) {case}:"
+                  f" lanes ran {int(got[3].min())}-{int(got[3].max())} "
+                  f"steps, not {budget}")
+            check(bool((got[1] == 1).all()), f"phase 19 ({key}) {case}: "
+                  "a lane did not end at the step cap")
+            restarts[case] = int(got[4].long().sum())
+            del got
+        t = {c: [] for c in turns}
+        for c in turns + turns[::-1]:
+            t[c].append(median_ms(torch, runs[c]))
+        cyc = {c: cycles_per_step(sum(v) / len(v), budget, peaks)
+               for c, v in t.items()}
+        occ = stc.ablated_occupancy("spin", cfg)
+        say(f"19 step cost ({key})", f"{n} lanes, W={cfg.W} NLIT="
+            f"{cfg.NLIT}, {occ} lanes an SM by the occupancy query "
+            f"({n / peaks.sms:.2f} a SM placed); every build runs every "
+            f"lane {budget} steps, the shortest lane's (the decoder capped "
+            f"there), and every spinning lane ran them and ended at the "
+            f"step cap; the decoder uncapped {whole_ms:.3f} ms, "
+            f"{cycles_per_step(whole_ms, longest, peaks):.1f} cycles a step "
+            f"over the longest lane's {longest}")
+        for c in turns:
+            r = ("" if c == "decoder" else
+                 f"; {restarts[c]} restarts "
+                 f"({restarts[c] / n / budget * 1000:.3f} a lane per 1000 "
+                 "steps)")
+            say(f"19 step cost ({key})", f"{c}: "
+                f"{' / '.join(f'{ms:.3f}' for ms in t[c])} ms, "
+                f"{sum(t[c]) / len(t[c]) * 1e3 / budget:.4f} us and "
+                f"{cyc[c]:.1f} cycles a step" + r)
+        say(f"19 step cost ({key})", "each part's cost, spin - case, cycles"
+            " a step: " + "; ".join(
+                f"{c.split(',', 1)[1]} {cyc['spin'] - cyc[c]:.1f}"
+                for c in stc.ABLATIONS if c != "spin"))
+        ratio = cyc["spin"] / cyc["decoder"]
+        check(abs(ratio - 1) <= 0.15, f"phase 19 ({key}): spin "
+              f"{cyc['spin']:.1f} cycles a step against the decoder's "
+              f"{cyc['decoder']:.1f}")
+        del inputs, runs
+        torch.cuda.empty_cache()
+    lanes, steps = STEP_COST_CHECK
+    staged = runtime.stage_plans(archives["a"],
+                                 runtime.plan_xz(archives["a"])[0])
+    cfg = staged.slab_config(0, lanes)
+    inputs = staged.tensors(dev, 0, lanes)
+    host = tuple(x.cpu() for x in inputs)
+    t = time.perf_counter()
+    for case in stc.ABLATIONS:
+        got = stc.decode_ablated(case, *inputs, config=cfg, max_steps=steps)
+        want = stc.decode_ablated_reference(case, *host, config=cfg,
+                                            max_steps=steps)
+        for what, g, w in zip(("win", "err", "outp", "steps", "restarts"),
+                              got, want):
+            check(torch.equal(g.cpu(), w), f"phase 19: {case} kernel and "
+                  f"plain version differ in {what}")
+    say("19 step cost", f"every case's kernel == its plain version bit for "
+        f"bit (win, err, outp, steps, restarts) on {lanes} lanes of (a) at "
+        f"{steps} steps (plain versions {time.perf_counter() - t:.1f} s on "
+        f"the host); {stc.decode_ablated.launches} step-cost launches")
+
+
+MUTANT_SEED = 20
+
+
+def mutants_phase(torch, dev, corpus: bytes, runtime, stats, decode,
+                  sd) -> None:
+    """Phase 20: seeded mutants of a 1 MiB tpu_profile archive and a 1 MiB
+    stock-shaped one through ``xz_decompress`` on the card against
+    liblzma and the native engine; then 256 mutated lanes in one
+    ``decode_segments`` launch against the host build, the native engine
+    and, on the 8 that stop soonest, the plain version."""
+    import lzma
+    import random
+
+    import numpy as np
+
+    from lzma_rs_tpu_torch.native import loader
+    from lzma_rs_tpu_torch.ops.lzma_consts import SegmentConfig
+    from lzma_rs_tpu_torch.tools import corpus as corpus_mod
+    from lzma_rs_tpu_torch.tools import mutate
+    from lzma_rs_tpu_torch.utils.errors import LzmaRsError
+
+    rng = random.Random(MUTANT_SEED)
+    mib = corpus[:1 << 20]
+    seeds = {"(a) 1 MiB": corpus_mod.tpu_archive(mib),
+             "stock 1 MiB": corpus_mod.stock_archive(mib)}
+    # no launch may run past the largest bucket's budget
+    budget = sd.default_max_steps(SegmentConfig(L=1, W=65536, W_IN=65536))
+
+    def outcome(engine, x):
+        try:
+            return True, decode(x, engine)
+        except LzmaRsError as e:
+            return False, type(e).__name__
+
+    divergences, counts, longest = [], {}, 0
+    t = time.perf_counter()
+    for what, seed in seeds.items():
+        cases = list(mutate.mutations(rng, seed, 100))
+        cases += list(mutate.mutations(rng, seed, 100, stacked=True))
+        cases += list(mutate.splices(rng, list(seeds.values()), 20))
+        c = dict.fromkeys(("mutants", "both decode", "both fail",
+                           "liblzma alone differs", "vmem-ineligible",
+                           "lane replays", "launches"), 0)
+        for x in cases:
+            c["mutants"] += 1
+            before = sd.decode_segments.launches
+            try:
+                with stats.collect() as st:
+                    dev_out = outcome("cuda", x)
+                nat = outcome("native", x)
+            except Exception as e:  # an untyped error is the finding
+                divergences.append(f"{what}: {type(e).__name__}: {e}")
+                continue
+            c["launches"] += sd.decode_segments.launches - before
+            longest = max(longest, st.kernel_iters)
+            c["vmem-ineligible"] += any(f.startswith("vmem-ineligible")
+                                        for f in st.fallbacks)
+            c["lane replays"] += any(f.startswith("host replay: lane")
+                                     for f in st.fallbacks)
+            if dev_out != nat:
+                divergences.append(f"{what}: cuda {str(dev_out)[:60]} vs "
+                                   f"native {str(nat)[:60]}")
+                continue
+            try:
+                lib_out = (True, lzma.decompress(x, format=lzma.FORMAT_XZ))
+            except lzma.LZMAError:
+                lib_out = (False, None)
+            if dev_out[0] and lib_out[0]:
+                if dev_out[1] != lib_out[1]:
+                    divergences.append(f"{what}: cuda and liblzma decoded "
+                                       "other bytes")
+                    continue
+                c["both decode"] += 1
+            elif dev_out[0] == lib_out[0]:
+                c["both fail"] += 1
+            else:  # the reference's known differences, native's as well
+                c["liblzma alone differs"] += 1
+        counts[what] = c
+    secs = time.perf_counter() - t
+    n_mut = sum(c["mutants"] for c in counts.values())
+    for what, c in counts.items():
+        say("20 mutants", f"{what}: " + ", ".join(f"{k} {v}"
+                                                 for k, v in c.items()))
+    say("20 mutants", f"{n_mut} mutants in {secs:.1f} s "
+        f"({n_mut / secs:.1f} a second) through xz_decompress on the card, "
+        f"each beside the native engine and liblzma; longest launch "
+        f"{longest} steps (budget {budget}); {len(divergences)} divergences")
+    check(not divergences, f"phase 20: {divergences[:5]}")
+    check(all(c["mutants"] >= 200 for c in counts.values()) and n_mut >= 400,
+          f"phase 20: {n_mut} mutants")
+    check(longest <= budget, f"phase 20: a launch ran {longest} steps")
+
+    xa = seeds["(a) 1 MiB"]
+    pool = runtime.stage_plans(xa, runtime.plan_xz(xa)[0])
+    cfg, arrays, seg_lens = mutate.mutate_lanes(rng, pool, 256, True)
+    inputs = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                   for a in arrays)
+    sd.decode_segments.launches = 0
+    got = sd.decode_segments(*inputs, config=cfg)
+    torch.cuda.synchronize()
+    check(sd.decode_segments.launches == 1, "phase 20: the lanes took "
+          f"{sd.decode_segments.launches} launches")
+    t = time.perf_counter()
+    host = mutate.host_decode(cfg, arrays)
+    host_s = time.perf_counter() - t
+    held_equal([g.cpu() for g in got], host,
+               "phase 20: the kernel against the host build")
+    verdicts = mutate.lane_verdicts(loader.load(), got, arrays, seg_lens)
+    check(not verdicts, f"phase 20: against the native engine {verdicts[:5]}")
+    short = torch.argsort(got[3].cpu(), stable=True)[:8].to(dev)
+    cfg8 = pool.slab_config(0, 8)
+    want = sd.decode_segments_reference(*(x[short] for x in inputs),
+                                        config=cfg8)
+    held_equal([g[short] for g in got], want,
+               "phase 20: the kernel against its plain version")
+    err = got[1].cpu()
+    codes = {int(k): int((err == k).sum()) for k in err.unique()}
+    say("20 lanes", f"{cfg.L} mutated lanes of (a)'s 1 MiB (W={cfg.W}, "
+        f"W_IN={cfg.W_IN}) in one launch: == the host build (win, err, "
+        f"outp, steps; host build {host_s:.1f} s), every lane's verdict and "
+        f"clean bytes == the native engine, the 8 that stop soonest "
+        f"(longest {int(want[3].max())} steps) == the plain version; "
+        f"lanes by error code {codes}; 0 divergences")
+
+
 def phase3_lanes(corpus: bytes, runtime):
     """Streams for the kernel-against-plain check, planned into one blob.
     Returns (blob, plans, expected output, corrupted seg_bases,
@@ -1069,6 +1331,7 @@ def main() -> None:
     build.load_mosaic4()
     build.load_round4()
     build.load_bisect()
+    build.load_step_cost()
     for lib, b in zip(build.LIBRARIES, built_libs):
         say("2 build", f"{lib.sources[0]} -> {os.path.relpath(b.path, ROOT)}"
             f" in {b.seconds:.2f} s; {ptxas_summary(b.log)}")
@@ -1442,6 +1705,12 @@ def main() -> None:
 
     # -- 18. the CLI ----------------------------------------------------
     cli_phase(corpus, xa)
+
+    # -- 19. the step-cost builds and tools ----------------------------
+    step_cost_phase(torch, dev, archives, peaks, runtime, sd)
+
+    # -- 20. mutants on the card ---------------------------------------
+    mutants_phase(torch, dev, corpus, runtime, stats, decode, sd)
 
     check("jax" not in sys.modules, "jax was imported")
     jax_pkg = sorted(m for m in sys.modules

@@ -25,6 +25,16 @@
 // one step, exactly as the plain version's lockstep iterations do, and a
 // lane stops with ERR_STEP_CAP when its step budget is spent.
 //
+// The step-cost builds (step_cost.cu, ops/step_cost.py) set further option
+// bits, each a part of the step taken out, so that timing them against
+// each other prices the parts: the port of the JAX kernel's
+// LZMA_RS_TPU_ABLATE switches (lzma_rs_tpu/ops/vmem_decoder.py:55-62), as
+// compile-time instantiations instead of a variable read at import.
+// kDecoder sets none of them, so the decoder's build and the variants
+// compile to the code they had (cuobjdump -sass, kernel for kernel): the
+// literal's store and the match byte test their bits with if constexpr,
+// since a plain if on the constant there changed the SASS of V4 and S3.
+//
 // The team. Every thread of a team runs the same scalar decoder on its own
 // copy of the state, so control flow is uniform and every load and store
 // of the tables and the window goes to one address for all of them. Work
@@ -73,7 +83,47 @@ constexpr int LEN_HIGH = 2 + 16 * 8 * 2;
 constexpr int kWarpCopy = 1;   // a match copy split over the team; else one
                                // thread copies a byte a step
 constexpr int kLookahead = 2;  // input read through two words held ahead
+// The step-cost options (the JAX ablation each stands for in brackets):
+constexpr int kSpin = 4;          // ["spin"] the lane never stops before
+                                  // its budget: at the end of its chunks or
+                                  // on any error it starts its segment
+                                  // again (a fresh coder, the table
+                                  // refilled, outp back at the first
+                                  // chunk's start), so every lane runs
+                                  // exactly max_steps steps and ends with
+                                  // ERR_STEP_CAP; it counts its restarts
+constexpr int kNoProbRead = 8;    // ["probread"] a bit reads the constant
+                                  // PROB_INIT (the JAX PROB_PACKED) in
+                                  // place of its probability
+constexpr int kNoProbWrite = 16;  // ["probwrite"] a bit stores no updated
+                                  // probability
+constexpr int kNoPort = 32;       // ["port"] window reads return 0: a
+                                  // copy's source, a matched literal's
+                                  // match byte
+constexpr int kNoWinWrite = 64;   // ["winwrite"] no byte is stored to the
+                                  // window (literals and copies)
+constexpr int kNoInput = 128;     // ["refill", the JAX kernel's input
+                                  // look-ahead refill] the range coder's
+                                  // next input byte is the constant 0, not
+                                  // loaded. Not refill() below, which
+                                  // resets the probability table.
+// No counterpart: "flush" (the JAX ring's flush; this decoder keeps the
+// whole window, no ring), and "chainA/B/C/D/L", "m8", "lit4" (switches of
+// the JAX kernel's own fast paths, which this decoder does not have).
 constexpr int kDecoder = kWarpCopy;  // the decoder's build
+
+// The seven step-cost builds, by case number (step_cost.cu's
+// lzl_decode_ablated, ops/step_cost.py's ABLATIONS): the JAX tools' cases
+// but "spin,flush", and the five ablations together.
+constexpr int kAblated[7] = {
+    kSpin,
+    kSpin | kNoProbRead,
+    kSpin | kNoProbRead | kNoProbWrite,
+    kSpin | kNoPort,
+    kSpin | kNoWinWrite,
+    kSpin | kNoInput,
+    kSpin | kNoProbRead | kNoProbWrite | kNoPort | kNoWinWrite | kNoInput,
+};
 
 // Offsets of models/state.py's make_layout(log2(nlit)).
 struct Layout {
@@ -207,6 +257,10 @@ struct Coder {
   // The byte at pos, then pos + 1. With kLookahead the next word's load is
   // issued four bytes (some 32 bits) before its first byte is needed.
   LZL_FN uint32_t next_byte() {
+    if (kOpts & kNoInput) {
+      ++pos;
+      return 0u;
+    }
     if (!(kOpts & kLookahead)) return load_byte(in + pos++);
     const uint32_t b = (w0 >> ((pos & 3) * 8)) & 0xFFu;
     if ((++pos & 3) == 0) {
@@ -231,18 +285,18 @@ struct Coder {
   // One adaptive bit: 0 or 1, or -1 with err set.
   LZL_FN int bit(uint16_t* p) {
     if (!step()) return -1;
-    const uint32_t pv = *p;
+    const uint32_t pv = (kOpts & kNoProbRead) ? uint32_t(PROB_INIT) : *p;
     team.sync();  // every rank has read *p
     const uint32_t bound = (range >> 11) * pv;
     int b;
     if (code < bound) {
       range = bound;
-      *p = uint16_t(pv + ((0x800u - pv) >> 5));
+      if (!(kOpts & kNoProbWrite)) *p = uint16_t(pv + ((0x800u - pv) >> 5));
       b = 0;
     } else {
       code -= bound;
       range -= bound;
-      *p = uint16_t(pv - (pv >> 5));
+      if (!(kOpts & kNoProbWrite)) *p = uint16_t(pv - (pv >> 5));
       b = 1;
     }
     return normalize() ? b : -1;
@@ -350,15 +404,17 @@ LZL_FN CopySplit split_copy(int len, int steps, int max_steps, int outp,
 // Rank r of a team of t threads writes bytes r, r + t, ... of an n-byte
 // copy from dist back. Byte i of the copy is win[outp - dist + i % dist]:
 // a byte that existed before the copy, so every distance works (dist < n
-// overlaps) and the ranks need no order among themselves.
+// overlaps) and the ranks need no order among themselves. kNoPort stores
+// 0 without the read; kNoWinWrite stores nothing.
+template <int kOpts = 0>
 LZL_FN void copy_rank(uint8_t* win, int outp, int dist, int n, int r,
                       int t) {
-  if (r >= n) return;
+  if ((kOpts & kNoWinWrite) || r >= n) return;
   const uint8_t* src = win + (outp - dist);
   int j = r < dist ? r : r % dist;
   const int dj = t < dist ? t : t % dist;
   for (int i = r; i < n; i += t) {
-    win[outp + i] = src[j];
+    win[outp + i] = (kOpts & kNoPort) ? uint8_t(0) : src[j];
     j += dj;
     if (j >= dist) j -= dist;
   }
@@ -372,10 +428,14 @@ LZL_FN bool copy_match(Coder<Team, kOpts>& c, uint8_t* win, int& outp,
   const CopySplit s = split_copy(len, c.steps, c.max_steps, outp, outend);
   const int at = outp;
   if (kOpts & kWarpCopy) {
-    c.team.each([&](int r) { copy_rank(win, at, dist, s.n, r, Team::kSize); });
-  } else {
+    c.team.each([&](int r) {
+      copy_rank<kOpts>(win, at, dist, s.n, r, Team::kSize);
+    });
+  } else if (!(kOpts & kNoWinWrite)) {
     c.team.one([&] {
-      for (int i = 0; i < s.n; ++i) win[at + i] = win[at + i - dist];
+      for (int i = 0; i < s.n; ++i) {
+        win[at + i] = (kOpts & kNoPort) ? uint8_t(0) : win[at + i - dist];
+      }
     });
   }
   outp += s.n;
@@ -399,6 +459,7 @@ LZL_FN void refill(const Team& team, uint16_t* P, int total) {
 
 struct LaneResult {
   int32_t err, outp, steps;
+  int32_t restarts;  // kSpin: the times the lane started its segment again
 };
 
 // Decode one lane. in: w_in staged bytes; win: w bytes, prefilled with the
@@ -416,7 +477,9 @@ LZL_FN LaneResult decode_lane(Team team, const uint8_t* in, int w_in,
   Coder<Team, kOpts> c(in, w_in, max_steps, team);
   int outp = 0, state = 0, lc = 0, lp = 0, pb = 0;
   uint32_t rep0 = 0, rep1 = 0, rep2 = 0, rep3 = 0;
+  int restarts = 0;
 
+again:
   for (int ci = 0;; ++ci) {
     if (!c.step()) break;  // the chunk-setup micro-op
     const int m = ci < k ? meta[ci] : 0;
@@ -460,7 +523,12 @@ LZL_FN LaneResult decode_lane(Team team, const uint8_t* in, int w_in,
             c.err = ERR_MATCHDIST;
             goto done;
           }
-          uint32_t mb = win[outp - 1 - int(rep0)];
+          uint32_t mb;
+          if constexpr ((kOpts & kNoPort) != 0) {
+            mb = 0;
+          } else {
+            mb = win[outp - 1 - int(rep0)];
+          }
           do {
             const uint32_t mbit = (mb >> 7) & 1;
             mb = (mb << 1) & 0xFF;
@@ -475,7 +543,11 @@ LZL_FN LaneResult decode_lane(Team team, const uint8_t* in, int w_in,
           if (b < 0) goto done;
           sym = (sym << 1) | uint32_t(b);
         }
-        win[outp++] = uint8_t(sym);  // every rank stores the same byte
+        if constexpr ((kOpts & kNoWinWrite) != 0) {
+          ++outp;
+        } else {
+          win[outp++] = uint8_t(sym);  // every rank stores the same byte
+        }
         state = state < 4 ? 0 : (state < 10 ? state - 3 : state - 6);
         continue;
       }
@@ -546,7 +618,21 @@ LZL_FN LaneResult decode_lane(Team team, const uint8_t* in, int w_in,
     }
   }
 done:
-  return LaneResult{c.err, outp, c.steps};
+  if (kOpts & kSpin) {
+    // every pass takes at least its first chunk-setup step, so the
+    // budget ends the loop
+    if (c.steps < max_steps) {
+      ++restarts;
+      refill(team, P, lay.total);
+      c.err = ERR_NONE;
+      outp = out_start[0];
+      state = 0;
+      rep0 = rep1 = rep2 = rep3 = 0;
+      goto again;
+    }
+    c.err = ERR_STEP_CAP;
+  }
+  return LaneResult{c.err, outp, c.steps, restarts};
 }
 
 }  // namespace lzl
@@ -557,15 +643,17 @@ done:
 // byte copied a step (V0 and S3); 1 the decoder (a warp a lane; V1-V3
 // place its table and window, which the host build does not model); 4 a
 // warp with one thread copying (V4); 5 the decoder with the input
-// look-ahead (V5). The window is decoded in place.
+// look-ahead (V5); 16 + c the step-cost case c (the decoder with
+// kAblated[c], step_cost.cu's case c), which also writes restarts (null
+// for the other codes). The window is decoded in place.
 template <class Team, int kOpts>
 static void lzl_host_lanes(const uint8_t* inbuf, uint8_t* win,
                            uint16_t* probs, const int32_t* in_start,
                            const int32_t* in_end, const int32_t* out_start,
                            const int32_t* out_end, const int32_t* chunk_meta,
                            int32_t* err, int32_t* outp, int32_t* steps,
-                           int L, int w_in, int w, int nprobs, int nlit,
-                           int k, int max_steps) {
+                           int32_t* restarts, int L, int w_in, int w,
+                           int nprobs, int nlit, int k, int max_steps) {
   for (int l = 0; l < L; ++l) {
     const size_t t = size_t(l) * size_t(k);
     const lzl::LaneResult r = lzl::decode_lane<Team, kOpts>(
@@ -576,6 +664,7 @@ static void lzl_host_lanes(const uint8_t* inbuf, uint8_t* win,
     err[l] = r.err;
     outp[l] = r.outp;
     steps[l] = r.steps;
+    if (kOpts & lzl::kSpin) restarts[l] = r.restarts;
   }
 }
 
@@ -583,19 +672,30 @@ extern "C" int lzl_decode_segments_host(
     const uint8_t* inbuf, uint8_t* win, uint16_t* probs,
     const int32_t* in_start, const int32_t* in_end, const int32_t* out_start,
     const int32_t* out_end, const int32_t* chunk_meta, int32_t* err,
-    int32_t* outp, int32_t* steps, int L, int w_in, int w, int nprobs,
-    int nlit, int k, int max_steps, int code) {
+    int32_t* outp, int32_t* steps, int32_t* restarts, int L, int w_in,
+    int w, int nprobs, int nlit, int k, int max_steps, int code) {
   using lzl::Solo;
   using lzl::Warp;
+  using lzl::kAblated;
+  using lzl::kDecoder;
+  if (code >= 16 && code < 23 && restarts == nullptr) return -1;
 #define LZL_HOST_RUN(TEAM, OPTS)                                           \
   lzl_host_lanes<TEAM, OPTS>(inbuf, win, probs, in_start, in_end,          \
                              out_start, out_end, chunk_meta, err, outp,    \
-                             steps, L, w_in, w, nprobs, nlit, k, max_steps)
+                             steps, restarts, L, w_in, w, nprobs, nlit, k, \
+                             max_steps)
   switch (code) {
     case 0: LZL_HOST_RUN(Solo, 0); return 0;
-    case 1: LZL_HOST_RUN(Warp, lzl::kDecoder); return 0;
+    case 1: LZL_HOST_RUN(Warp, kDecoder); return 0;
     case 4: LZL_HOST_RUN(Warp, 0); return 0;
-    case 5: LZL_HOST_RUN(Warp, lzl::kDecoder | lzl::kLookahead); return 0;
+    case 5: LZL_HOST_RUN(Warp, kDecoder | lzl::kLookahead); return 0;
+    case 16: LZL_HOST_RUN(Warp, kDecoder | kAblated[0]); return 0;
+    case 17: LZL_HOST_RUN(Warp, kDecoder | kAblated[1]); return 0;
+    case 18: LZL_HOST_RUN(Warp, kDecoder | kAblated[2]); return 0;
+    case 19: LZL_HOST_RUN(Warp, kDecoder | kAblated[3]); return 0;
+    case 20: LZL_HOST_RUN(Warp, kDecoder | kAblated[4]); return 0;
+    case 21: LZL_HOST_RUN(Warp, kDecoder | kAblated[5]); return 0;
+    case 22: LZL_HOST_RUN(Warp, kDecoder | kAblated[6]); return 0;
     default: return -1;
   }
 #undef LZL_HOST_RUN

@@ -8,7 +8,8 @@
 //
 // Buffers (lane-major): inbuf [L, w_in] u8; win_init and win [L, w] u8;
 // probs [L, nprobs] u16 scratch (global tables only); chunk tables [L, k]
-// i32; err, outp, steps [L] i32. With the window in shared memory the
+// i32; err, outp, steps [L] i32; and, for the spin builds (kSpin), each
+// lane's restarts [L] i32 (SpinArgs). With the window in shared memory the
 // kernel reads win_init and writes win; in global memory it decodes win in
 // place (the caller copies win_init there first). Dynamic shared memory:
 // the table (probs_bytes(nlit), when shared), then the window (w, when
@@ -18,6 +19,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "lzma_lane.cuh"
 
@@ -32,6 +35,18 @@ struct SegmentArgs {
   int32_t *err, *outp, *steps;
   int L, w_in, w, nprobs, nlit, k, max_steps;
 };
+
+// The spin builds' arguments: SegmentArgs and the restart counts. A type
+// of their own, so that the other builds' parameter block (and code: one
+// more field in SegmentArgs changed the decoder's SASS and cost it ~2% of
+// its time on the H100) stays as it was.
+struct SpinArgs : SegmentArgs {
+  int32_t* restarts;
+};
+
+template <int kOpts>
+using ArgsOf = typename std::conditional<(kOpts & kSpin) != 0, SpinArgs,
+                                         SegmentArgs>::type;
 
 // Threads a block: one lane's team, or 128 lanes of a thread when a lane
 // keeps nothing in shared memory.
@@ -64,7 +79,7 @@ __device__ inline void team_copy(uint8_t* dst, const uint8_t* src, int n,
 template <class Team, int kOpts, bool kProbsShared, bool kWinShared>
 __global__ void __launch_bounds__(
     Block<Team, kProbsShared || kWinShared>::kThreads)
-    segments_kernel(SegmentArgs a) {
+    segments_kernel(ArgsOf<kOpts> a) {
   extern __shared__ uint4 smem[];
   const int lane = Team::kSize == 1
                        ? int(blockIdx.x * blockDim.x + threadIdx.x)
@@ -97,6 +112,7 @@ __global__ void __launch_bounds__(
     a.err[lane] = r.err;
     a.outp[lane] = r.outp;
     a.steps[lane] = r.steps;
+    if constexpr ((kOpts & kSpin) != 0) a.restarts[lane] = r.restarts;
   }
 }
 
@@ -123,7 +139,7 @@ int prepare_segments(int smem) {
 // cudaErrorInvalidValue: the wrapper and the kernel disagree on the
 // layout). Returns cudaGetLastError() (0 = launched).
 template <class Team, int kOpts, bool kProbsShared, bool kWinShared>
-int launch_segments(const SegmentArgs& a, int smem, cudaStream_t stream) {
+int launch_segments(const ArgsOf<kOpts>& a, int smem, cudaStream_t stream) {
   if (smem != shared_bytes<kProbsShared, kWinShared>(a.nlit, a.w)) {
     return int(cudaErrorInvalidValue);
   }

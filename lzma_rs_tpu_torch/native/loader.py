@@ -434,3 +434,103 @@ def load() -> Optional[NativeLib]:
             _cached = None
         return _cached
 
+
+# --- edge-coverage instrumented build (fuzzing) ------------------------
+
+_SO_COV = os.path.join(_BUILD, "liblzma_rs_tpu_torch_native_cov.so")
+_COV_SRC = os.path.join(_HERE, "cov_runtime.cpp")
+_cov_cached = None
+_cov_tried = False
+
+
+class CovNativeLib(NativeLib):
+    """NativeLib plus the edge-coverage query API (cov_runtime.cpp).
+    Arc ids are bitmap indices derived from code offsets — stable for a
+    given .so build; pair persisted arcs with :meth:`build_id`."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        super().__init__(lib)
+        lib.lrt_cov_enable.argtypes = [ctypes.c_int]
+        lib.lrt_cov_reset.argtypes = []
+        lib.lrt_cov_snapshot.restype = ctypes.c_int
+        lib.lrt_cov_snapshot.argtypes = [
+            ctypes.POINTER(ctypes.c_int32), ctypes.c_int,
+        ]
+        self._snap_buf = (ctypes.c_int32 * (1 << 17))()
+
+    def cov_run(self, fn):
+        """Run fn() with edge recording; returns the arc-id set."""
+        self._lib.lrt_cov_reset()
+        self._lib.lrt_cov_enable(1)
+        try:
+            fn()
+        finally:
+            self._lib.lrt_cov_enable(0)
+        n = self._lib.lrt_cov_snapshot(self._snap_buf, 1 << 17)
+        return set(self._snap_buf[:n])
+
+    @staticmethod
+    def build_id() -> str:
+        """Hash of the instrumented .so — persisted arc sets are only
+        comparable within one build."""
+        import hashlib
+
+        with open(_SO_COV, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()[:16]
+
+
+def build_instrumented(force: bool = False) -> bool:
+    """Compile the -fsanitize-coverage=trace-pc build (the coverage
+    callback lives in the UNinstrumented cov_runtime.cpp TU). -O1: edge
+    attribution beats speed for the fuzz tier."""
+    if not os.path.exists(_SRC) or not os.path.exists(_COV_SRC):
+        return False
+    if os.path.exists(_SO_COV) and not force:
+        newest = max(os.path.getmtime(_SRC), os.path.getmtime(_COV_SRC))
+        if os.path.getmtime(_SO_COV) >= newest:
+            return True
+    import tempfile
+
+    os.makedirs(_BUILD, exist_ok=True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            main_o = os.path.join(tmp, "main.o")
+            cov_o = os.path.join(tmp, "cov.o")
+            # the callback TU must NOT be instrumented — a traced
+            # __sanitizer_cov_trace_pc would recurse into itself
+            subprocess.run(
+                ["g++", "-O1", "-fPIC", "-std=c++17", "-c",
+                 "-fsanitize-coverage=trace-pc", _SRC, "-o", main_o],
+                check=True, capture_output=True, timeout=240,
+            )
+            subprocess.run(
+                ["g++", "-O1", "-fPIC", "-std=c++17", "-c",
+                 _COV_SRC, "-o", cov_o],
+                check=True, capture_output=True, timeout=240,
+            )
+            subprocess.run(
+                ["g++", "-shared", main_o, cov_o, "-o", _SO_COV],
+                check=True, capture_output=True, timeout=240,
+            )
+        return True
+    except Exception:
+        return False
+
+
+def load_instrumented() -> Optional[CovNativeLib]:
+    """The edge-coverage build, for the coverage-guided fuzz tier.
+    Separate cache from the production library."""
+    global _cov_cached, _cov_tried
+    with _lock:
+        if _cov_tried:
+            return _cov_cached
+        _cov_tried = True
+        if os.environ.get("LZMA_RS_TPU_NO_NATIVE"):
+            return None
+        if not build_instrumented():
+            return None
+        try:
+            _cov_cached = CovNativeLib(ctypes.CDLL(_SO_COV))
+        except Exception:
+            _cov_cached = None
+        return _cov_cached

@@ -4,7 +4,7 @@
 PyTorch headers: seconds, not minutes) into
 ``lzma_rs_tpu_torch/build/liblzl_<name>-<hash>.so``, where the hash covers
 that library's own sources and the flags, so an edited source rebuilds its
-library alone and an unchanged one loads at once. Eight libraries:
+library alone and an unchanged one loads at once. Nine libraries:
 
 - ``segdec``: the segment decoder (``decode_segments.cu`` +
   ``segment_kernel.cuh`` + ``lzma_lane.cuh``), :func:`load`;
@@ -22,11 +22,15 @@ library alone and an unchanged one loads at once. Eight libraries:
 - ``round4``: the round4 probe kernels (``probes_round4.cu`` +
   ``probe_round4.cuh`` + ``probe_mosaic.cuh``), :func:`load_round4`;
 - ``bisect``: the bisect probe kernel (``probes_bisect.cu`` +
-  ``probe_bisect.cuh`` + ``probe_lane.cuh``), :func:`load_bisect`.
+  ``probe_bisect.cuh`` + ``probe_lane.cuh``), :func:`load_bisect`;
+- ``stepcost``: the decoder's step-cost builds (``step_cost.cu`` over
+  ``segment_kernel.cuh`` + ``lzma_lane.cuh``), :func:`load_step_cost`.
 
-Each is bound with ``ctypes``. Nothing here runs at import time; every
-failure raises, except in :func:`unavailable`, which the ``auto`` router
-asks before it picks the card.
+Each is bound with ``ctypes``. :func:`load_host` builds the decoder's
+per-lane code (``lzma_lane.cuh``) for the host with g++ instead, a test aid
+that runs the kernel's logic without a card. Nothing here runs at import
+time; every failure raises, except in :func:`unavailable`, which the
+``auto`` router asks before it picks the card.
 """
 
 from __future__ import annotations
@@ -72,7 +76,10 @@ ROUND4 = Library("round4", ("probes_round4.cu", "probe_round4.cuh",
                             "probe_mosaic.cuh"))
 BISECT = Library("bisect", ("probes_bisect.cu", "probe_bisect.cuh",
                             "probe_lane.cuh"))
-LIBRARIES = (SEGDEC, SEGVAR, PROBES, MOSAIC, MOSAIC3, MOSAIC4, ROUND4, BISECT)
+STEPCOST = Library("stepcost", ("step_cost.cu", "segment_kernel.cuh",
+                                "lzma_lane.cuh"))
+LIBRARIES = (SEGDEC, SEGVAR, PROBES, MOSAIC, MOSAIC3, MOSAIC4, ROUND4, BISECT,
+             STEPCOST)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,28 +116,33 @@ def build_library(lib: Library = SEGDEC) -> BuildResult:
     path = os.path.join(BUILD_DIR, f"liblzl_{lib.name}-{source_hash(lib)}.so")
     if os.path.exists(path):
         return BuildResult(path, 0.0, "")
-    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    log = _compile([_nvcc(), *NVCC_FLAGS], lib.sources[0], path)
+    return BuildResult(path, time.perf_counter() - t0, log)
+
+
+def _compile(command: list, source: str, path: str) -> str:
+    """Compile ``csrc/<source>`` with ``command`` into ``path``, through a
+    temporary file in the build directory; returns the compiler's
+    output."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    t0 = time.perf_counter()
     try:
         proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp,
-             os.path.join(CSRC, lib.sources[0])],
+            [*command, "-o", tmp, os.path.join(CSRC, source)],
             capture_output=True, text=True, timeout=600,
         )
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed on {lib.sources[0]} ({proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}"
+                f"{os.path.basename(command[0])} failed on {source} "
+                f"({proc.returncode}):\n{proc.stdout}{proc.stderr}"
             )
         os.replace(tmp, path)  # atomic: a concurrent loader sees all or none
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return BuildResult(path, time.perf_counter() - t0,
-                       proc.stdout + proc.stderr)
+    return proc.stdout + proc.stderr
 
 
 @functools.lru_cache(maxsize=1)
@@ -157,6 +169,58 @@ def load() -> ctypes.CDLL:
     lib.lzl_decoder_occupancy.argtypes = [ci, vp]
     lib.lzl_error_string.restype = ctypes.c_char_p
     lib.lzl_error_string.argtypes = [ci]
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def load_step_cost() -> ctypes.CDLL:
+    """Build (if needed) and bind the decoder's step-cost builds; one
+    handle per process."""
+    lib = ctypes.CDLL(build_library(STEPCOST).path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.lzl_decode_ablated.restype = ci
+    lib.lzl_decode_ablated.argtypes = [ci] + [vp] * 12 + [ci] * 7 + [vp]
+    lib.lzl_ablated_occupancy.restype = ci
+    lib.lzl_ablated_occupancy.argtypes = [ci, ci, vp]
+    lib.lzl_ablated_error_string.restype = ctypes.c_char_p
+    lib.lzl_ablated_error_string.argtypes = [ci]
+    return lib
+
+
+HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC", "-Wall",
+              "-Werror", "-DLZL_HOST_ENTRY")
+
+
+@functools.lru_cache(maxsize=1)
+def load_host() -> ctypes.CDLL:
+    """Build (if needed) with g++ and bind ``lzma_lane.cuh``'s host entry:
+    the decoder's per-lane code run lane by lane on the CPU (a warp played
+    by one thread rank by rank), by build code
+    (``lzl_decode_segments_host``: the decoder, the variants that change
+    the code, the seven step-cost cases), one match copy
+    (``lzl_match_copy_host``) and the table's size
+    (``lzl_probs_bytes_host``). A test aid for checking the kernel's logic
+    against the plain version without a card: the main path never loads
+    it. Built into ``build/liblzl_host-<hash>.so``, the hash over the
+    header and the flags; one handle per process."""
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    with open(os.path.join(CSRC, "lzma_lane.cuh"), "rb") as f:
+        h.update(f.read())
+    path = os.path.join(BUILD_DIR, f"liblzl_host-{h.hexdigest()[:16]}.so")
+    if not os.path.exists(path):
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError("g++ not found: the host build of "
+                               "lzma_lane.cuh needs it")
+        _compile([gxx, *HOST_FLAGS], "lzma_lane.cuh", path)
+    lib = ctypes.CDLL(path)
+    ci, vp = ctypes.c_int, ctypes.c_void_p
+    lib.lzl_decode_segments_host.restype = ci
+    lib.lzl_decode_segments_host.argtypes = [vp] * 12 + [ci] * 8
+    lib.lzl_match_copy_host.restype = ci
+    lib.lzl_match_copy_host.argtypes = [vp] + [ci] * 7 + [vp]
+    lib.lzl_probs_bytes_host.restype = ci
+    lib.lzl_probs_bytes_host.argtypes = [ci]
     return lib
 
 

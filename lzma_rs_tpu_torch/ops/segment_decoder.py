@@ -19,7 +19,10 @@ is such a workaround and has no counterpart here.
 - :func:`decode_segments_reference` is the plain PyTorch version: every
   lane advances one micro-op per iteration (one range-coder bit, one
   copied byte or one chunk setup) under masks, the lockstep design of
-  ``lzma_rs_tpu/ops/lane_decoder.py``.
+  ``lzma_rs_tpu/ops/lane_decoder.py``. :func:`lockstep_reference` is the
+  same function with the kernel's step-cost option bits
+  (``csrc/lzma_lane.cuh``: :data:`SPIN`, :data:`NO_PROB_READ`, ...), the
+  plain version of ``ops/step_cost.py``'s builds.
 - :func:`from_jax_layout` / :func:`to_jax_layout` convert between the JAX
   kernel's ``[words, L]`` int32 layout and the port's lane-major tensors.
 
@@ -48,12 +51,23 @@ __all__ = [
     "default_max_steps",
     "from_jax_layout",
     "lanes_per_sm",
+    "lockstep_reference",
     "probs_bytes",
     "smem_bytes",
     "to_jax_layout",
 ]
 
 _U32 = 0xFFFFFFFF
+
+# The step-cost option bits of csrc/lzma_lane.cuh (kSpin, kNoProbRead, ...),
+# which the decoder's own build leaves clear.
+SPIN = 4            # restart the segment at its end or on an error until
+                    # the budget is spent; count the restarts
+NO_PROB_READ = 8    # a bit reads PROB_INIT in place of its probability
+NO_PROB_WRITE = 16  # a bit stores no updated probability
+NO_PORT = 32        # window reads (a copy's source, a match byte) give 0
+NO_WIN_WRITE = 64   # no byte is stored to the window
+NO_INPUT = 128      # the range coder's next input byte is 0, not loaded
 
 # Hopper's shared memory (sm_90, the CUDA C++ programming guide): a block
 # may take 227 KB (above 48 KB only as dynamic shared memory after the
@@ -206,6 +220,21 @@ def decode_segments_reference(
     masks. All lanes advance one micro-op per iteration; a handler whose
     node no lane occupies is skipped (its masked update would be a no-op).
     """
+    return lockstep_reference(
+        inbuf, win_init, in_start, in_end, out_start, out_end, chunk_meta,
+        config=config, max_steps=max_steps,
+    )[:4]
+
+
+def lockstep_reference(
+    inbuf, win_init, in_start, in_end, out_start, out_end, chunk_meta,
+    *, config: SegmentConfig, max_steps: int | None = None, opts: int = 0,
+):
+    """:func:`decode_segments_reference` with the kernel's step-cost option
+    bits ``opts`` (:data:`SPIN` and the ablations, as ``lzma_lane.cuh``
+    applies them). Returns ``(win, err, outp, steps, restarts)``;
+    ``restarts`` [L] i32 is zero unless :data:`SPIN` is set. With ``opts``
+    0 the first four are :func:`decode_segments_reference`'s."""
     if max_steps is None:
         max_steps = default_max_steps(config)
     tables = (in_start, in_end, out_start, out_end, chunk_meta)
@@ -233,7 +262,7 @@ def decode_segments_reference(
     (err, cod, inp, inend, outp, outend, state, rep0, rep1, rep2, rep3,
      acc, cnt, rev, tmp, length, dist, mbyte, lit_base, tree_base,
      tree_size, len_base, rep_flag, chunk_i, lc, lpmask, pbmask,
-     steps) = (zero,) * 28
+     steps, restarts) = (zero,) * 29
 
     def gather1(table, idx):
         return table.gather(1, idx[:, None])[:, 0]
@@ -284,11 +313,15 @@ def decode_segments_reference(
                 if present[n]:
                     pidx = where(node0 == n, idx(), pidx)
             pidx = pidx.clamp(0, P - 1)
-            p = gather1(probs, pidx)
+            p_mem = gather1(probs, pidx)
+            p = (torch.full_like(p_mem, C.PROB_INIT)
+                 if opts & NO_PROB_READ else p_mem)
             bound = (rng >> 11) * p
             pbit = cod >= bound
             new_p = where(pbit, p - (p >> 5), p + ((0x800 - p) >> 5))
-            probs.scatter_(1, pidx[:, None], where(is_prob, new_p, p)[:, None])
+            if not opts & NO_PROB_WRITE:
+                probs.scatter_(1, pidx[:, None],
+                               where(is_prob, new_p, p_mem)[:, None])
             rng_d = rng >> 1
             dbit = cod >= rng_d
             bit = where(is_prob, pbit, dbit).to(i64)
@@ -304,7 +337,8 @@ def decode_segments_reference(
             eof = need & (inp >= inend)
             fault = where(eof, C.ERR_EOF, fault)
             do = need & ~eof
-            byte = gather1(inbuf, inp.clamp(0, W_IN - 1)).to(i64)
+            byte = (zero if opts & NO_INPUT
+                    else gather1(inbuf, inp.clamp(0, W_IN - 1)).to(i64))
             rng = where(do, rng << 8, rng)
             cod = where(do, ((cod << 8) & _U32) | byte, cod)
             inp = inp + do
@@ -314,7 +348,8 @@ def decode_segments_reference(
         # (matched-literal byte for N_ISMATCH lanes, copy source for N_COPY)
         if has(C.N_ISMATCH, C.N_COPY):
             rpos = where(node0 == C.N_COPY, outp - dist, outp - 1 - rep0)
-            port = gather1(win, rpos.clamp(0, W - 1)).to(i64)
+            port = (zero if opts & NO_PORT
+                    else gather1(win, rpos.clamp(0, W - 1)).to(i64))
 
         done_lit = sc = no  # sc: lanes that start a match copy
         sc_len = zero
@@ -511,10 +546,11 @@ def decode_segments_reference(
             wval = where(m_w, port, wval)
             length = where(m_w, length - 1, length)
             sym_done = sym_done | (m_w & (length == 0))
-        win.scatter_(
-            1, where(wmask, outp, W)[:, None],
-            (wval & 0xFF).to(torch.uint8)[:, None],
-        )
+        if not opts & NO_WIN_WRITE:
+            win.scatter_(
+                1, where(wmask, outp, W)[:, None],
+                (wval & 0xFF).to(torch.uint8)[:, None],
+            )
         outp = outp + wmask
         node = where(
             sym_done, where(outp == outend, C.N_CHUNK, C.N_ISMATCH), node
@@ -561,14 +597,32 @@ def decode_segments_reference(
             chunk_i = chunk_i + go
             node = where(go, where(cos == coe, C.N_CHUNK, C.N_ISMATCH), node)
 
-        err = err | fault  # err is 0 on every lane that was still active
-        node = where(fault != 0, C.N_ERROR, node)
+        if opts & SPIN:
+            # a pass that ended (its chunks done, or an error) starts the
+            # segment again while the budget lasts; at the budget the lane
+            # ends with ERR_STEP_CAP whatever ended its last pass
+            ended = (fault != 0) | (node == C.N_DONE)
+            final = ended & (steps >= max_steps)
+            again = ended & ~final
+            err = where(final, C.ERR_STEP_CAP, err)
+            node = where(final, C.N_ERROR, where(again, C.N_CHUNK, node))
+            if bool(again.any()):
+                probs[again] = C.PROB_INIT
+                restarts = restarts + again
+                state, rep0, rep1, rep2, rep3, chunk_i = (
+                    where(again, 0, r)
+                    for r in (state, rep0, rep1, rep2, rep3, chunk_i))
+                outp = where(again, t_os[:, 0], outp)
+        else:
+            err = err | fault  # err is 0 on every lane that was still active
+            node = where(fault != 0, C.N_ERROR, node)
 
     return (
         win[:, :W].contiguous(),
         err.to(torch.int32),
         outp.to(torch.int32),
         steps.to(torch.int32),
+        restarts.to(torch.int32),
     )
 
 

@@ -686,11 +686,17 @@ class StagedLanes:
 def stage_plans(data: bytes, plans: List[DecodePlan]) -> StagedLanes:
     """Place the stored chunks and stage every lane of ``plans`` into one
     batch. Raises :class:`VmemIneligible` when a lane does not fit the
-    bucket rules."""
+    bucket rules, or when a chunk's input runs past the end of ``data``
+    (a corrupt packed size: staged, the lane would decode the zeros after
+    the stream's end; the host engine raises the reference's error)."""
     cfg = choose_config(plans)
     lanes = [lane for p in plans for lane in p.lanes]
     prefill = [f for p in plans for f in p.prefill]
     check_vmem_eligibility(lanes, cfg)
+    past = max((e for lane in lanes for e in lane.in_end), default=0)
+    if past > len(data):
+        raise VmemIneligible(f"chunk input ends {past - len(data)} B past "
+                             "the stream")
     # biggest first, so neighbouring lanes (one warp) carry similar work
     lanes.sort(key=_packed, reverse=True)
 

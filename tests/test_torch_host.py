@@ -62,6 +62,8 @@ COPIES = {
         ("", ("stream", "streams2", "raw")),
     ) for mod in mods},
     "native/lzma_native.cpp": [],
+    # the comment naming the reference's fuzz targets
+    "native/cov_runtime.cpp": [("replace", 9, 11)],
     # the usage example names the port
     "utils/stats.py": [("replace", 13, 13)],
     # the usage lines and prog= name the port, which is imported under the
@@ -79,12 +81,12 @@ COPIES = {
         ("replace", 215, 245), ("insert", 247, 246), ("delete", 248, 254),
         ("replace", 258, 271),
     ],
-    # the library's name and build location; the instrumented (fuzzing)
-    # build at the end serves only the JAX package's fuzz tests
+    # the library's name and build location, the instrumented (fuzzing)
+    # build's too (line 425, and its build directory made at 479)
     "native/loader.py": [
         ("replace", 1, 1), ("insert", 11, 10), ("delete", 17, 17),
         ("insert", 19, 18), ("insert", 375, 374), ("insert", 379, 378),
-        ("replace", 417, 417), ("delete", 422, 520),
+        ("replace", 417, 417), ("replace", 425, 425), ("insert", 479, 478),
     ],
 }
 

@@ -2,8 +2,9 @@
 PyTorch version.
 
 ``csrc/lzma_lane.cuh`` holds the kernel's per-lane decoder; g++ compiles it
-(``-x c++ -DLZL_HOST_ENTRY``) into a small library, loaded with ctypes, that
-runs the same decoder lane by lane on the CPU: the decoder's build (a warp
+(``-x c++ -DLZL_HOST_ENTRY``, ``ops/build.py::load_host``) into a small
+library, loaded with ctypes, that runs the same decoder lane by lane on the
+CPU: the decoder's build (a warp
 a lane, played by one thread rank by rank: the refill and the match copies
 with the card's index arithmetic) and the builds of the variants V0 (also
 S3's), V4 and V5 (``ops/segment_variants.py``). Each must match
@@ -24,15 +25,14 @@ them.
 import ctypes
 import functools
 import lzma as liblzma
-import os
 import shutil
-import subprocess
 
 import numpy as np
 import pytest
 import torch
 
 from lzma_rs_tpu_torch.encode import lzma2_enc
+from lzma_rs_tpu_torch.ops import build
 from lzma_rs_tpu_torch.ops import segment_decoder as sd
 from lzma_rs_tpu_torch.ops import segment_variants as sv
 from lzma_rs_tpu_torch.ops.lzma_consts import (
@@ -43,10 +43,6 @@ from lzma_rs_tpu_torch.ops.lzma_consts import (
 from lzma_rs_tpu_torch.parallel import runtime
 
 CFG = SegmentConfig(L=8, W=4096, W_IN=4096, NLIT=8, K=4, NPS=16)
-HEADER = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "lzma_rs_tpu_torch", "csrc", "lzma_lane.cuh",
-)
 
 
 def text(n: int, seed: int) -> bytes:
@@ -218,25 +214,10 @@ def port_inputs(name, device=None):
 
 
 @pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
+def host_lib():
+    if shutil.which("g++") is None:
         pytest.skip("needs g++")
-    so = str(tmp_path_factory.mktemp("lzl") / "liblzl_host.so")
-    subprocess.run(
-        [gxx, "-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC",
-         "-Wall", "-Werror", "-DLZL_HOST_ENTRY", HEADER, "-o", so],
-        check=True, capture_output=True, timeout=120,
-    )
-    lib = ctypes.CDLL(so)
-    ci, vp = ctypes.c_int, ctypes.c_void_p
-    lib.lzl_decode_segments_host.restype = ci
-    lib.lzl_decode_segments_host.argtypes = [vp] * 11 + [ci] * 8
-    lib.lzl_match_copy_host.restype = ci
-    lib.lzl_match_copy_host.argtypes = [vp] + [ci] * 7 + [vp]
-    lib.lzl_probs_bytes_host.restype = ci
-    lib.lzl_probs_bytes_host.argtypes = [ci]
-    return lib
+    return build.load_host()
 
 
 # The host build's decoder builds (lzl_decode_segments_host's code): the
@@ -258,7 +239,7 @@ def host_decode(lib, cfg, inbuf, win_init, *tables, max_steps=None,
     rc = lib.lzl_decode_segments_host(
         inbuf.data_ptr(), win.data_ptr(), probs.data_ptr(),
         *(t.data_ptr() for t in tables),
-        err.data_ptr(), outp.data_ptr(), steps.data_ptr(),
+        err.data_ptr(), outp.data_ptr(), steps.data_ptr(), None,
         cfg.L, cfg.W_IN, cfg.W, nprobs, cfg.NLIT, cfg.K, max_steps, code,
     )
     assert rc == 0

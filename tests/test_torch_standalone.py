@@ -101,7 +101,12 @@ def test_no_source_of_the_port_imports_the_jax_package():
             "lzma_rs_tpu_torch/parallel/multihost.py",
             "lzma_rs_tpu_torch/tools/multihost_demo.py",
             "lzma_rs_tpu_torch/tools/scaling.py",
-            "lzma_rs_tpu_torch/tools/check_docs.py"} <= rel
+            "lzma_rs_tpu_torch/tools/check_docs.py",
+            "lzma_rs_tpu_torch/ops/step_cost.py",
+            "lzma_rs_tpu_torch/tools/probe_step_cost.py",
+            "lzma_rs_tpu_torch/tools/probe_step_cost2.py",
+            "lzma_rs_tpu_torch/tools/mutate.py",
+            "lzma_rs_tpu_torch/tools/coverage_report.py"} <= rel
     bad = {os.path.relpath(f, REPO): hits for f in files
            if (hits := imports_of_the_jax_package(f))}
     assert bad == {}
@@ -169,7 +174,12 @@ def test_a_fresh_interpreter_loads_only_the_port():
             "lzma_rs_tpu_torch.parallel.multihost",
             "lzma_rs_tpu_torch.tools.multihost_demo",
             "lzma_rs_tpu_torch.tools.scaling",
-            "lzma_rs_tpu_torch.tools.check_docs"} <= set(loaded)
+            "lzma_rs_tpu_torch.tools.check_docs",
+            "lzma_rs_tpu_torch.ops.step_cost",
+            "lzma_rs_tpu_torch.tools.probe_step_cost",
+            "lzma_rs_tpu_torch.tools.probe_step_cost2",
+            "lzma_rs_tpu_torch.tools.mutate",
+            "lzma_rs_tpu_torch.tools.coverage_report"} <= set(loaded)
     assert [m for m in loaded if m != "lzma_rs_tpu_torch"
             and not m.startswith("lzma_rs_tpu_torch.")] == []
 
