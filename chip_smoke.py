@@ -7,9 +7,9 @@ toolkit (nvcc) and g++:
     python3 chip_smoke.py
 
 It imports only ``lzma_rs_tpu_torch`` (no JAX, nothing of ``lzma_rs_tpu``),
-builds the segment-decoder kernel, its variants, its step-cost builds and
-the probe kernels from ``lzma_rs_tpu_torch/csrc`` and the port's native
-host library into
+builds the segment-decoder kernel, its variants, its step-cost builds,
+the probe kernels and the lane engine from ``lzma_rs_tpu_torch/csrc`` and
+the port's native host library into
 ``lzma_rs_tpu_torch/build/``, then runs:
 
 1. device: the card's name and power limit (``nvidia-smi``);
@@ -170,9 +170,23 @@ host library into
     ``decode_segments`` launch, equal to the g++ host build of
     ``lzma_lane.cuh`` (win, err, outp, steps), to the native engine's
     per-lane verdict and clean bytes, and, on the 8 that stop soonest, to
-    the plain version.
+    the plain version;
+21. the lane engine (``engine="cuda-lane"``: ``ops/lane_decoder.py`` over
+    ``csrc/decode_lanes.cu``): the kernel against its plain version (run
+    on a host copy of the same inputs) bit for bit on 8 far lanes of
+    ~110 KiB (past 64 KiB of output and a match more than 65,536 B back:
+    with a 64 KiB dictionary each stops with ERR_DIST_DICT) and on 8 of
+    (c)'s lanes at a budget of 12,000 steps; then ``runtime.xz_decode``
+    with ``engine="cuda-lane"`` on (c) in 1 MiB blocks (16 lanes), the
+    corpus in 4 MiB blocks (4 lanes), one block (stdlib ``lzma.compress``
+    at preset 6, an 8 MiB dictionary, one lane), (a) and (b): bytes equal
+    to the corpus, engine ``cuda-lane``, no fallbacks, one launch each;
+    each one's kernel time (CUDA events), cycles a step over its longest
+    lane, bound, and end to end best of 3 beside ``native`` (and
+    ``cuda`` on (a) and (b)); a corrupt (c): the native engine's error
+    and a host replay recorded.
 
-The nine kernel libraries build in parallel (one nvcc per library, with
+The ten kernel libraries build in parallel (one nvcc per library, with
 the native host library's g++) in phase 2.
 
 Every phase checks its result; any failure exits nonzero before the result
@@ -1204,6 +1218,232 @@ def mutants_phase(torch, dev, corpus: bytes, runtime, stats, decode,
         f"lanes by error code {codes}; 0 divergences")
 
 
+# Phase 21: (c)'s lanes against the plain version at this budget, and the
+# lanes of the far batch whole (the plain version runs every step on the
+# host: ~10-20 s each at about a millisecond an iteration of 8 lanes).
+LANE_CUT_BUDGET = 12_000
+LANE_CUT_LANES = 8
+
+
+def far_lanes(corpus: bytes, runtime, n: int = LANE_CUT_LANES):
+    """``n`` LZMA2 streams of ~110 KiB, one lane each: 2 KiB of the corpus,
+    66 KiB of a repeated line, the 2 KiB again (matches more than 65,536 B
+    back), 36 KiB of another line and the 2 KiB with every 97th byte
+    changed, so that a lane passes 64 KiB of output and a distance above
+    65,536 at a cost the plain version can pay. Returns (archive bytes,
+    plans, payloads)."""
+    from lzma_rs_tpu_torch.tools import corpus as corpus_mod
+
+    blob, plans, payloads, out0 = bytearray(), [], [], 0
+    for i in range(n):
+        a = (i * 1_234_567) % (len(corpus) - 2048)
+        t = corpus[a:a + 2048]
+        line1 = b"%02d 0123456789abcdefghijklmnopqrstuvwxyz\n" % i
+        line2 = b"-=+*/ lane %02d THE QUICK BROWN FOX\n" % i
+        tail = bytearray(t)
+        for k in range(0, len(tail), 97):
+            tail[k] = 33 + k % 90
+        payload = (t + (line1 * 2000)[:66_000] + t
+                   + (line2 * 1200)[:36_000] + bytes(tail))
+        stream = corpus_mod.raw_lzma2(payload)
+        plan, _ = runtime.plan_lzma2_stream(bytes(blob) + stream, len(blob),
+                                            out0)
+        check(len(plan.lanes) == 1, f"phase 21: far lane {i} is "
+              f"{len(plan.lanes)} lanes")
+        blob += stream
+        plans.append(plan)
+        payloads.append(payload)
+        out0 += plan.total_out
+    return bytes(blob), plans, payloads
+
+
+def replanned(x: bytes, runtime, picks) -> tuple:
+    """The ``.xz`` blocks ``picks`` of ``x`` planned as one batch, each
+    block's output right after the previous one's. Returns (plans, the
+    blocks' output offsets in ``x``'s output)."""
+    from lzma_rs_tpu_torch.parallel import multihost
+
+    _, spans, _ = multihost.scan_blocks(x)
+    plans, bases, out0 = [], [], 0
+    for i in picks:
+        plan, _ = runtime.plan_lzma2_stream(x, spans[i].payload_start, out0)
+        plans.append(plan)
+        bases.append(spans[i].out_base)
+        out0 += plan.total_out
+    return plans, bases
+
+
+def lane_bound(lt, steps, peaks) -> tuple:
+    """As :func:`bound`, for one ``decode_lanes`` call on ``lt``
+    (``runtime.lane_tables``): each chunk's compressed bytes read once,
+    the chunk tables and the per-lane words read once, the output written
+    once, three result words a lane; OPS_PER_STEP integer operations for
+    every step this run's lanes took."""
+    import numpy as np
+
+    ins, ine = lt.tables[0], lt.tables[1]
+    valid = (np.arange(ins.shape[1])[None, :]
+             < lt.per_lane[0][:, None])
+    packed = int(((ine - ins) * valid).sum())
+    L, K = ins.shape
+    nbytes = packed + len(lt.out) + L * K * 4 * 8 + L * (3 * 4 + 8) + L * 12
+    ops = OPS_PER_STEP * int(steps.long().sum())
+    t_bytes = nbytes / peaks.bytes_per_s
+    t_ops = ops / peaks.int32_ops_per_s
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations",
+            t_bytes * 1e3, t_ops * 1e3)
+
+
+def lane_phase(torch, dev, corpus: bytes, archives: dict, peaks, runtime,
+               stats) -> dict:
+    """Phase 21: the lane engine (``engine="cuda-lane"``): the kernel
+    against its plain version bit for bit on two cut batches, full decodes
+    of five archives through ``runtime.xz_decode``, their times beside
+    ``native``'s (and ``cuda``'s on (a) and (b)), and a corrupt archive.
+    Returns the kernel line's entry."""
+    import lzma
+
+    from lzma_rs_tpu_torch.ops import lane_decoder as ld
+    from lzma_rs_tpu_torch.tools import corpus as corpus_mod
+
+    # -- the kernel against its plain version (run on the host's copy)
+    def against_plain(lt, what, max_steps=None):
+        inputs = lt.tensors(dev)
+        got = ld.decode_lanes(*inputs, max_steps=max_steps)
+        torch.cuda.synchronize()
+        got = [g.cpu() for g in got]
+        t = time.perf_counter()
+        want = ld.decode_lanes_reference(
+            *lt.tensors("cpu"), max_steps=max_steps)
+        plain_s = time.perf_counter() - t
+        return got, want, plain_s, held_equal(got, want, f"phase 21 ({what})")
+
+    blob, plans, payloads = far_lanes(corpus, runtime)
+    lt = runtime.lane_tables(blob, plans)
+    got, want, far_plain_s, worst = against_plain(lt, "far lanes")
+    out_h, err_h, outp_h, steps_h = got
+    check(err_h.tolist() == [0] * len(plans) and out_h.numpy().tobytes()
+          == b"".join(payloads), "phase 21: the far lanes decoded wrong")
+    lt.dict_size[:] = 65536  # a 64 KiB dictionary: a farther match errs
+    inputs = lt.tensors(dev)
+    d64 = [t.cpu() for t in ld.decode_lanes(*inputs)]
+    stops = [int(o) - lane.seg_base for o, lane in zip(d64[2], lt.lanes)]
+    check(d64[1].tolist() == [ld.ERR_DIST_DICT] * len(plans)
+          and min(stops) > 65536,
+          f"phase 21: far lanes with a 64 KiB dictionary: err "
+          f"{d64[1].tolist()}")
+    say("21 lanes", f"{len(plans)} far lanes ({len(payloads[0])} B each): "
+        f"kernel == plain version bit for bit (out, err, outp, steps), == "
+        f"the payloads; {int(steps_h.max())} steps the longest; plain "
+        f"{far_plain_s:.1f} s; with dict_size 65,536 every lane stops with "
+        f"ERR_DIST_DICT past {min(stops)} B of output (a match more than "
+        "65,536 B back)")
+
+    xc = corpus_mod.stock_archive(corpus, 1 << 20)
+    picks = list(range(0, 2 * LANE_CUT_LANES, 2))
+    cplans, bases = replanned(xc, runtime, picks)
+    lt_c = runtime.lane_tables(xc, cplans)
+    got, want, cut_plain_s, w2 = against_plain(
+        lt_c, "(c) lanes at the budget", max_steps=LANE_CUT_BUDGET)
+    worst = max(worst, w2)
+    check(got[1].tolist() == [ld.ERR_STEP_CAP] * len(picks)
+          and got[3].tolist() == [LANE_CUT_BUDGET] * len(picks),
+          f"phase 21: (c)'s cut lanes err {got[1].tolist()}")
+    for lane, o, base in zip(lt_c.lanes, got[2], bases):
+        n = int(o) - lane.seg_base
+        check(got[0].numpy()[lane.seg_base:lane.seg_base + n].tobytes()
+              == corpus[base:base + n], "phase 21: a cut lane of (c) "
+              "decoded wrong bytes")
+    say("21 lanes", f"{len(picks)} lanes of (c) (blocks {picks}) at a "
+        f"budget of {LANE_CUT_BUDGET} steps: kernel == plain version bit "
+        f"for bit, every lane at its budget (ERR_STEP_CAP), bytes == the "
+        f"corpus up to outp; plain {cut_plain_s:.1f} s")
+
+    # -- full decodes through the runtime: the main path of the engine
+    t = time.perf_counter()
+    full = {"(c) 1 MiB blocks": xc,
+            "4 MiB blocks": corpus_mod.stock_archive(corpus, 4 << 20),
+            "one block": lzma.compress(corpus, preset=6),
+            "(a)": archives["a"], "(b)": archives["b"]}
+    say("21 archives", f"encoded in {time.perf_counter() - t:.1f} s: "
+        + ", ".join(f"{k} {len(x)} B" for k, x in full.items()))
+    ld.decode_lanes.launches = 0  # count the main path's launches only
+    for key, x in full.items():
+        with stats.collect() as st:
+            out = runtime.xz_decode(x, engine="cuda-lane")
+        check(out == corpus, f"phase 21 ({key}): output differs from corpus")
+        check(st.engine == "cuda-lane" and st.fallbacks == [],
+              f"phase 21 ({key}): engine {st.engine!r}, fallbacks "
+              f"{st.fallbacks}")
+    launches = ld.decode_lanes.launches
+    check(launches == len(full), f"phase 21: {launches} launches for "
+          f"{len(full)} decodes")
+    say("21 main", f"{len(full)} archives through xz_decode(engine="
+        f"'cuda-lane'): bytes == corpus, no fallbacks, {launches} launches;"
+        f" {ld.lanes_occupancy()} lanes an SM (occupancy query), "
+        f"{ld.smem_bytes()} B of shared memory a lane")
+    entry = {}
+    for key, x in full.items():
+        plans_x = runtime.plan_xz(x)[0]
+        lt_x = runtime.lane_tables(x, plans_x)
+        inputs = lt_x.tensors(dev)
+        steps_x = ld.decode_lanes(*inputs)[3]
+        reps = 1 if len(lt_x.lanes) < 4 else 3
+        k_ms = cuda_ms(torch, lambda: ld.decode_lanes(*inputs), reps)
+        longest = int(steps_x.max())
+        b_x = lane_bound(lt_x, steps_x, peaks)
+        secs = best_seconds(lambda: runtime.xz_decode(x, engine="cuda-lane"))
+        n_s = best_seconds(lambda: runtime.xz_decode(x, engine="native"))
+        cuda = ""
+        if key in ("(a)", "(b)"):
+            c_s = best_seconds(lambda: runtime.xz_decode(x, engine="cuda"))
+            cuda = (f"; cuda {len(corpus) / 1e6 / c_s:.2f} MB/s "
+                    f"({c_s * 1e3:.1f} ms)")
+        cyc = cycles_per_step(k_ms, longest, peaks)
+        say(f"21 main {key}", f"{len(lt_x.lanes)} lanes, "
+            f"K={lt_x.tables.shape[2]}; kernel {k_ms:.2f} ms = {cyc:.1f} cycles a step over the longest"
+            f" lane's {longest} steps ({int(steps_x.long().sum())} in all), "
+            f"{bound_text(b_x)}; end to end {len(corpus) / 1e6 / secs:.2f} "
+            f"MB/s ({secs * 1e3:.1f} ms, best of 3) against native "
+            f"{len(corpus) / 1e6 / n_s:.2f} MB/s ({n_s * 1e3:.1f} ms){cuda}")
+        if key == "(c) 1 MiB blocks":
+            entry = {"ms": k_ms, "bound_ms": b_x[0], "bound_by": b_x[1],
+                     "cycles_per_step": cyc, "longest_lane_steps": longest}
+        del inputs, steps_x
+        torch.cuda.empty_cache()
+
+    # -- a corrupt archive: the host engine's error, replayed
+    plans_c = runtime.plan_xz(xc)[0]
+    lane = plans_c[5].lanes[0]
+    bad = bytearray(xc)
+    bad[(lane.in_start[0] + lane.in_end[0]) // 2] ^= 0x5A
+    errors = {}
+    for engine in ("cuda-lane", "native"):
+        with stats.collect() as st:
+            try:
+                runtime.xz_decode(bytes(bad), engine=engine)
+            except Exception as e:  # the error itself is what is compared
+                errors[engine] = (type(e), str(e), st.fallbacks)
+    check(set(errors) == {"cuda-lane", "native"}, "phase 21: the corrupt "
+          f"archive decoded without an error on "
+          f"{set(errors) ^ {'cuda-lane', 'native'}}")
+    check(errors["cuda-lane"][:2] == errors["native"][:2],
+          f"phase 21: cuda-lane {errors['cuda-lane'][:2]} != native "
+          f"{errors['native'][:2]}")
+    fb = errors["cuda-lane"][2]
+    check(len(fb) == 1 and fb[0].startswith("host replay: lane error code"),
+          f"phase 21: corrupt archive fallbacks {fb}")
+    say("21 corrupt", f"{errors['native'][0].__name__}: "
+        f"{errors['native'][1]!r} on both engines; cuda-lane fallbacks {fb}")
+    return {"name": "decode_lanes", "route": "cuda",
+            "source": "lzma_rs_tpu_torch/csrc/decode_lanes.cu",
+            "replaces": "lzma_rs_tpu/ops/lane_decoder.py:105",
+            "launches": launches, "max_abs_err": worst, **entry,
+            "plain_ms": far_plain_s * 1e3, "plain_lanes": len(plans),
+            "library_ms": None}
+
+
 def phase3_lanes(corpus: bytes, runtime):
     """Streams for the kernel-against-plain check, planned into one blob.
     Returns (blob, plans, expected output, corrupted seg_bases,
@@ -1712,6 +1952,10 @@ def main() -> None:
     # -- 20. mutants on the card ---------------------------------------
     mutants_phase(torch, dev, corpus, runtime, stats, decode, sd)
 
+    # -- 21. the lane engine --------------------------------------------
+    lane_entry = lane_phase(torch, dev, corpus, archives, peaks, runtime,
+                            stats)
+
     check("jax" not in sys.modules, "jax was imported")
     jax_pkg = sorted(m for m in sys.modules
                      if m == "lzma_rs_tpu" or m.startswith("lzma_rs_tpu."))
@@ -1733,6 +1977,7 @@ def main() -> None:
          "plain_ms": gen1_plain_s * 1e3, "plain_lanes": cfg_c.L,
          "bound_ms": b1[0], "bound_by": b1[1]},
         *probe_entries,
+        lane_entry,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

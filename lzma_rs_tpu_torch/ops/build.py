@@ -4,7 +4,7 @@
 PyTorch headers: seconds, not minutes) into
 ``lzma_rs_tpu_torch/build/liblzl_<name>-<hash>.so``, where the hash covers
 that library's own sources and the flags, so an edited source rebuilds its
-library alone and an unchanged one loads at once. Nine libraries:
+library alone and an unchanged one loads at once. Ten libraries:
 
 - ``segdec``: the segment decoder (``decode_segments.cu`` +
   ``segment_kernel.cuh`` + ``lzma_lane.cuh``), :func:`load`;
@@ -24,11 +24,14 @@ library alone and an unchanged one loads at once. Nine libraries:
 - ``bisect``: the bisect probe kernel (``probes_bisect.cu`` +
   ``probe_bisect.cuh`` + ``probe_lane.cuh``), :func:`load_bisect`;
 - ``stepcost``: the decoder's step-cost builds (``step_cost.cu`` over
-  ``segment_kernel.cuh`` + ``lzma_lane.cuh``), :func:`load_step_cost`.
+  ``segment_kernel.cuh`` + ``lzma_lane.cuh``), :func:`load_step_cost`;
+- ``lanedec``: the lane engine (``decode_lanes.cu`` + ``lane_engine.cuh`` +
+  ``lzma_lane.cuh``), :func:`load_lanes`.
 
-Each is bound with ``ctypes``. :func:`load_host` builds the decoder's
-per-lane code (``lzma_lane.cuh``) for the host with g++ instead, a test aid
-that runs the kernel's logic without a card. Nothing here runs at import
+Each is bound with ``ctypes``. :func:`load_host` builds the per-lane code
+of the decoder and of the lane engine (``lane_engine.cuh``, which includes
+``lzma_lane.cuh``) for the host with g++ instead, a test aid that runs the
+kernels' logic without a card. Nothing here runs at import
 time; every failure raises, except in :func:`unavailable`, which the
 ``auto`` router asks before it picks the card.
 """
@@ -78,8 +81,10 @@ BISECT = Library("bisect", ("probes_bisect.cu", "probe_bisect.cuh",
                             "probe_lane.cuh"))
 STEPCOST = Library("stepcost", ("step_cost.cu", "segment_kernel.cuh",
                                 "lzma_lane.cuh"))
+LANEDEC = Library("lanedec", ("decode_lanes.cu", "lane_engine.cuh",
+                              "lzma_lane.cuh"))
 LIBRARIES = (SEGDEC, SEGVAR, PROBES, MOSAIC, MOSAIC3, MOSAIC4, ROUND4, BISECT,
-             STEPCOST)
+             STEPCOST, LANEDEC)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,32 +192,50 @@ def load_step_cost() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=1)
+def load_lanes() -> ctypes.CDLL:
+    """Build (if needed) and bind the lane engine; one handle per
+    process."""
+    lib = ctypes.CDLL(build_library(LANEDEC).path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.lzl_decode_lanes.restype = ci
+    lib.lzl_decode_lanes.argtypes = [vp] * 18 + [ci] * 6 + [vp]
+    lib.lzl_lanes_smem_bytes.restype = ci
+    lib.lzl_lanes_smem_bytes.argtypes = []
+    lib.lzl_lanes_occupancy.restype = ci
+    lib.lzl_lanes_occupancy.argtypes = [ci, vp]
+    lib.lzl_lanes_error_string.restype = ctypes.c_char_p
+    lib.lzl_lanes_error_string.argtypes = [ci]
+    return lib
+
+
 HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC", "-Wall",
               "-Werror", "-DLZL_HOST_ENTRY")
 
 
 @functools.lru_cache(maxsize=1)
 def load_host() -> ctypes.CDLL:
-    """Build (if needed) with g++ and bind ``lzma_lane.cuh``'s host entry:
-    the decoder's per-lane code run lane by lane on the CPU (a warp played
-    by one thread rank by rank), by build code
-    (``lzl_decode_segments_host``: the decoder, the variants that change
-    the code, the seven step-cost cases), one match copy
-    (``lzl_match_copy_host``) and the table's size
-    (``lzl_probs_bytes_host``). A test aid for checking the kernel's logic
-    against the plain version without a card: the main path never loads
-    it. Built into ``build/liblzl_host-<hash>.so``, the hash over the
-    header and the flags; one handle per process."""
+    """Build (if needed) with g++ and bind the host entries of
+    ``lzma_lane.cuh`` and ``lane_engine.cuh``: the per-lane code run lane
+    by lane on the CPU (a warp played by one thread rank by rank), by build
+    code (``lzl_decode_segments_host``: the decoder, the variants that
+    change the code, the seven step-cost cases), one match copy
+    (``lzl_match_copy_host``), the table's size (``lzl_probs_bytes_host``)
+    and the lane engine (``lzl_decode_lanes_host``). A test aid for
+    checking the kernels' logic against the plain versions without a card:
+    the main path never loads it. Built into ``build/liblzl_host-<hash>.so``,
+    the hash over both headers and the flags; one handle per process."""
     h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
-    with open(os.path.join(CSRC, "lzma_lane.cuh"), "rb") as f:
-        h.update(f.read())
+    for name in ("lane_engine.cuh", "lzma_lane.cuh"):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
     path = os.path.join(BUILD_DIR, f"liblzl_host-{h.hexdigest()[:16]}.so")
     if not os.path.exists(path):
         gxx = shutil.which("g++")
         if gxx is None:
             raise RuntimeError("g++ not found: the host build of "
-                               "lzma_lane.cuh needs it")
-        _compile([gxx, *HOST_FLAGS], "lzma_lane.cuh", path)
+                               "lane_engine.cuh needs it")
+        _compile([gxx, *HOST_FLAGS], "lane_engine.cuh", path)
     lib = ctypes.CDLL(path)
     ci, vp = ctypes.c_int, ctypes.c_void_p
     lib.lzl_decode_segments_host.restype = ci
@@ -221,6 +244,8 @@ def load_host() -> ctypes.CDLL:
     lib.lzl_match_copy_host.argtypes = [vp] + [ci] * 7 + [vp]
     lib.lzl_probs_bytes_host.restype = ci
     lib.lzl_probs_bytes_host.argtypes = [ci]
+    lib.lzl_decode_lanes_host.restype = ci
+    lib.lzl_decode_lanes_host.argtypes = [vp] * 18 + [ci] * 5
     return lib
 
 

@@ -11,8 +11,9 @@ check, and the index records each block's sizes), so
    absolute output offsets, with no communication;
 2. blocks are assigned greedily by packed size (static, deterministic);
 3. each process decodes its blocks in waves: a wave's blocks in one launch
-   of the segment kernel on the process's own card (``engine="cuda"``), or
-   on the native host engine;
+   of the segment kernel on the process's own card (``engine="cuda"``) or
+   of the lane engine (``engine="cuda-lane"``), or on the native host
+   engine;
 4. each wave's output is exchanged with one ``all_gather``, issued
    asynchronously, so that wave w's gather overlaps wave w+1's decode, and
    stitched by the precomputed offsets; every process then verifies the
@@ -184,14 +185,21 @@ def xz_decode_multihost(
     identical ``data``, and every process returns the whole output.
 
     ``engine`` is the runtime's: ``cuda`` (the segment kernel on
-    ``device``, else on the current card; raises without one), ``native``
-    or ``auto`` (routed once a wave, the unit a launch decodes). A wave's
-    blocks go to one :func:`runtime.execute_plan_device` call, held to the
-    rank's own device; a wave the kernel cannot take (ineligible, or a lane
-    error) decodes on the native engine, which raises the reference's error
-    for a corrupt block. ``wave_bytes`` (default :data:`WAVE_BYTES`) is the
-    decoded bytes a process aims at a wave. Without a group (or with one
-    process) this is ``runtime.xz_decode(data, engine, device)``.
+    ``device``, else on the current card; raises without one),
+    ``cuda-lane`` (the lane engine, by the same rule), ``native`` or
+    ``auto`` (routed once a wave, the unit a launch decodes; never to
+    ``cuda-lane``). A wave's blocks go to one
+    :func:`runtime.execute_plan_device` call, held to the rank's own
+    device; a wave the kernel cannot take (ineligible, or a lane error)
+    decodes on the native engine, which raises the reference's error for a
+    corrupt block. Under ``cuda-lane`` a wave is one
+    :func:`runtime.execute_plan` launch, and a lane error raises
+    ``runtime._KernelError`` on the rank that owns the block, as the JAX
+    package's ``tpu-lane`` wave does (``lzma_rs_tpu/parallel/
+    multihost.py:236-239``, no ``try``). ``wave_bytes`` (default
+    :data:`WAVE_BYTES`) is the decoded bytes a process aims at a wave.
+    Without a group (or with one process) this is
+    ``runtime.xz_decode(data, engine, device)``.
 
     A corrupt payload makes the rank that owns its block raise before its
     gather; the other ranks then wait in the collective until the group's
@@ -208,6 +216,8 @@ def xz_decode_multihost(
     rt._check_engine(engine)
     if engine == "cuda":
         device = rt.cuda_device(device)
+    elif engine == "cuda-lane":
+        device = rt.lane_device(device)
     data = bytes(data)
     n_hosts, host = 1, 0
     if dist.is_available() and dist.is_initialized():
@@ -255,6 +265,8 @@ def xz_decode_multihost(
                     data, plans, rt.cuda_device(device), max_devices=1)
             except (rt.VmemIneligible, rt._KernelError):
                 out = rt.execute_plan_native(data, plans, threads=threads)
+        elif eng == "cuda-lane":
+            out = rt.execute_plan(data, plans, device)
         else:
             out = rt.execute_plan_native(data, plans, threads=threads)
         local[:off] = np.frombuffer(out, dtype=np.uint8)

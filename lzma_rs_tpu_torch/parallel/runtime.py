@@ -16,8 +16,16 @@ Two halves:
   lanes a slab where set) and runs ``ops/segment_decoder.decode_segments``
   on each slab.
 
+- The lane engine, ``cuda-lane``: :func:`execute_plan` runs every lane of
+  the plans in one launch of ``ops/lane_decoder.decode_lanes``, each
+  lane decoding in place in the flat output, so it has no bucket and no
+  eligibility gate (the port of the JAX package's ``execute_plan`` and
+  its ``tpu-lane`` engine).
+
 Engines: ``cuda`` (the kernel on ``device``, by default the current CUDA
 device; it raises when there is none or the kernel does not build),
+``cuda-lane`` (the lane engine on ``device``, by the same rule; only when
+named: ``auto`` never picks it and ``cuda`` never falls back to it),
 ``native`` (the host thread pool) and ``auto`` (``cuda`` when the workload
 is large enough, the plans pass the eligibility gate, a CUDA device is
 present, the kernel builds and the cost model, calibrated on the card,
@@ -41,6 +49,7 @@ import torch
 from lzma_rs_tpu_torch.formats import lzma2 as lzma2_fmt
 from lzma_rs_tpu_torch.formats import xz as xz_fmt
 from lzma_rs_tpu_torch.ops import build
+from lzma_rs_tpu_torch.ops import lane_decoder as ld
 from lzma_rs_tpu_torch.ops import segment_decoder as sd
 from lzma_rs_tpu_torch.ops.lzma_consts import SegmentConfig, pack_chunk_meta
 from lzma_rs_tpu_torch.parallel import mesh
@@ -570,7 +579,7 @@ def _bounded_error_replay(
 
 # -- the device half ---------------------------------------------------------
 
-ENGINES = ("auto", "cuda", "native")
+ENGINES = ("auto", "cuda", "cuda-lane", "native")
 
 
 def cuda_device(device=None) -> torch.device:
@@ -585,6 +594,18 @@ def cuda_device(device=None) -> torch.device:
             "is False"
         )
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def lane_device(device=None) -> torch.device:
+    """The device of the ``cuda-lane`` engine, by :func:`cuda_device`'s
+    rule: ``device`` when given, else the current CUDA device, and a raise
+    when there is none."""
+    if device is None and not torch.cuda.is_available():
+        raise RuntimeError(
+            "engine 'cuda-lane' needs a CUDA device; "
+            "torch.cuda.is_available() is False"
+        )
+    return cuda_device(device)
 
 
 def _packed(lane: LanePlan) -> int:
@@ -935,6 +956,110 @@ def execute_plan_device(
     return place_results(staged, launches)
 
 
+@dataclasses.dataclass
+class LaneTables:
+    """Every lane of a set of plans in ``decode_lanes``' layout (numpy), in
+    plan order: the archive padded with zeros to a power of two, as JAX
+    pads it (so that a corrupt chunk size that runs past the archive
+    decodes the same zeros and flags the same code), the output with the
+    stored chunks placed, the eight ``[L, K]`` chunk tables (K the
+    largest chunk count), ``nchunks``, ``seg_base``, ``size_known`` and
+    ``dict_size``."""
+
+    lanes: List[LanePlan]
+    inbuf: np.ndarray
+    out: np.ndarray
+    tables: np.ndarray  # [8, L, K] i32
+    per_lane: np.ndarray  # [3, L] i32: nchunks, seg_base, size_known
+    dict_size: np.ndarray  # [L] i64
+
+    def tensors(self, device) -> list:
+        """The fourteen ``decode_lanes`` inputs on ``device``; the output's
+        is a copy of ``out`` there, so ``out`` stays as placed."""
+        device = torch.device(device)
+        out = self.out.copy() if device.type == "cpu" else self.out
+        return [torch.from_numpy(a).to(device) for a in (
+            self.inbuf, out, *self.tables, *self.per_lane,
+            self.dict_size)]
+
+
+def lane_tables(data: bytes, plans: List[DecodePlan]) -> LaneTables:
+    """The host stage of :func:`execute_plan`: the stored chunks placed
+    and the lanes' tables built. Raises ValueError for an archive or an
+    output of 2^31 bytes or more: the lane engine's offsets are int32."""
+    total = sum(p.total_out for p in plans)
+    if max(total, len(data)) >= 2**31:
+        raise ValueError(f"{len(data)} B in, {total} B out: the lane "
+                         "engine's offsets are int32 (< 2^31)")
+    lanes = [lane for p in plans for lane in p.lanes]
+    out = np.zeros(total, dtype=np.uint8)
+    src = np.frombuffer(data, dtype=np.uint8)
+    for p in plans:
+        for s_off, d_off, n in p.prefill:
+            out[d_off:d_off + n] = src[s_off:s_off + n]
+    inbuf = np.zeros(1 << max(0, len(data) - 1).bit_length(), dtype=np.uint8)
+    inbuf[:len(data)] = src
+    L = len(lanes)
+    K = max((len(lane.in_start) for lane in lanes), default=0)
+    tables = np.zeros((8, L, K), dtype=np.int32)
+    for i, lane in enumerate(lanes):
+        for j, v in enumerate((lane.in_start, lane.in_end, lane.out_start,
+                               lane.out_end, lane.reset_state, lane.lc,
+                               lane.lp, lane.pb)):
+            tables[j, i, :len(v)] = v
+    per_lane = np.array(
+        [[len(lane.in_start) for lane in lanes],
+         [lane.seg_base for lane in lanes],
+         [lane.size_known for lane in lanes]], dtype=np.int32).reshape(3, L)
+    dict_size = np.array([min(lane.dict_size, 0xFFFFFFFF) for lane in lanes],
+                         dtype=np.int64)
+    return LaneTables(lanes, inbuf, out, tables, per_lane, dict_size)
+
+
+def execute_plan(data: bytes, plans: List[DecodePlan], device) -> bytes:
+    """The lane engine (``cuda-lane``): every lane of ``plans`` in one
+    launch of ``decode_lanes`` on ``device``, decoding in place in the
+    flat output; returns the concatenated output. The port of
+    ``lzma_rs_tpu/parallel/runtime.py::execute_plan`` (``:172-262``): the
+    stored chunks placed, the archive and the output copied to the device
+    once, one launch, the output copied back once; ``stats`` gets the same
+    fields. Lanes stay in plan order (:func:`lane_tables`; JAX pads L and
+    K to powers of two as well, and its padded lanes have nothing to
+    decode). Raises ``_KernelError`` naming the first lane in plan order
+    that flagged an error, as JAX does; the caller replays on the host.
+    Stages (``runtime.stage``): ``lane_tables``, ``h2d``,
+    ``decode_lanes``, ``d2h``."""
+    device = torch.device(device)
+    with stage("lane_tables"):
+        lt = lane_tables(data, plans)
+    st = stats_mod.current()
+    if st is not None:
+        st.engine = f"{device.type}-lane"
+        st.lanes += len(lt.lanes)
+        st.chunks += int(lt.per_lane[0].sum())
+        st.prefill_bytes += sum(n for p in plans for _, _, n in p.prefill)
+        st.packed_bytes += len(data)
+        st.unpacked_bytes += len(lt.out)
+        st.devices = max(st.devices, 1)
+    if not lt.lanes:
+        return lt.out.tobytes()
+
+    with stats_mod.launch_timer(st):
+        with stage("h2d"):
+            inputs = lt.tensors(device)
+        with stage("decode_lanes"):
+            got = ld.decode_lanes(*inputs)
+        with stage("d2h"):
+            out_h, err, _, steps = (t.cpu().numpy() for t in got)
+    if st is not None:
+        st.kernel_iters += int(steps.max())
+    bad = np.nonzero(err)[0]
+    if bad.size:
+        i = int(bad[0])
+        raise _KernelError(i, int(err[i]))
+    return out_h.tobytes()
+
+
 # -- the auto router's cost model
 #
 # The copy of lzma_rs_tpu/parallel/runtime.py:1081-1104 with three edits:
@@ -1155,6 +1280,8 @@ def lzma2_decode(data: bytes, engine: str = "auto", device=None) -> bytes:
     _check_engine(engine)
     if engine == "cuda":
         device = cuda_device(device)
+    elif engine == "cuda-lane":
+        device = lane_device(device)
     data = bytes(data)
     try:
         plan, _ = plan_lzma2_stream(data, 0, 0)
@@ -1173,6 +1300,13 @@ def lzma2_decode(data: bytes, engine: str = "auto", device=None) -> bytes:
             return execute_plan_native(data, [plan])
         except Exception:
             # exact reference-parity error (or output) via sequential host
+            return _host_lzma2(data)
+    if engine == "cuda-lane":
+        try:
+            return execute_plan(data, [plan], device)
+        except _KernelError as e:
+            # corrupt stream: the host replay gives the reference's error
+            _record_fallback(f"host replay: lane error code {e.code}")
             return _host_lzma2(data)
     try:
         return execute_plan_device(data, [plan], cuda_device(device))
@@ -1241,6 +1375,8 @@ def xz_decode(data: bytes, engine: str = "auto", device=None) -> bytes:
     _check_engine(engine)
     if engine == "cuda":
         device = cuda_device(device)
+    elif engine == "cuda-lane":
+        device = lane_device(device)
     data = bytes(data)
     try:
         with stage("xz_decode"):
@@ -1299,6 +1435,12 @@ def _xz_decode_parallel(data: bytes, engine: str, device) -> bytes:
         except VmemIneligible as e:
             _record_fallback(f"vmem-ineligible: {e.reason}")
             engine = "native"
+        except _KernelError as e:
+            _record_fallback(f"host replay: lane error code {e.code}")
+            return _sequential_xz_replay(data)
+    elif engine == "cuda-lane":
+        try:
+            out = execute_plan(data, plans, device)
         except _KernelError as e:
             _record_fallback(f"host replay: lane error code {e.code}")
             return _sequential_xz_replay(data)

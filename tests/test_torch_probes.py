@@ -415,14 +415,16 @@ def test_the_tools_list_the_tpu_probes_rows():
     ("probes_mosaic4.cu", "mosaic4"), ("probe_mosaic4.cuh", "mosaic4"),
     ("probes_round4.cu", "round4"), ("probe_round4.cuh", "round4"),
     ("probes_bisect.cu", "bisect"), ("probe_bisect.cuh", "bisect"),
-    ("step_cost.cu", "stepcost")))
+    ("step_cost.cu", "stepcost"), ("decode_lanes.cu", "lanedec"),
+    ("lane_engine.cuh", "lanedec")))
 def test_an_edit_rebuilds_only_its_library(edited, changed, tmp_path):
     """An edit rebuilds the libraries whose sources hold the file, and no
     other: ``changed``, and ``mosaic3``, ``mosaic4`` and ``round4`` too for
     ``probe_mosaic.cuh``, which their headers include, and ``bisect`` for
     ``probe_lane.cuh``, which its header includes; ``segvar`` and
     ``stepcost`` too for the decoder's two headers, which its variants and
-    its step-cost builds instantiate."""
+    its step-cost builds instantiate, and ``lanedec`` for ``lzma_lane.cuh``,
+    whose ``decode_lane`` the lane engine runs."""
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     libs = build.LIBRARIES
@@ -432,7 +434,7 @@ def test_an_edit_rebuilds_only_its_library(edited, changed, tmp_path):
     after = {lib.name: build.source_hash(lib, str(csrc)) for lib in libs}
     also = {"probe_mosaic.cuh": {"mosaic3", "mosaic4", "round4"},
             "probe_lane.cuh": {"bisect"},
-            "lzma_lane.cuh": {"segvar", "stepcost"},
+            "lzma_lane.cuh": {"segvar", "stepcost", "lanedec"},
             "segment_kernel.cuh": {"segvar", "stepcost"}}.get(edited, set())
     assert {n for n in before if before[n] != after[n]} == {changed} | also
 

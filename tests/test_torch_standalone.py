@@ -106,7 +106,9 @@ def test_no_source_of_the_port_imports_the_jax_package():
             "lzma_rs_tpu_torch/tools/probe_step_cost.py",
             "lzma_rs_tpu_torch/tools/probe_step_cost2.py",
             "lzma_rs_tpu_torch/tools/mutate.py",
-            "lzma_rs_tpu_torch/tools/coverage_report.py"} <= rel
+            "lzma_rs_tpu_torch/tools/coverage_report.py",
+            "lzma_rs_tpu_torch/ops/lane_decoder.py",
+            "lzma_rs_tpu_torch/tools/sass_compare.py"} <= rel
     bad = {os.path.relpath(f, REPO): hits for f in files
            if (hits := imports_of_the_jax_package(f))}
     assert bad == {}
@@ -148,6 +150,8 @@ def test_a_fresh_interpreter_loads_only_the_port():
         "assert t.xz_decompress(xz) == data\n"
         "assert runtime.xz_decode(xz, engine='cuda',\n"
         "                         device=torch.device('cpu')) == data\n"
+        "assert runtime.xz_decode(xz, engine='cuda-lane',\n"
+        "                         device=torch.device('cpu')) == data\n"
         "assert t.lzma_decompress(t.lzma_compress(data)) == data\n"
         "assert t.lzma2_decompress(t.lzma2_compress(data)) == data\n"
         "s = t.decompress.XzStream()\n"
@@ -179,7 +183,9 @@ def test_a_fresh_interpreter_loads_only_the_port():
             "lzma_rs_tpu_torch.tools.probe_step_cost",
             "lzma_rs_tpu_torch.tools.probe_step_cost2",
             "lzma_rs_tpu_torch.tools.mutate",
-            "lzma_rs_tpu_torch.tools.coverage_report"} <= set(loaded)
+            "lzma_rs_tpu_torch.tools.coverage_report",
+            "lzma_rs_tpu_torch.ops.lane_decoder",
+            "lzma_rs_tpu_torch.tools.sass_compare"} <= set(loaded)
     assert [m for m in loaded if m != "lzma_rs_tpu_torch"
             and not m.startswith("lzma_rs_tpu_torch.")] == []
 
