@@ -182,12 +182,19 @@ the port's native host library into
     at preset 6, an 8 MiB dictionary, one lane), (a) and (b): bytes equal
     to the corpus, engine ``cuda-lane``, no fallbacks, one launch each;
     each one's kernel time (CUDA events), cycles a step over its longest
-    lane, bound, and end to end best of 3 beside ``native`` (and
-    ``cuda`` on (a) and (b)); a corrupt (c): the native engine's error
-    and a host replay recorded.
+    lane beside the kernel's recorded time before its lead-chain design
+    (``LANE_BEFORE_MS``; cycles from the same steps, which the design
+    leaves as they were), bound, and end to end best of 3 beside
+    ``native`` (and ``cuda`` on (a) and (b)); a corrupt (c): the native
+    engine's error and a host replay recorded.
 
 The ten kernel libraries build in parallel (one nvcc per library, with
-the native host library's g++) in phase 2.
+the native host library's g++) in phase 2, which then holds the SASS of
+the decoder's libraries (``segdec``, ``segvar``, ``stepcost``: 15
+kernels) to the digests recorded in
+``lzma_rs_tpu_torch/tools/decoder_sass.json`` (``tools/sass_compare.py``),
+and fails on a kernel that differs when this nvcc and the flags are the
+recording's.
 
 Every phase checks its result; any failure exits nonzero before the result
 lines. The last three lines are the card's name and power limit, the
@@ -1218,6 +1225,32 @@ def mutants_phase(torch, dev, corpus: bytes, runtime, stats, decode,
         f"lanes by error code {codes}; 0 divergences")
 
 
+def sass_phase(build, paths: dict) -> None:
+    """Phase 2's SASS check of the decoder's three libraries against the
+    recorded digests (``tools/sass_compare.py::check_recorded``)."""
+    from lzma_rs_tpu_torch.tools import sass_compare
+
+    names = ("segdec", "segvar", "stepcost")
+    comparable, rows = sass_compare.check_recorded(
+        {n: paths[n] for n in names})
+    same = sum(r[2] for r in rows)
+    if comparable:
+        check(rows and same == len(rows), "phase 2: the decoder's SASS "
+              "differs from the recorded build: " + ", ".join(
+                  f"{r[0]} {r[1]} ({r[3]} / {r[4]} instructions)"
+                  for r in rows if not r[2]))
+    say("2 sass", f"{same} of {len(rows)} kernels of {', '.join(names)} "
+        "identical to the recorded SASS (tools/decoder_sass.json)"
+        + ("" if comparable else "; not comparable: another nvcc or other "
+           "flags than the recording's"))
+
+
+# decode_lanes' kernel ms on phase 21's archives before its lead-chain
+# design (commit 06b9774; H100 80GB HBM3, 700.00 W), beside this run's.
+LANE_BEFORE_MS = {"(c) 1 MiB blocks": 199.48, "4 MiB blocks": 676.99,
+                  "one block": 2136.95, "(a)": 7.85, "(b)": 17.88}
+
+
 # Phase 21: (c)'s lanes against the plain version at this budget, and the
 # lanes of the far batch whole (the plain version runs every step on the
 # host: ~10-20 s each at about a millisecond an iteration of 8 lanes).
@@ -1401,9 +1434,13 @@ def lane_phase(torch, dev, corpus: bytes, archives: dict, peaks, runtime,
             cuda = (f"; cuda {len(corpus) / 1e6 / c_s:.2f} MB/s "
                     f"({c_s * 1e3:.1f} ms)")
         cyc = cycles_per_step(k_ms, longest, peaks)
+        before = LANE_BEFORE_MS[key]
         say(f"21 main {key}", f"{len(lt_x.lanes)} lanes, "
-            f"K={lt_x.tables.shape[2]}; kernel {k_ms:.2f} ms = {cyc:.1f} cycles a step over the longest"
-            f" lane's {longest} steps ({int(steps_x.long().sum())} in all), "
+            f"K={lt_x.tables.shape[2]}; kernel {k_ms:.2f} ms = {cyc:.1f} "
+            f"cycles a step over the longest lane's {longest} steps "
+            f"({int(steps_x.long().sum())} in all; before the lead chain "
+            f"{before:.2f} ms = "
+            f"{cycles_per_step(before, longest, peaks):.1f} cycles), "
             f"{bound_text(b_x)}; end to end {len(corpus) / 1e6 / secs:.2f} "
             f"MB/s ({secs * 1e3:.1f} ms, best of 3) against native "
             f"{len(corpus) / 1e6 / n_s:.2f} MB/s ({n_s * 1e3:.1f} ms){cuda}")
@@ -1575,6 +1612,8 @@ def main() -> None:
     for lib, b in zip(build.LIBRARIES, built_libs):
         say("2 build", f"{lib.sources[0]} -> {os.path.relpath(b.path, ROOT)}"
             f" in {b.seconds:.2f} s; {ptxas_summary(b.log)}")
+    sass_phase(build, dict(zip((lib.name for lib in build.LIBRARIES),
+                               (b.path for b in built_libs))))
     say("2 build", f"native host library "
         f"{os.path.relpath(native_loader._so_path(), ROOT)} ready in "
         f"{native_s:.1f} s")

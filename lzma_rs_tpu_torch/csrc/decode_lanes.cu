@@ -10,9 +10,9 @@
 // out_init without its dump slot), decoded in place; chunk tables [L, K]
 // i32 (in_start, in_end, out_start, out_end absolute; reset_state, lc, lp,
 // pb); nchunks, seg_base, size_known [L] i32; dict_size [L] i64. Outputs
-// err, outp (absolute), steps [L] i32. The per-lane code is
-// lane_engine.cuh over lzma_lane.cuh (kLaneEngine: ERR_DIST_DICT, lanes of
-// unknown size), shared with a host test build.
+// err, outp (absolute) [L] i32 and steps [L] i64. The per-lane code is
+// lane_engine.cuh (over lzma_lane.cuh's constants and copy split), shared
+// with a host test build.
 //
 // Design. Where decode_segments.cu bounds a lane by its shared-memory
 // window (64 KiB at most), a lane here has no budget: its window is its
@@ -21,27 +21,32 @@
 // on the read-only path, so segments of any size and any dictionary decode
 // in place, and nothing is staged or copied back lane by lane. The
 // probability table, read and written on every bit, stays in shared
-// memory: Layout(16) (lc + lp <= 4), 28,272 B a lane. A lane is a block of
-// one warp, as in decode_segments.cu: 32 threads run one scalar decoder in
-// uniform control flow and split the table's refill and each match copy.
-// Window reads that follow a copy see its bytes because every cooperative
-// step ends in a warp barrier (__syncwarp orders memory among the warp);
-// lanes own disjoint output ranges, so no other lane is involved.
+// memory in its own layout (LaneTable: every bit tree 8-byte aligned),
+// 29,840 B a lane, with the lead's mailbox (144 B). A lane is a block of
+// two warps: thread 0, the lead, and the helper warp.
 //
 // What bounds it on this card. Not bytes or operations (chip_smoke.py
 // phase 21 prints the bound, microseconds against a kernel of hundreds of
 // milliseconds): each lane is a serial chain, every range-coder bit waiting
 // on the one before, so a launch lasts its longest lane's steps times the
-// cycles a step, and lane parallelism is the lanes of the batch: 16 lanes
-// of 1 MiB blocks fill 16 of the 132 SMs, one 16 MB block one SM. The
-// window in global memory adds a load from L1 or L2 to the literals'
-// previous byte, the matched literals' byte and the copies, where
-// decode_segments.cu reads shared memory. Making it fast is later work:
-// the engine is never routed, only named.
+// cycles a step, and lane parallelism is the lanes of the batch, which the
+// format fixes (a segment is serial: probabilities and state carry across
+// its chunks): 16 lanes of 1 MiB blocks fill 16 of the 132 SMs, one 16 MB
+// block one SM. So the design's one lever is the latency of a step, and it
+// takes everything it can off the chain (lane_engine.cuh): the lead runs
+// the chain alone with no barrier a bit; a symbol far from the budget's
+// and the chunk's ends runs without a test a bit; every bit tree's
+// probabilities come from a shared load issued two levels ahead; the
+// input comes a byte ahead; the literal context's previous byte stays in a
+// register. The helper warp refills the table and copies matches longer
+// than 8 bytes while the lead decodes on; the lead waits for a copy only
+// before it reads bytes that the copy writes. The window stays in global
+// memory (L1 or L2): its loads sit at copies and chunk starts.
 //
 // The decoder's SASS does not change: this kernel has its own argument
-// struct (LaneArgs) and kLaneEngine's code sits behind if constexpr and a
-// flag that is constant false in the other builds.
+// struct (LaneArgs), chain (LeadLane) and helpers (Crew); lzma_lane.cuh's
+// decode_lane, which the decoder builds, is the decoder's alone
+// (chip_smoke.py phase 2 holds it to tools/decoder_sass.json).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,13 +55,28 @@
 
 namespace {
 
-__global__ void __launch_bounds__(32) lanes_kernel(lzl::LaneArgs a) {
+// A lane is a block of two warps: thread 0, the lead, and the helper warp
+// (threads 32-63); the rest of the first warp leaves at once.
+constexpr int kThreads = 64;
+
+__global__ void __launch_bounds__(kThreads) lanes_kernel(lzl::LaneArgs a) {
   extern __shared__ uint4 smem[];
   const int lane = int(blockIdx.x);
   if (lane >= a.L) return;
-  const lzl::LaneOut r = lzl::run_lane<lzl::Warp>(
-      a, lane, reinterpret_cast<uint16_t*>(smem));
-  if ((threadIdx.x & 31u) == 0) {
+  uint16_t* const P = reinterpret_cast<uint16_t*>(smem);
+  lzl::Mail* const mail = reinterpret_cast<lzl::Mail*>(
+      reinterpret_cast<char*>(smem) + lzl::lane_table_bytes());
+  if (threadIdx.x == 0) {
+    mail->posted = 0;
+    mail->done = 0;
+  }
+  __syncthreads();
+  if (threadIdx.x >= 32) {
+    const int64_t base = a.seg_base[lane];
+    lzl::helper_loop(mail, a.out + (base >= 0 && base <= a.out_len ? base : 0),
+                     P);
+  } else if (threadIdx.x == 0) {
+    const lzl::LaneOut r = lzl::run_lane(a, lane, P, mail);
     a.err[lane] = r.err;
     a.outp[lane] = r.outp;
     a.steps[lane] = r.steps;
@@ -82,19 +102,18 @@ int prepare(int smem) {
 extern "C" {
 
 // Dynamic shared memory of one lane: its probability table.
-int lzl_lanes_smem_bytes() { return lzl::probs_bytes(lzl::kLaneNlit); }
+int lzl_lanes_smem_bytes() { return lzl::lane_smem_bytes(); }
 
 // Launch on `stream`; smem_bytes must be lzl_lanes_smem_bytes(). Returns
 // cudaGetLastError() (0 = launched).
-int lzl_decode_lanes(const void* in, void* out, void* scratch,
-                     const void* in_start, const void* in_end,
+int lzl_decode_lanes(const void* in, void* out, const void* in_start, const void* in_end,
                      const void* out_start, const void* out_end,
                      const void* reset, const void* lc, const void* lp,
                      const void* pb, const void* nchunks,
                      const void* seg_base, const void* size_known,
                      const void* dict_size, void* err, void* outp,
                      void* steps, int L, int K, int in_len, int out_len,
-                     int max_steps, int smem_bytes, void* stream) {
+                     long long max_steps, int smem_bytes, void* stream) {
   if (smem_bytes != lzl_lanes_smem_bytes()) {
     return int(cudaErrorInvalidValue);
   }
@@ -104,7 +123,6 @@ int lzl_decode_lanes(const void* in, void* out, void* scratch,
   const lzl::LaneArgs a{
       static_cast<const uint8_t*>(in),
       static_cast<uint8_t*>(out),
-      static_cast<int32_t*>(scratch),
       static_cast<const int32_t*>(in_start),
       static_cast<const int32_t*>(in_end),
       static_cast<const int32_t*>(out_start),
@@ -119,9 +137,10 @@ int lzl_decode_lanes(const void* in, void* out, void* scratch,
       static_cast<const int64_t*>(dict_size),
       static_cast<int32_t*>(err),
       static_cast<int32_t*>(outp),
-      static_cast<int32_t*>(steps),
+      static_cast<int64_t*>(steps),
       L, K, in_len, out_len, max_steps};
-  lanes_kernel<<<L, 32, smem_bytes, static_cast<cudaStream_t>(stream)>>>(a);
+  lanes_kernel<<<L, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      a);
   return int(cudaGetLastError());
 }
 
@@ -131,7 +150,7 @@ int lzl_lanes_occupancy(int smem_bytes, int* blocks) {
   const int e = prepare(smem_bytes);
   if (e != int(cudaSuccess)) return e;
   return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, lanes_kernel, 32, size_t(smem_bytes)));
+      blocks, lanes_kernel, kThreads, size_t(smem_bytes)));
 }
 
 const char* lzl_lanes_error_string(int code) {

@@ -67,7 +67,7 @@ namespace lzl {
 constexpr int ERR_NONE = 0;
 constexpr int ERR_EOF = 1;
 constexpr int ERR_DIST_OUT = 2;
-constexpr int ERR_DIST_DICT = 3;  // the lane engine's only (kLaneEngine)
+constexpr int ERR_DIST_DICT = 3;  // the lane engine's only (lane_engine.cuh)
 constexpr int ERR_SIZE = 4;
 constexpr int ERR_EOS_EXTRA = 5;
 constexpr int ERR_SHORT = 6;
@@ -108,14 +108,6 @@ constexpr int kNoInput = 128;     // ["refill", the JAX kernel's input
                                   // next input byte is the constant 0, not
                                   // loaded. Not refill() below, which
                                   // resets the probability table.
-// The lane engine's lanes (lane_engine.cuh, decode_lanes.cu; the semantics
-// of lzma_rs_tpu/ops/lane_decoder.py): a match distance beyond the lane's
-// dictionary size is ERR_DIST_DICT, tested before ERR_DIST_OUT; a lane of
-// unknown size (size_known 0) decodes its first chunk up to the end marker
-// (or to a finished coder after a symbol, or at once after the chunk's
-// setup), and a symbol past that chunk's out_end, its capacity, is
-// ERR_SIZE; a literal past the chunk's end is refused before its store.
-constexpr int kLaneEngine = 256;
 // No counterpart: "flush" (the JAX ring's flush; this decoder keeps the
 // whole window, no ring), and "chainA/B/C/D/L", "m8", "lit4" (switches of
 // the JAX kernel's own fast paths, which this decoder does not have).
@@ -474,19 +466,13 @@ struct LaneResult {
 // Decode one lane. in: w_in staged bytes; win: w bytes, prefilled with the
 // segment's stored chunks; P: Layout(nlit).total probabilities; chunk
 // tables: k entries each (lane-local offsets, pack_chunk_meta fields).
-// dict_size and size_known are read only under kLaneEngine.
 template <class Team, int kOpts>
 LZL_FN LaneResult decode_lane(Team team, const uint8_t* in, int w_in,
                               uint8_t* win, int w, uint16_t* P, int nlit,
                               const int32_t* in_start, const int32_t* in_end,
                               const int32_t* out_start,
                               const int32_t* out_end, const int32_t* meta,
-                              int k, int max_steps,
-                              uint32_t dict_size = 0xFFFFFFFFu,
-                              int size_known = 1) {
-  constexpr bool kLane = (kOpts & kLaneEngine) != 0;
-  // a lane of unknown size: no chunk end, it stops at its end marker
-  const bool open = kLane && size_known == 0;
+                              int k, int max_steps) {
   const Layout lay(nlit);
   refill(team, P, lay.total);
   Coder<Team, kOpts> c(in, w_in, max_steps, team);
@@ -520,9 +506,8 @@ again:
     c.seek(s + 5);
     c.end = e;
     outp = os;
-    if (open && c.code == 0 && c.pos >= c.end) goto done;
 
-    while (open || outp < oe) {  // one symbol per pass
+    while (outp < oe) {  // one symbol per pass
       const int ps = outp & ((1 << pb) - 1) & 15;
       int b = c.bit(&P[lay.is_match + (state << 4) + ps]);
       if (b < 0) goto done;
@@ -559,19 +544,12 @@ again:
           if (b < 0) goto done;
           sym = (sym << 1) | uint32_t(b);
         }
-        if constexpr (kLane) {
-          if (outp >= oe) {  // past an open lane's capacity
-            c.err = ERR_SIZE;
-            goto done;
-          }
-        }
         if constexpr ((kOpts & kNoWinWrite) != 0) {
           ++outp;
         } else {
           win[outp++] = uint8_t(sym);  // every rank stores the same byte
         }
         state = state < 4 ? 0 : (state < 10 ? state - 3 : state - 6);
-        if (open && c.code == 0 && c.pos >= c.end) goto done;
         continue;
       }
 
@@ -586,18 +564,11 @@ again:
           if (b < 0) goto done;
           if (!b) {  // short rep: one byte from rep0
             state = state < 7 ? 9 : 11;
-            if constexpr (kLane) {
-              if (uint64_t(rep0) + 1 > uint64_t(dict_size)) {
-                c.err = ERR_DIST_DICT;
-                goto done;
-              }
-            }
             if (uint64_t(rep0) + 1 > uint64_t(outp)) {
               c.err = ERR_DIST_OUT;
               goto done;
             }
             if (!copy_match(c, win, outp, oe, int(rep0) + 1, 1)) goto done;
-            if (open && c.code == 0 && c.pos >= c.end) goto done;
             continue;
           }
         } else {
@@ -633,26 +604,18 @@ again:
         uint32_t d;
         if (!decode_distance(c, P, lay, len, &d)) goto done;
         if (d == 0xFFFFFFFFu) {
-          // an open lane's end; a sized chunk's symbols run only while
-          // outp < its end, so a finished coder here still leaves it short
-          if (open && c.code == 0 && c.pos >= c.end) goto done;
+          // end marker: symbols run only while outp < the chunk's end, so
+          // a finished coder here still leaves the chunk short
           c.err = (c.code == 0 && c.pos >= c.end) ? ERR_SIZE : ERR_EOS_EXTRA;
           goto done;
         }
         rep0 = d;
-      }
-      if constexpr (kLane) {
-        if (uint64_t(rep0) + 1 > uint64_t(dict_size)) {
-          c.err = ERR_DIST_DICT;
-          goto done;
-        }
       }
       if (uint64_t(rep0) + 1 > uint64_t(outp)) {
         c.err = ERR_DIST_OUT;
         goto done;
       }
       if (!copy_match(c, win, outp, oe, int(rep0) + 1, len + 2)) goto done;
-      if (open && c.code == 0 && c.pos >= c.end) goto done;
     }
   }
 done:

@@ -199,7 +199,8 @@ def load_lanes() -> ctypes.CDLL:
     lib = ctypes.CDLL(build_library(LANEDEC).path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.lzl_decode_lanes.restype = ci
-    lib.lzl_decode_lanes.argtypes = [vp] * 18 + [ci] * 6 + [vp]
+    lib.lzl_decode_lanes.argtypes = ([vp] * 17 + [ci] * 4
+                                     + [ctypes.c_longlong, ci, vp])
     lib.lzl_lanes_smem_bytes.restype = ci
     lib.lzl_lanes_smem_bytes.argtypes = []
     lib.lzl_lanes_occupancy.restype = ci
@@ -221,7 +222,9 @@ def load_host() -> ctypes.CDLL:
     code (``lzl_decode_segments_host``: the decoder, the variants that
     change the code, the seven step-cost cases), one match copy
     (``lzl_match_copy_host``), the table's size (``lzl_probs_bytes_host``)
-    and the lane engine (``lzl_decode_lanes_host``). A test aid for
+    and the lane engine (``lzl_decode_lanes_host``, its budget
+    ``lzl_lane_budget_host`` and its table's bytes
+    ``lzl_lanes_smem_bytes_host``). A test aid for
     checking the kernels' logic against the plain versions without a card:
     the main path never loads it. Built into ``build/liblzl_host-<hash>.so``,
     the hash over both headers and the flags; one handle per process."""
@@ -244,8 +247,13 @@ def load_host() -> ctypes.CDLL:
     lib.lzl_match_copy_host.argtypes = [vp] + [ci] * 7 + [vp]
     lib.lzl_probs_bytes_host.restype = ci
     lib.lzl_probs_bytes_host.argtypes = [ci]
+    ll = ctypes.c_longlong
     lib.lzl_decode_lanes_host.restype = ci
-    lib.lzl_decode_lanes_host.argtypes = [vp] * 18 + [ci] * 5
+    lib.lzl_decode_lanes_host.argtypes = [vp] * 17 + [ci] * 4 + [ll]
+    lib.lzl_lane_budget_host.restype = ll
+    lib.lzl_lane_budget_host.argtypes = [ll, ci, ll]
+    lib.lzl_lanes_smem_bytes_host.restype = ci
+    lib.lzl_lanes_smem_bytes_host.argtypes = []
     return lib
 
 

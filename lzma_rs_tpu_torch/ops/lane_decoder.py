@@ -22,8 +22,9 @@ with lc + lp <= 3, this engine's lanes decode in the flat output itself:
 
 :func:`decode_lanes` is the wrapper, with the JAX function's arguments in
 its order. On CUDA tensors it launches the hand-written kernel
-(``csrc/decode_lanes.cu``: a warp a lane, over ``csrc/lane_engine.cuh`` and
-``csrc/lzma_lane.cuh``) or raises; on CPU tensors it runs
+(``csrc/decode_lanes.cu``: a block of two warps a lane, over
+``csrc/lane_engine.cuh`` and ``csrc/lzma_lane.cuh``) or raises; on CPU
+tensors it runs
 :func:`decode_lanes_reference`, the plain PyTorch version. Both decode in
 place: the returned ``out`` is ``out_init``. ``decode_lanes.launches``
 counts kernel launches. :func:`from_jax_args` and :func:`to_jax_outputs`
@@ -36,7 +37,8 @@ off the input, off the lane's window or shorter than 5 bytes is
 ``ERR_SHORT``; props are clamped to their fields (lc <= 8, lp and pb <=
 7); a symbol of a lane of unknown size past its chunk's ``out_end`` is
 ``ERR_SIZE``; a lane stops with ``ERR_STEP_CAP`` when its step budget
-(:func:`lane_budgets`) is spent. And on one the plans do hold: a chunk's
+(:func:`lane_budgets`, int64 like the step count: it never stops a valid
+lane) is spent. And on one the plans do hold: a chunk's
 output starts at its ``out_start``. The JAX kernel carries ``outp`` on
 from the previous chunk, so a stored chunk between two LZMA chunks of a
 segment makes its lane decode over the stored bytes and fail (its runtime
@@ -46,7 +48,14 @@ What bounds the kernel on the H100 is the serial chain of each lane (a
 range-coder bit waits on the one before) and lane parallelism: a launch
 lasts its longest lane's steps times the cycles a step, and 16 lanes of 1
 MiB blocks occupy 16 of the 132 SMs. Bytes and operations bound it at
-microseconds (``chip_smoke.py`` phase 21).
+microseconds (``chip_smoke.py`` phase 21). The format fixes the lanes, so
+the kernel shortens the chain of a step: one thread of each lane's block,
+the lead, runs the chain alone with no barrier a bit and no test a bit far
+from the budget's and the chunk's ends, every bit tree's probabilities are
+loaded two levels ahead, the literal context's byte stays in a register,
+and the block's second warp refills the table and copies matches longer
+than 8 bytes while the lead decodes on (``csrc/lane_engine.cuh`` gives the
+whole design).
 """
 
 from __future__ import annotations
@@ -58,7 +67,6 @@ import torch
 
 from lzma_rs_tpu_torch.ops import lzma_consts as C
 from lzma_rs_tpu_torch.ops.lzma_consts import prob_layout
-from lzma_rs_tpu_torch.ops.segment_decoder import probs_bytes
 
 __all__ = [
     "ERR_DIST_DICT",
@@ -87,27 +95,34 @@ ERR_STEP_CAP = C.ERR_STEP_CAP
 
 NLIT = 16  # literal contexts: lc + lp <= 4 (LAYOUT_LCLP4)
 LAYOUT = prob_layout(NLIT)
+# The kernel's table: LAYOUT's cells in csrc/lane_engine.cuh's own order
+# (LaneTable, every bit tree 8-byte aligned), 14,152 probabilities in an
+# allocation of 14,920 (a tree's last level loads past its leaves).
+TABLE_ENTRIES = 14_920
+MAIL_BYTES = 144  # the lead's mailbox to its helper warp (lane_engine.cuh)
 _U32 = 0xFFFFFFFF
 _I32_MAX = 0x7FFFFFFF
 _TABLES = ("in_start", "in_end", "out_start", "out_end", "reset_state",
            "lc", "lp", "pb")
 
 
+
 def smem_bytes() -> int:
     """Dynamic shared memory of one lane (one block) of the kernel: its
-    probability table (``segment_decoder.probs_bytes``)."""
-    return probs_bytes(NLIT)
+    probability table, rounded up to 16 bytes, and its mailbox
+    (``csrc/lane_engine.cuh::lane_smem_bytes``)."""
+    return ((2 * TABLE_ENTRIES + 15) & ~15) + MAIL_BYTES
 
 
 def lane_budgets(w, nchunks, max_steps: int | None = None):
-    """Each lane's step budget: ``24 * w + 2 * nchunks + 64`` for a window of
-    ``w`` bytes (int64 tensors), at most ``2**31 - 1`` and at most
-    ``max_steps`` where given. A symbol emits at least one byte or stops
-    the lane and costs at most 44 micro-ops for 2 bytes, so no lane takes
-    more than ``22 * w + K + 1`` steps: below 89 MB of window the budget
-    never stops a valid stream (``ERR_STEP_CAP`` is code 1, ``ERR_EOF``'s).
+    """Each lane's step budget, int64: ``24 * w + 2 * nchunks + 64`` for a
+    window of ``w`` bytes (int64 tensors), at most ``max_steps`` where
+    given. A symbol emits at least one byte or stops the lane and costs at
+    most 44 micro-ops for 2 bytes, so no lane takes more than ``22 * w + K
+    + 1`` steps: the budget never stops a valid stream, for every ``w <
+    2**31`` (``ERR_STEP_CAP`` is code 1, ``ERR_EOF``'s).
     ``csrc/lane_engine.cuh::lane_budget`` computes the same."""
-    b = (24 * w + 2 * nchunks + 64).clamp(max=_I32_MAX)
+    b = 24 * w + 2 * nchunks + 64
     if max_steps is not None:
         b = b.clamp(max=int(max_steps))
     return b
@@ -137,8 +152,8 @@ def _check_inputs(args, max_steps):
         if t.numel() >= 2**31:
             raise ValueError(f"{name} holds {t.numel()} bytes: the lane "
                              "engine's offsets are int32 (< 2^31)")
-    if max_steps is not None and not 0 < max_steps < 2**31:
-        raise ValueError(f"max_steps={max_steps} outside (0, 2^31)")
+    if max_steps is not None and not 0 < max_steps < 2**63:
+        raise ValueError(f"max_steps={max_steps} outside (0, 2^63)")
 
 
 def decode_lanes(
@@ -147,8 +162,8 @@ def decode_lanes(
     max_steps: int | None = None,
 ):
     """Decode every lane into ``out_init``, in place. Returns ``(out, err,
-    outp, steps)``: ``out`` is ``out_init``; ``err``, ``outp`` (absolute)
-    and ``steps`` are ``[L]`` int32.
+    outp, steps)``: ``out`` is ``out_init``; ``err`` and ``outp``
+    (absolute) are ``[L]`` int32, ``steps`` ``[L]`` int64.
 
     Tensors: ``inbytes`` ``[IN]`` and ``out_init`` ``[OUT]`` uint8 (IN, OUT
     < 2^31); the eight chunk tables ``[L, K]`` int32; ``nchunks``,
@@ -171,14 +186,13 @@ def decode_lanes(
     lib = build.load_lanes()
     L, K = in_start.shape
     with torch.cuda.device(dev):
-        err, outp, steps = (
-            torch.empty(L, dtype=torch.int32, device=dev) for _ in range(3)
-        )
+        err, outp = (torch.empty(L, dtype=torch.int32, device=dev)
+                     for _ in range(2))
+        steps = torch.empty(L, dtype=torch.int64, device=dev)
         if L == 0:
             return out_init, err, outp, steps
-        scratch = torch.empty((3, L, K), dtype=torch.int32, device=dev)
         rc = lib.lzl_decode_lanes(
-            inbytes.data_ptr(), out_init.data_ptr(), scratch.data_ptr(),
+            inbytes.data_ptr(), out_init.data_ptr(),
             *(t.data_ptr() for t in args[2:]),
             err.data_ptr(), outp.data_ptr(), steps.data_ptr(),
             L, K, inbytes.numel(), out_init.numel(),
@@ -643,7 +657,7 @@ def decode_lanes_reference(
         out_init,
         err.to(torch.int32),
         (at + outp).to(torch.int32),
-        steps.to(torch.int32),
+        steps,
     )
 
 
@@ -678,8 +692,8 @@ def to_jax_outputs(out, err, outp, steps, out_init):
     """The port's outputs as the JAX function returns them (numpy):
     ``out`` with the dump slot of the JAX ``out_init`` appended, ``err``
     and ``outp`` int32, and the loop's iteration count, which is the
-    longest lane's steps (every lane steps once an iteration until it
-    stops)."""
+    longest lane's steps (int64; every lane steps once an iteration until
+    it stops)."""
     o = out.detach().cpu().numpy()
     tail = np.asarray(out_init, dtype=np.uint8)[-1:]
     s = steps.detach().cpu().numpy()

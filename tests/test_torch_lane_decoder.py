@@ -27,6 +27,7 @@ marked ``cuda`` hold the kernel against the plain version on a card.
 """
 
 import dataclasses
+import json
 import lzma as liblzma
 import random
 
@@ -98,14 +99,15 @@ class Batch:
         self._add(name, plan, payload)
 
     def raw(self, name: str, stream: bytes, payload: bytes, dict_size: int,
-            size_known: int = 1) -> None:
+            size_known: int = 1, props=(3, 0, 2)) -> None:
         off = len(self.blob)
         self.blob += stream
         n = len(payload)
+        lc, lp, pb = props
         lane = runtime.LanePlan(
             in_start=[off], in_end=[off + len(stream)],
             out_start=[self.total], out_end=[self.total + n], reset_state=[1],
-            lc=[3], lp=[0], pb=[2], seg_base=self.total,
+            lc=[lc], lp=[lp], pb=[pb], seg_base=self.total,
             size_known=size_known, dict_size=dict_size)
         self._add(name, runtime.DecodePlan(lanes=[lane], prefill=[],
                                            total_out=n), payload)
@@ -320,10 +322,10 @@ def host_lib():
 def host_decode(lib, *tensors, max_steps=None):
     t = [x.clone() for x in tensors]
     L, K = t[2].shape
-    scratch = torch.zeros((3, L, K), dtype=torch.int32)
-    err, outp, steps = (torch.zeros(L, dtype=torch.int32) for _ in range(3))
+    err, outp = (torch.zeros(L, dtype=torch.int32) for _ in range(2))
+    steps = torch.zeros(L, dtype=torch.int64)
     rc = lib.lzl_decode_lanes_host(
-        t[0].data_ptr(), t[1].data_ptr(), scratch.data_ptr(),
+        t[0].data_ptr(), t[1].data_ptr(),
         *(x.data_ptr() for x in t[2:]), err.data_ptr(), outp.data_ptr(),
         steps.data_ptr(), L, K, t[0].numel(), t[1].numel(),
         0 if max_steps is None else max_steps)
@@ -414,13 +416,53 @@ def test_far_lane_reaches_past_65536(host_lib):
 def test_budgets():
     w = torch.tensor([0, 1000, 10**8], dtype=torch.int64)
     n = torch.tensor([0, 3, 40], dtype=torch.int64)
-    assert ld.lane_budgets(w, n).tolist() == [64, 24_070, 2**31 - 1]
+    assert ld.lane_budgets(w, n).tolist() == [64, 24_070, 2_400_000_144]
     assert ld.lane_budgets(w, n, 500).tolist() == [64, 500, 500]
-    assert ld.smem_bytes() == host_lib_probs_bytes()
+    assert ld.smem_bytes() == build.load_host().lzl_lanes_smem_bytes_host()
 
 
-def host_lib_probs_bytes():
-    return build.load_host().lzl_probs_bytes_host(ld.NLIT)
+# Windows up to the largest the runtime takes (outputs < 2^31 bytes), with
+# the most chunks a lane of that window can hold (a chunk emits a byte).
+WINDOWS = [0, 1, 65_536, 89_478_485, 97_612_893, 2**30, 2**31 - 1]
+
+
+@pytest.mark.parametrize("w", WINDOWS)
+def test_budget_covers_every_valid_lane(w):
+    """No valid lane takes more than ``22 w + K + 1`` steps, so the budget
+    stays above that for every window the runtime takes: past 89 MB too,
+    where the int32 count stopped valid lanes with ``ERR_STEP_CAP``."""
+    for k in (0, 1, min(w, 2**20)):
+        got = ld.lane_budgets(torch.tensor([w]), torch.tensor([k]))
+        assert got.dtype == torch.int64
+        assert int(got[0]) >= 22 * w + k + 1
+
+
+@pytest.mark.parametrize("w", WINDOWS)
+def test_host_lane_budget_covers_every_valid_lane(host_lib, w):
+    """``csrc/lane_engine.cuh::lane_budget`` (the g++ build) equals
+    ``lane_budgets`` and covers ``22 w + K + 1``; a ``max_steps`` above
+    2^32 caps it uncut."""
+    for k in (0, 1, min(w, 2**20)):
+        want = int(ld.lane_budgets(torch.tensor([w]), torch.tensor([k]))[0])
+        assert host_lib.lzl_lane_budget_host(w, k, 0) == want
+        assert want >= 22 * w + k + 1
+        cap = 2**32 + 40
+        assert host_lib.lzl_lane_budget_host(w, k, cap) == min(want, cap)
+
+
+def test_max_steps_past_int32(host_lib, main_tensors, main_plain):
+    """``max_steps`` = 2^32 + 40 caps no lane of the batch: the wrapper
+    (the plain version on CPU tensors) and the host build give the uncapped
+    outputs, so it is not cut to int32 (it would be 40)."""
+    big = 2**32 + 40
+    for got in (ld.decode_lanes(*(x.clone() for x in main_tensors),
+                                max_steps=big),
+                host_decode(host_lib, *main_tensors, max_steps=big)):
+        for what, g, w in zip(("out", "err", "outp", "steps"), got,
+                              main_plain):
+            assert torch.equal(g, w), what
+    assert got[3].dtype == torch.int64
+    assert int(main_plain[3].max()) > 40
 
 
 def test_wrapper_checks(main_tensors):
@@ -452,6 +494,87 @@ def test_from_jax_args_drops_the_dump_slot(main):
     assert all(x.dtype == torch.int32 for x in port[2:13])
 
 
+def top_values_batch(size_known: int = 0) -> Batch:
+    """One raw LZMA lane (stdlib ``lzma``'s ``.lzma`` body) at lc=3, lp=1,
+    pb=2 (lc + lp = 4): 600 B of text, 40 KB of a repeated line, the text
+    again with every 37th byte changed (matches 40 KB back, each followed
+    by a matched literal), 3,000 B of one byte (matches of 273 bytes, the
+    length tree's top) and the end marker (position slot 63)."""
+    t = text(600, 11)
+    fill = (b"0123456789 the lazy dog jumps over\n" * 1200)[:40_000]
+    again = bytearray(t)
+    for k in range(20, len(again), 37):
+        again[k] = 33 + k % 90
+    payload = t + fill + bytes(again) + b"x" * 3000
+    filt = {"id": liblzma.FILTER_LZMA1, "dict_size": 1 << 20, "lc": 3,
+            "lp": 1, "pb": 2}
+    alone = liblzma.compress(payload, format=liblzma.FORMAT_ALONE,
+                             filters=[filt])
+    b = Batch()
+    b.raw("top", alone[13:], payload, 1 << 20, size_known=size_known,
+          props=(3, 1, 2))
+    b.alone = alone
+    return b
+
+
+def test_top_values_lane_is_what_it_says(monkeypatch):
+    """The spec decoder, recording each symbol, finds in the lane a match
+    of 273 bytes, the end marker's distance (position slot 63) and matched
+    literals right after matches more than 32 KiB back."""
+    import lzma_rs_tpu_torch as port
+    from lzma_rs_tpu_torch.models import spec
+
+    seen = {"len": [], "dist": [], "matched": []}
+    real_len, real_dist, real_lit = (spec.DecoderState._decode_len,
+                                     spec.DecoderState._decode_distance,
+                                     spec.DecoderState._decode_literal)
+
+    def rec_len(self, *a, **k):
+        v = real_len(self, *a, **k)
+        seen["len"].append(v)
+        return v
+
+    def rec_dist(self, *a, **k):
+        v = real_dist(self, *a, **k)
+        seen["dist"].append(v)
+        return v
+
+    def rec_lit(self, *a, **k):
+        if self.state >= 7:
+            seen["matched"].append(self.rep[0])
+        return real_lit(self, *a, **k)
+
+    monkeypatch.setenv("LZMA_RS_TPU_BACKEND", "spec")
+    monkeypatch.setattr(spec.DecoderState, "_decode_len", rec_len)
+    monkeypatch.setattr(spec.DecoderState, "_decode_distance", rec_dist)
+    monkeypatch.setattr(spec.DecoderState, "_decode_literal", rec_lit)
+    batch = top_values_batch()
+    assert port.lzma_decompress(batch.alone) == batch.payloads[0][1]
+    assert max(seen["len"]) == 273 - 2
+    assert 0xFFFFFFFF in seen["dist"]
+    assert sum(d > 32768 for d in seen["matched"]) >= 8
+
+
+@pytest.mark.parametrize("budget", [None, 700, 9000])
+def test_host_build_top_values(host_lib, budget):
+    """The lane of :func:`top_values_batch`: the host build equals the plain
+    version bit for bit, whole (its payload, up to the end marker) and cut
+    by budgets inside it."""
+    batch = top_values_batch()
+    tensors = batch.tensors()
+    got = host_decode(host_lib, *tensors, max_steps=budget)
+    want = plain(*tensors, max_steps=budget)
+    for what, g, w in zip(("out", "err", "outp", "steps"), got, want):
+        assert torch.equal(g, w), what
+    payload = batch.payloads[0][1]
+    if budget is None:
+        assert want[1].tolist() == [0]
+        assert want[0][:len(payload)].numpy().tobytes() == payload
+    else:
+        assert want[1].tolist() == [ld.ERR_STEP_CAP]
+        assert want[3].tolist() == [budget]
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -481,3 +604,31 @@ def test_kernel_step_cap_on_card(cuda_device):
     want = plain(*(x.cpu() for x in tensors), max_steps=900)
     for what, g, w in zip(("out", "err", "outp", "steps"), got, want):
         assert torch.equal(g.cpu(), w), what
+
+
+def test_recorded_sass_check(monkeypatch, tmp_path):
+    """``sass_compare.check_recorded`` (phase 2's check of the decoder's
+    SASS): identical digests pass, a changed or missing kernel is named,
+    and another nvcc makes the comparison not comparable. The recorded
+    file holds the decoder's 15 kernels."""
+    from lzma_rs_tpu_torch.tools import sass_compare as sc
+
+    with open(sc.RECORDED) as f:
+        rec = json.load(f)
+    assert sorted(rec["libraries"]) == ["segdec", "segvar", "stepcost"]
+    assert sum(len(v) for v in rec["libraries"].values()) == 15
+    assert rec["flags"] == list(build.NVCC_FLAGS)
+    lib = rec["libraries"]["segdec"]
+    monkeypatch.setattr(sc, "nvcc_version", lambda: rec["nvcc"])
+    monkeypatch.setattr(sc, "digests", lambda path: dict(lib))
+    ok, rows = sc.check_recorded({"segdec": "x.so"})
+    assert ok and rows and all(r[2] for r in rows)
+    changed = {k: [n + 1, "0" * 64] for k, (n, _) in lib.items()}
+    monkeypatch.setattr(sc, "digests", lambda path: changed)
+    ok, rows = sc.check_recorded({"segdec": "x.so"})
+    assert ok and not any(r[2] for r in rows)
+    monkeypatch.setattr(sc, "digests", lambda path: {})
+    _, rows = sc.check_recorded({"segdec": "x.so"})
+    assert [r[3] for r in rows] == [0] * len(lib)
+    monkeypatch.setattr(sc, "nvcc_version", lambda: "another nvcc")
+    assert sc.check_recorded({"segdec": "x.so"})[0] is False
