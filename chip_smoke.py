@@ -8,7 +8,8 @@ toolkit (nvcc) and g++:
 
 It imports only ``lzma_rs_tpu_torch`` (no JAX, nothing of ``lzma_rs_tpu``),
 builds the segment-decoder kernel, its variants, its step-cost builds,
-the probe kernels and the lane engine from ``lzma_rs_tpu_torch/csrc`` and
+the probe kernels, the lane engine and the device CRC from
+``lzma_rs_tpu_torch/csrc`` and
 the port's native host library into
 ``lzma_rs_tpu_torch/build/``, then runs:
 
@@ -112,8 +113,18 @@ the port's native host library into
     kernel time within 10% of phase 4's); the stage breakdown
     (``tools/probe_vmem2_time.py``, 3 calls: each stage's median, min and
     max, the bytes equal to the corpus, the stages' sum within 0.5-1.5 x
-    the whole call); the device CRC (``ops/crc_device.py``) of every (c)
-    block equal to its stored check, timed against the host checks; a
+    the whole call); the device CRC (``ops/crc_device.py``, the
+    ``crc_blocks`` kernel of ``csrc/crc_blocks.cu``) of every (c) block
+    (CRC64) and of every block of the tpu_profile archive in 1 MiB blocks
+    (CRC32) through ``crc64_device`` / ``crc32_device``, each equal to its
+    stored check, one launch a block (counted from 0 over that run); the
+    kernel against its plain version on every block's chunks, bit for bit
+    (``max_abs_err`` 0); the kernel's time on the card (CUDA events after
+    the host has enqueued its calls, median of 5, a launch a block; beside
+    it all blocks in one launch and the calls with the wrapper's host time)
+    against its bound, the plain version's and its product's
+    (``library_ms``), and the check functions from bytes against the host
+    checks (best of 3); a
     ``torch.profiler`` timeline of one (a) call
     (``tools/profile_pipeline.py``: its kernel events, where the trace
     holds device events, equal to the call's launches; the device's busy
@@ -188,7 +199,7 @@ the port's native host library into
     ``native`` (and ``cuda`` on (a) and (b)); a corrupt (c): the native
     engine's error and a host replay recorded.
 
-The ten kernel libraries build in parallel (one nvcc per library, with
+The eleven kernel libraries build in parallel (one nvcc per library, with
 the native host library's g++) in phase 2, which then holds the SASS of
 the decoder's libraries (``segdec``, ``segvar``, ``stepcost``: 15
 kernels) to the digests recorded in
@@ -661,9 +672,10 @@ def variants_phase(torch, dev, archives, peaks, runtime, sd) -> None:
 
 
 def measurement_phase(torch, dev, archives, corpus: bytes, kernel_ms: dict,
-                      sd) -> None:
+                      sd) -> dict:
     """Phase 15: devbench, the stage breakdown, the device CRC and the
-    timeline on phase 4's archives, and (c), the corpus in 1 MiB blocks."""
+    timeline on phase 4's archives, and (c), the corpus in 1 MiB blocks.
+    Returns the kernel line's ``crc_blocks`` entry, from (c)."""
     from lzma_rs_tpu_torch.parallel import devbench
     from lzma_rs_tpu_torch.tools import corpus as corpus_mod
     from lzma_rs_tpu_torch.tools import probe_vmem2_time as pv
@@ -687,15 +699,21 @@ def measurement_phase(torch, dev, archives, corpus: bytes, kernel_ms: dict,
               f"stages sum to {b['sum_over_call']:.3f} x the call")
         say(f"15 breakdown ({key})", f"{b['calls']} calls, bytes == corpus, "
             f"ms, median (min-max): {pv.stage_text(b)}")
-    xc = corpus_mod.stock_archive(corpus, 1 << 20)
-    c = pv.crc_rows(xc, dev)  # raises unless every block's CRC matches
-    say("15 crc (c)", f"{len(xc)} B, {c['blocks']} blocks of <= "
-        f"{c['block_bytes']} B, CRC{c['width']}: crc_device == each block's "
-        f"stored check; device CRC {c['device_ms']:.2f} ms (the product "
-        f"alone {c['product_ms']:.3f} ms, bound {c['bound_ms']:.4f} ms by "
-        f"{c['bound_by']} at the int8 rate, {c['fp32_ops_ms']:.3f} ms of "
-        f"float32 operations) against the host checks {c['host_ms']:.2f} ms "
-        "(best of 3)")
+    # the device CRC: every block through the check functions (the path,
+    # its launches counted from 0; raises unless each equals its stored
+    # check), the kernel against its plain version on every block, then
+    # timed
+    rows = {}
+    for key, x in (("(c)", corpus_mod.stock_archive(corpus, 1 << 20)),
+                   ("crc32 1 MiB", corpus_mod.tpu_archive(corpus, 1 << 20))):
+        c = rows[key] = pv.crc_rows(x, dev)
+        check(c["launches"] == c["blocks"] and c["kernel_ms"] > 0,
+              f"phase 15 ({key}): {c['launches']} crc_blocks launches for "
+              f"{c['blocks']} blocks")
+        check(c["max_abs_err"] == 0, f"phase 15 ({key}): crc_blocks "
+              f"differs from its plain version by {c['max_abs_err']:#x}")
+        say(f"15 crc {key}", f"{len(x)} B, {pv.crc_text(c)}")
+    c = rows["(c)"]
     with tempfile.TemporaryDirectory() as tmp:
         sd.decode_segments.launches = 0  # the warm call's and the traced
         trace, out, traced = pp.capture(archives["a"], dev,
@@ -710,6 +728,19 @@ def measurement_phase(torch, dev, archives, corpus: bytes, kernel_ms: dict,
               f"{s['launches']} kernel events for {traced} launches")
     say("15 timeline (a)", f"one call, {traced} launch: "
         f"{pp.summary_text(s)}")
+    return {"name": "crc_blocks", "route": "cuda",
+            "source": "lzma_rs_tpu_torch/csrc/crc_blocks.cu",
+            "replaces": "lzma_rs_tpu/ops/crc_device.py:226",
+            "launches": c["launches"], "max_abs_err": c["max_abs_err"],
+            "ms": c["kernel_ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["kernel_bound_ms"], "bound_by": "bytes",
+            "library_ms": c["product_ms"], "one_launch_ms": c["one_launch_ms"],
+            "wrapper_ms": c["wrapper_ms"], "blocks": c["blocks"],
+            "width": c["width"], "product_bound_ms": c["bound_ms"],
+            "crc32": {k: rows["crc32 1 MiB"][k] for k in (
+                "blocks", "launches", "max_abs_err", "kernel_ms",
+                "one_launch_ms", "wrapper_ms", "plain_ms", "kernel_bound_ms",
+                "product_ms")}}
 
 
 # the JAX router's record of a modeled route to the host
@@ -1609,6 +1640,8 @@ def main() -> None:
     build.load_round4()
     build.load_bisect()
     build.load_step_cost()
+    build.load_lanes()
+    build.load_crc()
     for lib, b in zip(build.LIBRARIES, built_libs):
         say("2 build", f"{lib.sources[0]} -> {os.path.relpath(b.path, ROOT)}"
             f" in {b.seconds:.2f} s; {ptxas_summary(b.log)}")
@@ -1974,7 +2007,8 @@ def main() -> None:
     variants_phase(torch, dev, archives, peaks, runtime, sd)
 
     # -- 15. the measurement modules ----------------------------------
-    measurement_phase(torch, dev, archives, corpus, kernel_ms, sd)
+    crc_entry = measurement_phase(torch, dev, archives, corpus, kernel_ms,
+                                  sd)
 
     # -- 16. the router -------------------------------------------------
     router_phase(torch, dev, corpus, archives, runtime, stats)
@@ -2017,6 +2051,7 @@ def main() -> None:
          "bound_ms": b1[0], "bound_by": b1[1]},
         *probe_entries,
         lane_entry,
+        crc_entry,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

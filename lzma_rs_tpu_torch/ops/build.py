@@ -4,7 +4,7 @@
 PyTorch headers: seconds, not minutes) into
 ``lzma_rs_tpu_torch/build/liblzl_<name>-<hash>.so``, where the hash covers
 that library's own sources and the flags, so an edited source rebuilds its
-library alone and an unchanged one loads at once. Ten libraries:
+library alone and an unchanged one loads at once. Eleven libraries:
 
 - ``segdec``: the segment decoder (``decode_segments.cu`` +
   ``segment_kernel.cuh`` + ``lzma_lane.cuh``), :func:`load`;
@@ -26,12 +26,15 @@ library alone and an unchanged one loads at once. Ten libraries:
 - ``stepcost``: the decoder's step-cost builds (``step_cost.cu`` over
   ``segment_kernel.cuh`` + ``lzma_lane.cuh``), :func:`load_step_cost`;
 - ``lanedec``: the lane engine (``decode_lanes.cu`` + ``lane_engine.cuh`` +
-  ``lzma_lane.cuh``), :func:`load_lanes`.
+  ``lzma_lane.cuh``), :func:`load_lanes`;
+- ``crc``: the device CRC (``crc_blocks.cu`` + ``crc_kernel.cuh``),
+  :func:`load_crc`.
 
 Each is bound with ``ctypes``. :func:`load_host` builds the per-lane code
 of the decoder and of the lane engine (``lane_engine.cuh``, which includes
 ``lzma_lane.cuh``) for the host with g++ instead, a test aid that runs the
-kernels' logic without a card. Nothing here runs at import
+kernels' logic without a card; :func:`load_crc_host` does the same for
+``crc_kernel.cuh``. Nothing here runs at import
 time; every failure raises, except in :func:`unavailable`, which the
 ``auto`` router asks before it picks the card.
 """
@@ -83,8 +86,9 @@ STEPCOST = Library("stepcost", ("step_cost.cu", "segment_kernel.cuh",
                                 "lzma_lane.cuh"))
 LANEDEC = Library("lanedec", ("decode_lanes.cu", "lane_engine.cuh",
                               "lzma_lane.cuh"))
+CRC = Library("crc", ("crc_blocks.cu", "crc_kernel.cuh"))
 LIBRARIES = (SEGDEC, SEGVAR, PROBES, MOSAIC, MOSAIC3, MOSAIC4, ROUND4, BISECT,
-             STEPCOST, LANEDEC)
+             STEPCOST, LANEDEC, CRC)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,8 +214,40 @@ def load_lanes() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=1)
+def load_crc() -> ctypes.CDLL:
+    """Build (if needed) and bind the device CRC; one handle per
+    process."""
+    lib = ctypes.CDLL(build_library(CRC).path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.lzc_crc_blocks.restype = ci
+    lib.lzc_crc_blocks.argtypes = [ci, vp, ci, vp, vp, ci, vp, vp]
+    lib.lzc_error_string.restype = ctypes.c_char_p
+    lib.lzc_error_string.argtypes = [ci]
+    return lib
+
+
 HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC", "-Wall",
               "-Werror", "-DLZL_HOST_ENTRY")
+CRC_HOST_FLAGS = (*HOST_FLAGS[:-1], "-DLZC_HOST_ENTRY")
+
+
+def _host_library(name: str, headers: tuple, flags: tuple) -> ctypes.CDLL:
+    """Build (if needed) with g++ ``headers[0]`` (which includes the rest)
+    into ``build/liblzl_<name>-<hash>.so``, the hash over ``flags`` and
+    every header, and open it."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for header in headers:
+        with open(os.path.join(CSRC, header), "rb") as f:
+            h.update(header.encode() + b"\0" + f.read())
+    path = os.path.join(BUILD_DIR, f"liblzl_{name}-{h.hexdigest()[:16]}.so")
+    if not os.path.exists(path):
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError(f"g++ not found: the host build of "
+                               f"{headers[0]} needs it")
+        _compile([gxx, *flags], headers[0], path)
+    return ctypes.CDLL(path)
 
 
 @functools.lru_cache(maxsize=1)
@@ -228,18 +264,8 @@ def load_host() -> ctypes.CDLL:
     checking the kernels' logic against the plain versions without a card:
     the main path never loads it. Built into ``build/liblzl_host-<hash>.so``,
     the hash over both headers and the flags; one handle per process."""
-    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
-    for name in ("lane_engine.cuh", "lzma_lane.cuh"):
-        with open(os.path.join(CSRC, name), "rb") as f:
-            h.update(name.encode() + b"\0" + f.read())
-    path = os.path.join(BUILD_DIR, f"liblzl_host-{h.hexdigest()[:16]}.so")
-    if not os.path.exists(path):
-        gxx = shutil.which("g++")
-        if gxx is None:
-            raise RuntimeError("g++ not found: the host build of "
-                               "lane_engine.cuh needs it")
-        _compile([gxx, *HOST_FLAGS], "lane_engine.cuh", path)
-    lib = ctypes.CDLL(path)
+    lib = _host_library("host", ("lane_engine.cuh", "lzma_lane.cuh"),
+                        HOST_FLAGS)
     ci, vp = ctypes.c_int, ctypes.c_void_p
     lib.lzl_decode_segments_host.restype = ci
     lib.lzl_decode_segments_host.argtypes = [vp] * 12 + [ci] * 8
@@ -402,3 +428,17 @@ def load_bisect() -> ctypes.CDLL:
     """Build (if needed) and bind the bisect probe kernel; one handle per
     process."""
     return bind_bisect(ctypes.CDLL(build_library(BISECT).path))
+
+
+@functools.lru_cache(maxsize=1)
+def load_crc_host() -> ctypes.CDLL:
+    """Build (if needed) with g++ and bind ``crc_kernel.cuh``'s host entry
+    ``lzc_crc_blocks_host``: the kernel's arithmetic chunk by chunk and
+    lane by lane on the CPU, with the kernel's arguments. A test aid: the
+    main path never loads it. Built into ``build/liblzl_crchost-<hash>.so``,
+    the hash over the header and the flags; one handle per process."""
+    lib = _host_library("crchost", ("crc_kernel.cuh",), CRC_HOST_FLAGS)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.lzc_crc_blocks_host.restype = ci
+    lib.lzc_crc_blocks_host.argtypes = [ci, vp, ci, vp, vp, ci, vp]
+    return lib

@@ -1,30 +1,46 @@
-"""CRC32 / CRC64-XZ of a block on the card, as a GF(2) matrix product.
+"""CRC32 / CRC64-XZ of a block on the card: a Hopper kernel that folds
+the block's chunks to one register there.
 
-The port of ``lzma_rs_tpu/ops/crc_device.py``'s product path
-(``_device_raw`` over ``_jitted_crc_matmul``, ``:226-267``). CRC is linear
-over GF(2), so the raw register of a 4 KiB chunk is a binary product:
+The counterpart of ``lzma_rs_tpu/ops/crc_device.py``'s device path
+(``_device_raw`` over ``_jitted_crc_matmul``, ``:226-339``, under
+``crc32_device`` ``:362`` and ``crc64_device`` ``:375``). The JAX code
+bit-unpacks the chunks, takes one bf16 matrix product against a GF(2)
+weight matrix, copies the ``[L, width]`` parity matrix back and folds the
+chunk registers on the host in power-of-two batches.
 
-    raw_bits = bits(chunk) [CHUNK*8]  x  W [CHUNK*8, width]   (mod 2)
+**On the card**, :func:`crc_raw` launches ``crc_blocks``
+(``csrc/crc_blocks.cu`` over ``csrc/crc_kernel.cuh``, library ``crc`` of
+``ops/build.py``): a warp a 4 KiB chunk, a lane 128 bytes of it by
+slice-by-8, each lane's and then each chunk's register advanced to the
+block's end by the zero-advance maps ``Z_{2^j}`` (:func:`power_maps`,
+applied through :func:`nibble_table`), XORed into one 8-byte register with
+a 64-bit ``atomicXor``. One launch a block; only those 8 bytes come back.
+What bounds it is bytes: ``L x 4096`` read once over 3.35 TB/s. The tables
+(:func:`slice_table`, the maps) are built here once per width and kept on
+each card (:func:`_kernel_tables`).
 
-The host numpy machinery below (``_zero_byte_matrix`` ... ``combine_raw``,
-``_crc_weight_matrix``, ``_mat_compose_np``, ``_pack_parity``,
-``_tree_combine_host``, ``_host_raw_crc``, ``crc32_device``,
-``crc64_device``) is a copy of the JAX module's, changed only in the
-native loader it imports and the ``device`` argument. The device part,
-:func:`crc_parity`, is PyTorch: unpack ``[L, CHUNK]`` bytes to ``[L,
-CHUNK*8]`` bits, one ``torch.matmul`` with the weight matrix, ``& 1``.
+**The plain version**, :func:`crc_raw_reference`, is the route the port
+took before the kernel: :func:`crc_parity` (bit-unpack, one float32
+``torch.matmul`` with the weight matrix, ``& 1``) on the tensor's device,
+the registers packed and folded on the host (``_pack_parity``,
+``_tree_combine_host``, ``combine_raw``). A CPU tensor takes it in
+:func:`crc_raw`; the tests hold it, the kernel's host build and the JAX
+package against each other.
 
-**Exact in float32.** The operands are 0 or 1 and a sum has at most
-CHUNK*8 = 32,768 < 2^24 terms, so every partial sum is an integer that
-float32 holds exactly (TF32 or bf16 operand rounding cannot change a 0 or
-a 1 either). The JAX code gets the same from bf16 operands with
-``preferred_element_type=float32``; ``torch.matmul`` on bf16 operands
+**Exact in float32.** The product's operands are 0 or 1 and a sum has at
+most CHUNK*8 = 32,768 < 2^24 terms, so every partial sum is an integer
+that float32 holds exactly. The JAX code gets the same from bf16 operands
+with ``preferred_element_type=float32``; ``torch.matmul`` on bf16 operands
 returns **bf16**, whose 8-bit mantissa rounds sums above 256 and destroys
-the parity, so the product takes float32 operands. (``torch._int_mm``,
-int8 -> int32, would also be exact, but only at the shapes its kernels
-take.)
+the parity, so the product takes float32 operands.
 
-The JAX module's scan kernels (``_jitted_crc``, ``_crc32_chunks``,
+The host numpy machinery (``_zero_byte_matrix`` ... ``combine_raw``,
+``_crc_weight_matrix``, ``_mat_compose_np``, ``_pack_parity``,
+``_tree_combine_host``, ``_host_raw_crc``) and ``crc32_device`` /
+``crc64_device`` (the tail and the init/xorout correction on the host) are
+copies of the JAX module's, changed only in the native loader they import,
+the ``device`` argument and the one call to :func:`crc_raw`. The JAX
+module's scan kernels (``_jitted_crc``, ``_crc32_chunks``,
 ``_crc64_chunks``, ``_tree_combine``) have no caller there and are left
 out. Like the reference, the main path does not call this module: it
 checks blocks on the host (``parallel/runtime.py::check_blocks``).
@@ -142,7 +158,8 @@ def _mat_compose_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return out
 
 
-# -- the device part: the port of _jitted_crc_matmul (:226-267)
+# -- the plain version's product: the port's first route for
+# _jitted_crc_matmul (:226-267)
 
 @functools.lru_cache(maxsize=8)
 def _weight(width: int, device: torch.device) -> torch.Tensor:
@@ -194,30 +211,168 @@ def _tree_combine_host(regs: np.ndarray, poly: int, width: int, chunk_len: int) 
     return int(vals[0])
 
 
+# -- the kernel's tables: built here from the GF(2) machinery above
+
+# Z_{2^j} for j < MAPS (csrc/crc_kernel.cuh kMaps): a chunk advances by
+# at most 2^31 - 2 chunks, under 2^43 bytes.
+MAPS = 43
+MASK64 = (1 << 64) - 1
+
+
+@functools.lru_cache(maxsize=None)
+def slice_table(width: int) -> np.ndarray:
+    """``[8, 256]`` uint64: ``t[k][v]``, the raw register of byte ``v``
+    followed by ``k`` zero bytes (slice-by-8)."""
+    poly = CRC32_POLY if width == 32 else CRC64_POLY
+    t = np.zeros((8, 256), dtype=np.uint64)
+    for v in range(256):
+        reg = v
+        for _ in range(8):
+            reg = (reg >> 1) ^ (poly if (reg & 1) else 0)
+        t[0, v] = reg
+    for k in range(1, 8):
+        prev = t[k - 1]
+        t[k] = (prev >> np.uint64(8)) ^ t[0][(prev & np.uint64(255)).astype(
+            np.intp)]
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def power_maps(width: int) -> np.ndarray:
+    """``[MAPS, width]`` uint64: row ``j`` holds the column images of
+    ``Z_{2^j}`` (as :func:`zero_advance_matrix` gives them), each the
+    square of the one before."""
+    poly = CRC32_POLY if width == 32 else CRC64_POLY
+    maps = np.zeros((MAPS, width), dtype=np.uint64)
+    maps[0] = _zero_byte_matrix(poly, width)
+    for j in range(1, MAPS):
+        maps[j] = _mat_compose_np(maps[j - 1], maps[j - 1])
+    return maps
+
+
+def nibble_table(cols: np.ndarray) -> np.ndarray:
+    """A map's nibble table from its column images: ``n[q * 16 + v] =
+    Z(v << 4q)``, ``len(cols) / 4 x 16`` uint64, so ``Z(x)`` is the XOR of
+    ``n[q * 16 + nibble q of x]``."""
+    width = len(cols)
+    n = np.zeros((width // 4, 16), dtype=np.uint64)
+    for i in range(4):
+        has = (np.arange(16) >> i) & 1 == 1
+        n[:, has] ^= cols[i::4, None]
+    return n.reshape(-1)
+
+
+def _as_registers(a: np.ndarray, width: int) -> torch.Tensor:
+    """uint64 registers as the kernel's: int32 bits for CRC32, int64 for
+    CRC64."""
+    if width == 32:
+        return torch.from_numpy(a.astype(np.uint32).view(np.int32))
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int64))
+
+
+@functools.lru_cache(maxsize=8)
+def _kernel_tables(width: int, device: torch.device) -> tuple:
+    """The kernel's slice-by-8 table and its ``MAPS`` nibble tables on
+    ``device``, built once per width and card."""
+    maps = np.stack([nibble_table(c) for c in power_maps(width)])
+    return (_as_registers(slice_table(width), width).to(device),
+            _as_registers(maps, width).to(device))
+
+
+def _check_chunks(data2d: torch.Tensor, width: int) -> None:
+    if width not in (32, 64):
+        raise ValueError(f"width {width}: 32 or 64")
+    if not isinstance(data2d, torch.Tensor) or data2d.dtype != torch.uint8:
+        raise TypeError("the chunks are a uint8 tensor, not "
+                        f"{getattr(data2d, 'dtype', type(data2d))}")
+    if data2d.dim() != 2 or data2d.shape[1] != CHUNK:
+        raise ValueError(f"the chunks are [L, {CHUNK}], not "
+                         f"{list(data2d.shape)}")
+    if not 1 <= data2d.shape[0] < 1 << 31:
+        raise ValueError(f"L = {data2d.shape[0]}: 1 <= L < 2^31")
+    if not data2d.is_contiguous():
+        raise ValueError("the chunks must be contiguous")
+
+
+def register(t: torch.Tensor) -> int:
+    """The register :func:`crc_raw` returns, as an int (one D2H copy)."""
+    return int(t.item()) & MASK64
+
+
+def crc_raw(data2d: torch.Tensor, width: int) -> torch.Tensor:
+    """The raw register (init 0, no final XOR) of ``L`` full chunks in
+    stream order: a ``[1]`` int64 tensor on ``data2d``'s device holding the
+    register's bits (read it with :func:`register`).
+
+    ``data2d`` is ``[L, CHUNK]`` uint8, contiguous, ``L >= 1``; ``width``
+    32 or 64. A CUDA tensor launches ``crc_blocks`` on the current stream
+    (asynchronously; a chunk row the caller's slicing left off a 16-byte
+    boundary is copied first) or raises; a CPU tensor takes
+    :func:`crc_raw_reference`."""
+    _check_chunks(data2d, width)
+    dev = data2d.device
+    if dev.type == "cpu":
+        return crc_raw_reference(data2d, width)
+    if dev.type != "cuda":
+        raise ValueError(f"crc_raw runs on cuda or cpu, not {dev}")
+
+    from lzma_rs_tpu_torch.ops import build
+
+    lib = build.load_crc()
+    with torch.cuda.device(dev):
+        if data2d.data_ptr() % 16:
+            data2d = data2d.clone()
+        slice_t, maps_t = _kernel_tables(width, dev)
+        out = torch.empty(1, dtype=torch.int64, device=dev)  # zeroed there
+        rc = lib.lzc_crc_blocks(
+            width, data2d.data_ptr(), data2d.shape[0], slice_t.data_ptr(),
+            maps_t.data_ptr(), MAPS, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("crc_blocks kernel launch failed: "
+                           + lib.lzc_error_string(rc).decode())
+    crc_raw.launches += 1
+    return out
+
+
+crc_raw.launches = 0
+
+
+def crc_raw_reference(data2d: torch.Tensor, width: int) -> torch.Tensor:
+    """The plain version of :func:`crc_raw`, on any device: the parity
+    matrix of :func:`crc_parity` on ``data2d``'s device, packed and folded
+    on the host in power-of-two batches (``_device_raw``'s loop in the JAX
+    module, ``:316-339``)."""
+    _check_chunks(data2d, width)
+    poly = CRC32_POLY if width == 32 else CRC64_POLY
+    regs = _pack_parity(crc_parity(data2d, width).cpu().numpy(), width)
+    pos = 0
+    raw = 0
+    remaining = len(regs)
+    while remaining:
+        L = 1 << (remaining.bit_length() - 1)
+        val = _tree_combine_host(regs[pos:pos + L], poly, width, CHUNK)
+        raw = val if pos == 0 else combine_raw(poly, width, raw, val,
+                                               L * CHUNK)
+        pos += L
+        remaining -= L
+    signed = raw - (1 << 64) if raw >> 63 else raw
+    return torch.tensor([signed], dtype=torch.int64, device=data2d.device)
+
+
 # -- copied from lzma_rs_tpu/ops/crc_device.py:316-385; the device is an
-# argument, the product is crc_parity
+# argument, and one crc_raw call takes every full chunk
 
 def _device_raw(data: bytes, width: int, device: torch.device) -> tuple:
     """Raw register of the full-chunk prefix of ``data``; returns
-    (raw_value, covered_len). Non-power-of-two chunk counts run as a few
-    power-of-two device batches combined on the host (cheap matrix ops)."""
-    poly = CRC32_POLY if width == 32 else CRC64_POLY
-    pos = 0
-    raw = 0
-    remaining = len(data) // CHUNK
-    first = True
-    while remaining:
-        L = 1 << (remaining.bit_length() - 1)
-        seg = data[pos : pos + L * CHUNK]
-        arr = np.frombuffer(seg, dtype=np.uint8).reshape(L, CHUNK)
-        parity = crc_parity(torch.from_numpy(arr.copy()).to(device), width)
-        regs = _pack_parity(parity.cpu().numpy(), width)
-        val = _tree_combine_host(regs, poly, width, CHUNK)
-        raw = val if first else combine_raw(poly, width, raw, val, L * CHUNK)
-        first = False
-        pos += L * CHUNK
-        remaining -= L
-    return raw, pos
+    (raw_value, covered_len). One :func:`crc_raw` call over every full
+    chunk: on the card one launch and 8 bytes back."""
+    n = len(data) // CHUNK
+    if n == 0:
+        return 0, 0
+    arr = np.frombuffer(data, dtype=np.uint8, count=n * CHUNK)
+    chunks = torch.from_numpy(arr.reshape(n, CHUNK).copy()).to(device)
+    return register(crc_raw(chunks, width)), n * CHUNK
 
 
 def _host_raw_crc(data: bytes, width: int, init: int) -> int:
@@ -251,9 +406,9 @@ def _device(device) -> torch.device:
 
 
 def crc32_device(data: bytes, device=None) -> int:
-    """CRC-32/ISO-HDLC with the chunks' product on ``device`` (by default
-    the current CUDA device; it raises without one), the tail and the
-    affine correction on the host."""
+    """CRC-32/ISO-HDLC with the chunks' register from :func:`crc_raw` on
+    ``device`` (by default the current CUDA device; it raises without one),
+    the tail and the affine correction on the host."""
     raw, covered = _device_raw(data, 32, _device(device))
     tail = data[covered:]
     if tail:
@@ -265,8 +420,9 @@ def crc32_device(data: bytes, device=None) -> int:
 
 
 def crc64_device(data: bytes, device=None) -> int:
-    """CRC-64/XZ with the chunks' product on ``device`` (by default the
-    current CUDA device; it raises without one)."""
+    """CRC-64/XZ with the chunks' register from :func:`crc_raw` on
+    ``device`` (by default the current CUDA device; it raises without
+    one)."""
     raw, covered = _device_raw(data, 64, _device(device))
     tail = data[covered:]
     if tail:

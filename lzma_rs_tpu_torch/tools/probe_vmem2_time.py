@@ -30,11 +30,12 @@ earlier calls set off does not land in one side of the comparison at
 random; the time the collector runs inside each stage is recorded beside
 it (``gc.callbacks``).
 
-:func:`crc_rows` prices the device CRC (``ops/crc_device.py``) against
-``check_blocks``' host hashing of the same blocks. The reference sends
-only blocks of 1 MiB or more to its device CRC
-(``lzma_rs_tpu/parallel/runtime.py:1628-1633``), so it runs on the host
-archive's 1 MiB blocks.
+:func:`crc_rows` prices the device CRC (``ops/crc_device.py``: the
+``crc_blocks`` kernel beside its plain version and the plain version's
+product) against ``check_blocks``' host hashing of the same blocks. The
+reference sends only blocks of 1 MiB or more to its device CRC
+(``lzma_rs_tpu/parallel/runtime.py:1628-1633``), so it runs on archives in
+1 MiB blocks.
 
 Usage (on the card; ``--device cpu`` runs the kernel's plain version,
 labelled ``cpu``)::
@@ -44,7 +45,8 @@ labelled ``cpu``)::
 
 MB (default 16) of the stdlib corpus as (a) the tpu_profile archive in
 BLOCK-byte blocks (default 8192) and (b) the stock-shaped 64 KiB-block
-one; the CRC rows on (c), the same bytes in 1 MiB blocks.
+one; the CRC rows on (c), the same bytes in 1 MiB blocks (CRC64), and on
+the tpu_profile archive in 1 MiB blocks (CRC32).
 """
 
 from __future__ import annotations
@@ -62,12 +64,14 @@ import torch
 from lzma_rs_tpu_torch.formats import xz as xz_fmt
 from lzma_rs_tpu_torch.ops import crc_device
 from lzma_rs_tpu_torch.parallel import devbench, runtime
+from lzma_rs_tpu_torch.tools import probe_rows
 from lzma_rs_tpu_torch.utils import stats
 
 KERNEL = "decode_segments"  # the kernel's stage
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12   # H100 SXM data sheet, int8 tensor cores, dense
 FP32_FLOP_PER_S = 67e12    # H100 SXM data sheet, float32 without tensor cores
+KERNEL_REPS = 5  # the CRC kernel's and its plain version's times: median
 STAGES = ("plan_xz", "stage_plans", "h2d", KERNEL, "d2h", "placement",
           "check_blocks", "check_footer")
 WHOLE = "xz_decode"
@@ -222,16 +226,33 @@ def breakdown(archive: bytes, device=None, calls: int = 5,
 
 def crc_rows(archive: bytes, device=None, reps: int = 3) -> dict:
     """The device CRC of every block of ``archive`` (CRC32 or CRC64 checks)
-    against the host's ``check_blocks`` on the same decoded blocks. Raises
-    unless each block's device CRC equals its stored check. Returns the
-    best of ``reps`` of: ``device_ms``, every block through
-    ``crc32_device`` / ``crc64_device`` (copy in, product, parity copied
-    back, the host's fold and tail), ``product_ms``, the product alone
-    (``crc_parity`` on every block's chunks already on the card, CUDA
-    events), and ``host_ms``, ``check_blocks``; the block count and
-    size; ``bound_ms``, the product's least time on an H100 (``bound_by``
-    bytes or operations, the operations at the int8 tensor-core rate),
-    and ``fp32_ops_ms``, its operations at the float32 rate."""
+    against the host's ``check_blocks`` on the same decoded blocks.
+
+    First the path a caller runs: every block through ``crc32_device`` /
+    ``crc64_device``, each equal to its stored check or it raises, with
+    ``crc_raw.launches`` set to 0 just before and read just after
+    (``launches``). Then ``crc_raw`` (the kernel on the card) against
+    ``crc_raw_reference`` (its plain version) on every block's full chunks,
+    already on the device: ``max_abs_err``, the largest difference of the
+    two registers over the blocks (0 when every block agrees bit for bit).
+    Returns the best of ``reps`` of ``device_ms``, every block through the
+    check functions from ``bytes`` (copy in, one launch, 8 bytes back, the
+    host's tail and correction), ``product_ms`` (``crc_parity``, the plain
+    version's float32 product, on every block's chunks) and ``host_ms``,
+    ``check_blocks``; the median of ``KERNEL_REPS`` of ``kernel_ms``, the
+    card's time for ``crc_raw`` on every block's chunks (a launch a block,
+    the host's calls enqueued before the card reaches them),
+    ``one_launch_ms``, the same for all the blocks' chunks as one tensor,
+    ``wrapper_ms``, a launch a block as the host issues them (the wrapper's
+    host time included), and ``plain_ms`` (``crc_raw_reference`` on every
+    block's chunks); CUDA events on the card, the host clock on the CPU.
+    Bounds on an H100: ``kernel_bound_ms``, the chunks' bytes read once and
+    the register written over 3.35 TB/s (a table CRC's two integer
+    operations a byte, at 132 SMs x 64 INT32 lanes x 1.98 GHz, take 0.12
+    ps a byte against the read's 0.30 ps, so bytes bound it on every
+    input); ``bound_ms`` (by ``bound_by``) the product's, its operations at
+    the int8 tensor-core rate, and ``fp32_ops_ms`` the same operations at
+    the float32 rate."""
     device = devbench.timing_device(device)
     (plans, block_spans, header_flags, records,
      cursor) = runtime.plan_xz(archive)
@@ -243,15 +264,21 @@ def crc_rows(archive: bytes, device=None, reps: int = 3) -> dict:
     out = runtime.xz_decode(archive, engine="native")
     blocks = [(out[o:o + n], int.from_bytes(
         archive[c:c + width // 8], "little")) for _, c, o, n in block_spans]
+    crc_device.crc_raw.launches = 0
     for i, (block, stored) in enumerate(blocks):  # also the warm call
         got = fn(block, device)
         if got != stored:
             raise RuntimeError(f"block {i}: device CRC {got:#x} != stored "
                                f"{stored:#x}")
+    launches = crc_device.crc_raw.launches
     C = crc_device.CHUNK
     chunks = [torch.from_numpy(np.frombuffer(b, dtype=np.uint8)[
         :len(b) // C * C].reshape(-1, C).copy()).to(device)
-        for b, _ in blocks]
+        for b, _ in blocks if len(b) >= C]
+    max_abs_err = max(abs(
+        crc_device.register(crc_device.crc_raw(c, width))
+        - crc_device.register(crc_device.crc_raw_reference(c, width)))
+        for c in chunks)
     best = {"device_ms": float("inf"), "product_ms": float("inf"),
             "host_ms": float("inf")}
     for _ in range(reps):
@@ -260,43 +287,82 @@ def crc_rows(archive: bytes, device=None, reps: int = 3) -> dict:
             fn(block, device)
         best["device_ms"] = min(best["device_ms"],
                                 (time.perf_counter() - t) * 1e3)
-        best["product_ms"] = min(best["product_ms"], _product_ms(
-            chunks, width, device))
+        best["product_ms"] = min(best["product_ms"], _chunks_ms(
+            chunks, crc_device.crc_parity, width, device))
         t = time.perf_counter()
         runtime.check_blocks(archive, out, block_spans, header_flags)
         best["host_ms"] = min(best["host_ms"],
                               (time.perf_counter() - t) * 1e3)
+    every = [torch.cat(chunks)]
+
+    def median(rows: list, fn, hold: bool) -> float:
+        return statistics.median(_chunks_ms(rows, fn, width, device, hold)
+                                 for _ in range(KERNEL_REPS))
+
+    times = {"kernel_ms": median(chunks, crc_device.crc_raw, True),
+             "one_launch_ms": median(every, crc_device.crc_raw, True),
+             "wrapper_ms": median(chunks, crc_device.crc_raw, False),
+             "plain_ms": median(chunks, crc_device.crc_raw_reference,
+                                False)}
+    del every
+    nchunks = sum(c.shape[0] for c in chunks)
     # the product's floor: each byte read once, and 2 x 32,768 x width
     # operations a chunk over the chunks this archive has, at the card's
     # fastest exact rate for 0/1 operands: int8 tensor cores with int32
     # sums (a sum is at most 32,768). ``fp32_ops_ms``: the same operations
-    # at the float32 rate this implementation's product runs at.
-    ops = 2 * sum(c.shape[0] for c in chunks) * C * 8 * width
+    # at the float32 rate the plain version's product runs at.
+    ops = 2 * nchunks * C * 8 * width
     t_bytes, t_ops = len(out) / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
     return {"device": devbench.device_info(device), "blocks": len(blocks),
             "block_bytes": max(len(b) for b, _ in blocks), "width": width,
-            "out_bytes": len(out), **best,
+            "out_bytes": len(out), "chunks": nchunks, **best,
+            "launches": launches, "max_abs_err": max_abs_err, **times,
+            "kernel_bound_ms": (nchunks * C + 8) / HBM_BYTES_PER_S * 1e3,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "fp32_ops_ms": ops / FP32_FLOP_PER_S * 1e3}
 
 
-def _product_ms(chunks: list, width: int, device: torch.device) -> float:
-    """Milliseconds of ``crc_parity`` over every block's chunks (CUDA
-    events on the card, the host clock on the CPU)."""
+def _chunks_ms(chunks: list, fn, width: int, device: torch.device,
+               hold: bool = False) -> float:
+    """Milliseconds of ``fn(c, width)`` over every block's chunks ``c``:
+    CUDA events on the card, the host clock on the CPU. ``hold`` keeps the
+    card's stream busy before the start event, so every call is enqueued
+    before the card reaches it and the time is the card's alone."""
     if device.type != "cuda":
         t = time.perf_counter()
         for c in chunks:
-            crc_device.crc_parity(c, width)
+            fn(c, width)
         return (time.perf_counter() - t) * 1e3
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    if hold:
+        torch.cuda._sleep(probe_rows.HOLD_CYCLES)
     start.record()
     for c in chunks:
-        crc_device.crc_parity(c, width)
+        fn(c, width)
     stop.record()
     torch.cuda.synchronize(device)
     return start.elapsed_time(stop)
+
+
+def crc_text(c: dict) -> str:
+    """One line of :func:`crc_rows`."""
+    return (f"{c['blocks']} blocks of <= {c['block_bytes']} B, "
+            f"CRC{c['width']}: each block's device CRC == its stored check "
+            f"({c['launches']} launches); crc_raw against its plain version "
+            f"on every block's chunks: max_abs_err {c['max_abs_err']}; "
+            f"kernel {c['kernel_ms']:.4f} ms on the card over the "
+            f"{c['chunks']} chunks, a launch a block ({c['one_launch_ms']:.4f}"
+            f" ms in one launch; {c['wrapper_ms']:.4f} ms with the wrapper's "
+            f"host time; median of {KERNEL_REPS}), bound "
+            f"{c['kernel_bound_ms']:.4f} ms by bytes; plain version "
+            f"{c['plain_ms']:.2f} ms, its product (library_ms) "
+            f"{c['product_ms']:.3f} ms (the product's bound "
+            f"{c['bound_ms']:.4f} ms by {c['bound_by']} at the int8 rate, "
+            f"{c['fp32_ops_ms']:.3f} ms of float32 operations); the whole "
+            f"check functions {c['device_ms']:.2f} ms against the host "
+            f"checks {c['host_ms']:.2f} ms (each the best of its calls)")
 
 
 def _text(name: str, v: dict) -> str:
@@ -342,13 +408,11 @@ def main(argv=None) -> None:
               flush=True)
         report[key] = r
     c = crc_rows(corpus.stock_archive(data, 1 << 20), device)
-    print(f"(c) {c['blocks']} blocks of <= {c['block_bytes']} B, CRC"
-          f"{c['width']}: device CRC {c['device_ms']:.2f} ms (the product "
-          f"alone {c['product_ms']:.2f} ms, bound {c['bound_ms']:.4f} ms "
-          f"by {c['bound_by']} at the int8 rate, {c['fp32_ops_ms']:.3f} ms "
-          f"of float32 operations) against the host checks "
-          f"{c['host_ms']:.2f} ms", flush=True)
+    print(f"(c) {crc_text(c)}", flush=True)
     report["c_crc"] = c
+    c = crc_rows(corpus.tpu_archive(data, 1 << 20), device)
+    print(f"(c32) {crc_text(c)}", flush=True)
+    report["c32_crc"] = c
     print(json.dumps(report))
 
 

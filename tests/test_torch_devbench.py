@@ -162,6 +162,24 @@ def test_the_crc_rows_on_the_cpu():
     assert r["bound_ms"] == pytest.approx(2 * 9 * 32768 * 64 / 1979e12 * 1e3)
     assert r["fp32_ops_ms"] == pytest.approx(2 * 9 * 32768 * 64 / 67e12
                                              * 1e3)
+    # the kernel's rows: on the CPU crc_raw is its plain version (no
+    # launch); its bound is the 9 chunks' bytes read once
+    assert r["chunks"] == 9 and r["launches"] == 0 and r["max_abs_err"] == 0
+    assert all(r[k] >= 0 for k in ("kernel_ms", "one_launch_ms",
+                                   "wrapper_ms", "plain_ms"))
+    assert r["kernel_bound_ms"] == pytest.approx(
+        (9 * 4096 + 8) / 3.35e12 * 1e3)
+    assert "max_abs_err 0" in pv.crc_text(r)
+
+
+def test_the_crc_rows_of_a_crc32_archive_on_the_cpu():
+    data = text(40000, 15)
+    r = pv.crc_rows(corpus.tpu_archive(data, 16384), CPU, reps=1)
+    assert (r["blocks"], r["width"], r["chunks"]) == (3, 32, 9)
+    assert r["launches"] == 0 and r["max_abs_err"] == 0
+    # the product's operations at CRC32 take less than the block's bytes
+    assert r["bound_by"] == "bytes"
+    assert r["bound_ms"] == pytest.approx(len(data) / 3.35e12 * 1e3)
 
 
 def test_devbench_on_the_cpu():
@@ -311,6 +329,9 @@ def test_the_crc_rows_on_the_card():
     data = text(3 << 20, 14)
     r = pv.crc_rows(corpus.stock_archive(data, 1 << 20), dev, reps=2)
     assert r["blocks"] == 3 and r["product_ms"] > 0
+    # one kernel launch a block on the checks' path
+    assert r["launches"] == 3 and r["kernel_ms"] > 0 and r["chunks"] == 768
+    assert r["max_abs_err"] == 0
 
 
 def test_time_vmem_step_on_the_cpu(capsys):

@@ -416,7 +416,8 @@ def test_the_tools_list_the_tpu_probes_rows():
     ("probes_round4.cu", "round4"), ("probe_round4.cuh", "round4"),
     ("probes_bisect.cu", "bisect"), ("probe_bisect.cuh", "bisect"),
     ("step_cost.cu", "stepcost"), ("decode_lanes.cu", "lanedec"),
-    ("lane_engine.cuh", "lanedec")))
+    ("lane_engine.cuh", "lanedec"), ("crc_blocks.cu", "crc"),
+    ("crc_kernel.cuh", "crc")))
 def test_an_edit_rebuilds_only_its_library(edited, changed, tmp_path):
     """An edit rebuilds the libraries whose sources hold the file, and no
     other: ``changed``, and ``mosaic3``, ``mosaic4`` and ``round4`` too for
