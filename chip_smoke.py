@@ -82,6 +82,12 @@ the port's native host library into
     iterations, 32,768 and 0; each row's kernel against its plain version
     on both inputs at 1,024 iterations (the plain version at 16,384 would
     take minutes), bit for bit (output, final table, four state slots);
+    each row's lanes a block, shared memory a block, registers and spills
+    beside its ns and cycles an iteration; every chain kernel's loop read
+    from ``cuobjdump -sass`` (shared-memory loads, no global ones); the
+    measured cost of one more chained read (sel1-sel4's slope); and, as a
+    model at assumed latencies, the SASS chain of sel1 and blend_par3
+    (``tools/sass_chain.py``);
 12. the bisect probe kernel (``csrc/probes_bisect.cu``): the 16 rows of
     ``lzma_rs_tpu_torch/tools/probe_lane2d_bisect.py`` (the bit decode's
     stages added one by one) on the tool's input and on a seeded one (a
@@ -508,6 +514,89 @@ def probes_phase(torch, dev, phase: str, rows, wrappers, source: str,
     return entries, by
 
 
+# the round4 kernels of the kernel line's rows (mangled-name parts)
+ROUND4_SASS = {"select_chain": "select_chain_kernelIiLi1ELi1EE",
+               "blend_chain": "blend_chain_kernelILi0ELi3EE"}
+
+
+def round4_blocks(dev, by: dict, entries: list, path: str, peaks) -> None:
+    """Phase 11's blocks: each row's lanes a block, shared memory a block
+    and its kernel's registers and spills (``cudaFuncGetAttributes``)
+    beside its time an iteration; every chain kernel's iteration loop
+    reading shared memory and no global memory (``cuobjdump -sass``); the
+    measured cost of one more chained read (the slope of sel1-sel4's
+    cycles an iteration); and for the kernel line's rows (sel1,
+    blend_par3) a model, printed only: the tool's iterations x the cycles
+    of one iteration's dependent chain in the SASS at assumed latencies
+    (``tools/sass_chain.py``) over the max SM clock. The entries of
+    ``entries`` get the registers and spills their builds report."""
+    import numpy as np
+
+    from lzma_rs_tpu_torch.ops import probes_round4 as pr4
+    from lzma_rs_tpu_torch.tools import probe_round4, sass_chain
+
+    attrs = {}
+    for name, make in probe_round4.ROWS_OF_TOOL:
+        fn, args, _ = make(dev)
+        x, _ = fn.view(*args)
+        blend = fn.wrapper is pr4.blend_chain
+        mode, elem = fn.kwargs["mode"], x.element_size()
+        rows = pr4.staged_rows(mode, x.shape[0], blend=blend)
+        lb = pr4.lanes_per_block(rows, elem)
+        a = attrs[name] = pr4.kernel_attributes(mode, fn.kwargs.get("n"),
+                                                elem=elem, blend=blend)
+        t, z = by[name, "tool"], by[name, "seeded"]
+        per_it = "; ".join(
+            f"{w} {r['ns_per_iter']:.2f} ns, {r['cycles_per_iter']:.1f} "
+            "cycles an iteration" if r["ns_per_iter"] is not None else
+            f"{w} no slope" for w, r in (("tool's", t), ("seeded", z)))
+        say("11 probes", f"{name}: [{x.shape[0]}, {x.shape[1]}] "
+            f"{x.dtype}, {lb} lanes a block ({-(-x.shape[1] // lb)} "
+            f"blocks), {pr4.block_bytes(rows, lb, elem)} B of shared memory "
+            f"a block ({rows} rows); {a['registers']} registers, "
+            f"{a['local_bytes']} B local a thread (spills), opted in to "
+            f"{a['max_dynamic_shared']} B; {per_it}")
+    sel = [by[f"sel{n}", "tool"]["cycles_per_iter"] for n in range(1, 5)]
+    if None not in sel:
+        link = float(np.polyfit(range(1, 5), sel, 1)[0])
+        say("11 probes", f"one more chained read (address, shared load, add, "
+            f"and) costs {link:.1f} cycles, measured: the slope of sel1-sel4 "
+            f"({', '.join(f'{c:.1f}' for c in sel)} cycles an iteration)")
+    sass = sass_listing(path)
+    if not sass:
+        say("11 probes", "chain model: not read (no cuobjdump)")
+    else:
+        chains = {k: v for k, v in sass.items() if "chain_kernel" in k
+                  and "select_chain_kernelIiLi0ELi1EE" not in k}  # not null
+        shared = {k: bool(sass_chain.loop_body(v, sass_chain.reads_shared))
+                  for k, v in chains.items()}
+        check(len(chains) == 14 and all(shared.values()), "phase 11: chain "
+              "loops without shared-memory loads or with global ones: "
+              f"{[k for k, ok in shared.items() if not ok]} of "
+              f"{len(chains)}")
+        say("11 probes", f"{len(chains)} chain kernels (all but null): each "
+            "iteration loop reads shared memory and no global memory")
+    for e in entries:
+        a = attrs[e["row"]]
+        e.update(registers=a["registers"], local_bytes=a["local_bytes"])
+        if not sass:
+            continue
+        part = ROUND4_SASS[e["name"]]
+        kern = [v for k, v in sass.items() if part in k]
+        check(len(kern) == 1, f"phase 11: {len(kern)} kernels {part}")
+        body = sass_chain.loop_body(kern[0], sass_chain.reads_shared)
+        cyc = sass_chain.chain_cycles(body)
+        n_lds = sum(sass_chain.parse(i)[0].startswith("LDS") for i in body)
+        model_us = e["iters"] * cyc / peaks.clock_mhz
+        say("11 probes", f"{e['name']} ({e['row']}): a model, not a "
+            f"measurement: the loop's {len(body)} instructions ({n_lds} "
+            f"shared loads) hold a chain of {cyc:.1f} cycles an iteration "
+            f"at assumed latencies (integer {sass_chain.ALU}, shared load "
+            f"{sass_chain.LATENCY['LDS']}), {model_us:.1f} us at "
+            f"{e['iters']} iterations; measured {e['ms'] * 1e3:.1f} us, "
+            f"the bound {e['bound_ms'] * 1e3:.2f} us ({e['bound_by']})")
+
+
 def sass_listing(path: str) -> dict:
     """Each kernel's SASS in ``path`` (``cuobjdump -sass``), by mangled
     name: (address, instruction) pairs; {} without cuobjdump."""
@@ -539,11 +628,9 @@ def opcode(ins: str) -> str:
 def loads_in_loops(listing) -> tuple:
     """(global loads inside a loop, global loads) of one kernel's SASS: a
     loop spans a backward branch's target to the branch."""
-    spans = []
-    for addr, ins in listing:
-        m = re.search(r"\bBRA\s+`?\(?(0x[0-9a-f]+)", ins)
-        if m and int(m.group(1), 16) < addr:
-            spans.append((int(m.group(1), 16), addr))
+    from lzma_rs_tpu_torch.tools import sass_chain
+
+    spans = sass_chain.loops(listing)
     loads = [a for a, ins in listing if opcode(ins).startswith("LDG")]
     return sum(any(lo <= a <= hi for lo, hi in spans) for a in loads), \
         len(loads)
@@ -1919,10 +2006,13 @@ def main() -> None:
         MOSAIC4_MAIN_ROW)[0]
 
     # -- 11. the round4 probe kernels --------------------------------
-    probe_entries += probes_phase(
+    entries, by = probes_phase(
         torch, dev, "11", probe_round4.ROWS_OF_TOOL, probes_round4.WRAPPERS,
         "lzma_rs_tpu_torch/csrc/probes_round4.cu", ROUND4_REPLACES,
-        ROUND4_MAIN_ROW)[0]
+        ROUND4_MAIN_ROW)
+    round4_blocks(dev, by, entries, build.build_library(build.ROUND4).path,
+                  peaks)
+    probe_entries += entries
 
     # -- 12. the bisect probe kernel ---------------------------------
     from lzma_rs_tpu_torch.ops import probes_bisect

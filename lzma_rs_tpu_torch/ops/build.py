@@ -397,8 +397,12 @@ def bind_round4(lib: ctypes.CDLL) -> ctypes.CDLL:
         (lib.lzr4_select_chain, [ci, ci, ci, vp, ci, ci, ci, vp, vp, ci,
                                  vp]),
         (lib.lzr4_blend_chain, [ci, ci, vp, ci, ci, vp, vp, ci, vp]),
+        (lib.lzr4_lanes_per_block, [ci, ci]),
+        (lib.lzr4_staged_rows, [ci, ci]),
     ):
         fn.restype, fn.argtypes = ci, args
+    lib.lzr4_block_bytes.restype = ctypes.c_longlong
+    lib.lzr4_block_bytes.argtypes = [ci, ci, ci]
     lib.lzr4_error_string.restype = ctypes.c_char_p
     lib.lzr4_error_string.argtypes = [ci]
     return lib
@@ -406,9 +410,13 @@ def bind_round4(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=1)
 def load_round4() -> ctypes.CDLL:
-    """Build (if needed) and bind the round4 probe kernels; one handle per
-    process."""
-    return bind_round4(ctypes.CDLL(build_library(ROUND4).path))
+    """Build (if needed) and bind the round4 probe kernels (and the card
+    build's ``lzr4_kernel_attributes``); one handle per process."""
+    lib = bind_round4(ctypes.CDLL(build_library(ROUND4).path))
+    ci = ctypes.c_int
+    lib.lzr4_kernel_attributes.restype = ci
+    lib.lzr4_kernel_attributes.argtypes = [ci] * 4 + [ctypes.c_void_p]
+    return lib
 
 
 def bind_bisect(lib: ctypes.CDLL) -> ctypes.CDLL:

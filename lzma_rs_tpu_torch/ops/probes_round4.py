@@ -27,7 +27,12 @@ int32, and ``c(i) = clip(i, 0, R - 1)``.
 
 Each wrapper launches its hand-written kernel (``csrc/probes_round4.cu``)
 on a CUDA tensor, or raises; on a CPU tensor it runs its plain PyTorch
-version (``*_reference``). ``<wrapper>.launches`` counts kernel launches,
+version (``*_reference``). A kernel's block holds the whole columns of
+:func:`lanes_per_block` lanes in shared memory (the rows
+:func:`staged_rows` names, ``[rows, lb]`` lane-minor: the TPU probes' VMEM
+scratch), so each iteration's chain waits on shared-memory latency, not
+on L2; a column over 227 KB (:data:`MAX_SHARED`) is refused on the card
+(the plain version takes any ``R``). ``<wrapper>.launches`` counts kernel launches,
 ``<wrapper>.reference`` is the plain version. Inputs are not changed
 (``blend_chain`` writes its own copy of the table). The output is ``st0``
 [1, L]; ``full=True`` also returns a dict: ``state`` [4, L], and
@@ -39,6 +44,8 @@ Integer semantics are the probes': wrapping int32 and an arithmetic
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from lzma_rs_tpu_torch.ops.probes import _stream
@@ -47,10 +54,11 @@ from lzma_rs_tpu_torch.ops.probes_mosaic import (_check, _check_int,
                                                  _check_same_device, _wrap)
 
 __all__ = [
-    "SELECT_MODES", "BLEND_MODES", "MASKS", "WRAPPERS", "select_ops",
-    "blend_ops", "rows_reached", "select_chain", "select_chain_reference",
-    "blend_chain", "blend_chain_reference", "launch_select_chain",
-    "launch_blend_chain",
+    "SELECT_MODES", "BLEND_MODES", "MASKS", "WRAPPERS", "MAX_SHARED",
+    "select_ops", "blend_ops", "rows_reached", "lanes_per_block",
+    "staged_rows", "block_bytes", "kernel_attributes", "select_chain",
+    "select_chain_reference", "blend_chain", "blend_chain_reference",
+    "launch_select_chain", "launch_blend_chain",
 ]
 
 SELECT_MODES = ("null", "sel", "par3", "fused", "gather")
@@ -68,6 +76,9 @@ GATHER_ROWS = 8
 GATHER_LANES = 128       # gather: lane l follows lane l % 128
 BLEND_ROWS = 10          # m + 9 inside the table
 _ELEM = {torch.int32: 4, torch.int16: 2, torch.int8: 1}
+MAX_LANES = 32           # lanes (threads) a block at most
+MAX_SHARED = 232448      # dynamic shared memory a block may have (227 KB)
+CHUNK = 16               # bytes a staging copy moves
 
 
 def _offsets(mode: str, n: int) -> tuple:
@@ -108,6 +119,48 @@ def rows_reached(mode: str, n: int, mask: int, R: int, *,
     top = {"sel": n - 1, "mask": 1, "oldw": 2}.get(
         mode, max(_offsets(mode, n) + (WRITES if blend else ())))
     return min(R, min(mask, R - 1) + top + 1)
+
+
+def lanes_per_block(rows: int, elem: int) -> int:
+    """Lanes a kernel's block holds: the largest power of two <= 32 whose
+    columns of ``rows`` entries of ``elem`` bytes fit in
+    :data:`MAX_SHARED`; 0 when one column does not (``probe_round4.cuh``'s
+    ``lanes_per_block``)."""
+    lb = MAX_LANES
+    while lb and lb * rows * elem > MAX_SHARED:
+        lb //= 2
+    return lb
+
+
+def staged_rows(mode: str, R: int, *, blend: bool = False) -> int:
+    """The table rows a block stages: none for ``null`` (it reads no
+    table), the gather's 8, else all ``R``."""
+    if blend:
+        return R
+    return {"null": 0, "gather": GATHER_ROWS}.get(mode, R)
+
+
+def block_bytes(rows: int, lb: int, elem: int) -> int:
+    """A block's dynamic shared memory: ``rows`` x ``lb`` entries, in
+    whole 16-byte chunks."""
+    return -(-rows * lb * elem // CHUNK) * CHUNK
+
+
+def kernel_attributes(mode: str, n: int | None = None, *, elem: int = 4,
+                      blend: bool = False) -> dict:
+    """The card build's attributes of the kernel of (``mode``, ``n``,
+    ``elem``): ``registers`` and ``local_bytes`` a thread (spills),
+    ``static_shared`` bytes and the ``max_dynamic_shared`` bytes it is
+    opted in to (``cudaFuncGetAttributes``). Needs the card."""
+    ns, modes = (BLEND_NS, BLEND_MODES) if blend else (SELECT_NS,
+                                                       SELECT_MODES)
+    n = ns[mode][0] if n is None else n
+    out = (ctypes.c_int * 4)()
+    lib = _cuda_lib()
+    _raise_on(lib, lib.lzr4_kernel_attributes(
+        int(blend), modes.index(mode), n, elem, out), "kernel_attributes")
+    return dict(zip(("registers", "local_bytes", "static_shared",
+                     "max_dynamic_shared"), out))
 
 
 # -- plain versions ------------------------------------------------------

@@ -6,9 +6,12 @@ names (``CASES``, in its order), build functions, shapes and inputs:
 (2,048 lanes), ``arange % 2047`` (narrow tables ``arange % 97``), state
 ``[4, S, 128]`` with slot 0 the seed ``full(1)`` (the tool's first call;
 ``narrow_1`` has no seed: zeros). On the TPU the probe asked what a
-one-hot pass over the table costs and whether Mosaic fuses passes; on
-the card the same rows ask what a lane's dependent reads from a 6.4 MB
-lane-minor table cost (``sel1``-``sel4``), whether independent reads
+one-hot pass over the table (in VMEM scratch) costs and whether Mosaic
+fuses passes; on the card the same rows ask what a lane's dependent reads
+of its column in shared memory cost (``sel1``-``sel4``: a block holds 32
+lanes' 3,136-byte columns, ``sel_s`` 16 lanes' 8 KB ones, as the
+decoder holds its probability table; the 6.4 MB lane-minor table is
+staged from device memory once a call), whether independent reads
 overlap (``par3``, ``fused3``), what writes before the reads add
 (``blend_par3``, ``fusedb*``, ``blendmask512``, ``blendoldw512``),
 whether a narrower table helps (``i16_1``, ``i8_1``), and what a read of

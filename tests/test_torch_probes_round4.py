@@ -34,7 +34,8 @@ import torch
 
 from lzma_rs_tpu_torch.ops import build
 from lzma_rs_tpu_torch.ops import probes_round4 as pr4
-from lzma_rs_tpu_torch.tools import probe_mosaic3, probe_rows, probe_round4
+from lzma_rs_tpu_torch.tools import (probe_mosaic3, probe_rows, probe_round4,
+                                     sass_chain)
 
 from test_torch_probes import (TOOLS, assert_same, jax_tool,  # noqa: F401
                                pallas)
@@ -176,15 +177,27 @@ SELECT_BUILDS = [(m, n) for m, ns in pr4.SELECT_NS.items() for n in ns]
 BLEND_BUILDS = [(m, n) for m, ns in pr4.BLEND_NS.items() for n in ns]
 
 
+# (R, L, mask, iterations): blocks of 32 lanes (784 int32 rows), 16
+# (2,100), 8 (5,000) and 1 (58,112: one column of 232,448 B); whole,
+# part-filled and single-lane last blocks (L 1, 31, 33, 130); rows that
+# move in 16-byte chunks (L a multiple of 16) and entry by entry
+TILINGS = ((784, 256, 1023, 60), (12, 256, 2047, 60), (2100, 130, 2047, 60),
+           (784, 1, 1023, 60), (784, 31, 2047, 60), (784, 33, 1023, 60),
+           (2100, 256, 2047, 60), (5000, 64, 1023, 40), (5000, 33, 2047, 40),
+           (58112, 2, 1023, 8))
+
+
 @pytest.mark.parametrize("mode,n", SELECT_BUILDS)
 def test_host_build_select_chain(mode, n, host_lib):
     """Full-range and small tables and states, both masks, tables smaller
-    and larger than the mask, 256 lanes (two gather tiles) and 130 (a
-    part-filled block); the narrow types for ``sel`` with n = 1."""
+    and larger than the mask, the block tilings of ``TILINGS`` (256 lanes:
+    two gather tiles, eight blocks of 32 gathering from four 32-lane
+    slices of them; 130: a part-filled block); the narrow types for
+    ``sel`` with n = 1 (int16 rows of 64 B, int8 rows of 32 B: chunks
+    where L is a multiple of 8 or 16)."""
     dtypes = (torch.int32, torch.int16, torch.int8) if (mode, n) == (
         "sel", 1) else (torch.int32,)
-    for i, (R, L, mask) in enumerate(((784, 256, 1023), (12, 256, 2047),
-                                      (2100, 130, 2047))):
+    for i, (R, L, mask, iters) in enumerate(TILINGS):
         if mode == "gather" and L % 128:
             continue
         for dtype in dtypes:
@@ -192,7 +205,7 @@ def test_host_build_select_chain(mode, n, host_lib):
             x = ints((R, L), 10 + i, (int(info.min), int(info.max) + 1),
                      dtype)
             for st in (ints((4, L), 20 + i), ints((4, L), 30 + i, (-9, 9))):
-                kw = {"mode": mode, "n": n, "mask": mask, "iters": 60,
+                kw = {"mode": mode, "n": n, "mask": mask, "iters": iters,
                       "full": True}
                 assert_same(pr4.launch_select_chain(host_lib, x, st, **kw),
                             pr4.select_chain_reference(x, st, **kw))
@@ -201,15 +214,67 @@ def test_host_build_select_chain(mode, n, host_lib):
 @pytest.mark.parametrize("mode,n", BLEND_BUILDS)
 def test_host_build_blend_chain(mode, n, host_lib):
     """Tables of 10 rows (every index clips), 512, 784 and 1,100 (past the
-    mask), full-range and small, at 130 lanes."""
-    for i, (R, lo_hi) in enumerate(((10, INT32), (512, INT32),
-                                    (784, (-300, 300)), (1100, INT32))):
-        x = ints((R, 130), 40 + i, lo_hi)
-        for st in (ints((4, 130), 50 + i), ints((4, 130), 60 + i, (0, 4))):
-            kw = {"mode": mode, "n": n, "iters": 60, "full": True}
+    mask), full-range and small, at 130 lanes; and the block tilings of
+    ``TILINGS``, each block's slice written back (the final table)."""
+    cases = [(R, 130, lo_hi, 60) for R, lo_hi in (
+        (10, INT32), (512, INT32), (784, (-300, 300)), (1100, INT32))]
+    cases += [(R, L, INT32, iters) for R, L, _, iters in TILINGS if R >= 10]
+    for i, (R, L, lo_hi, iters) in enumerate(cases):
+        x = ints((R, L), 40 + i, lo_hi)
+        for st in (ints((4, L), 50 + i), ints((4, L), 60 + i, (0, 4))):
+            kw = {"mode": mode, "n": n, "iters": iters, "full": True}
             got = pr4.launch_blend_chain(host_lib, x, st, **kw)
             assert_same(got, pr4.blend_chain_reference(x, st, **kw))
             assert not torch.equal(got[1]["table"], x)  # it writes
+
+
+def test_lanes_per_block_of_the_host_build_equals_the_wrappers(host_lib):
+    """``lzr4_lanes_per_block``, ``lzr4_staged_rows`` and
+    ``lzr4_block_bytes`` of the g++ build against their Python copies
+    :func:`pr4.lanes_per_block`, :func:`pr4.staged_rows` and
+    :func:`pr4.block_bytes`: on each tool row's staged rows (32 lanes a
+    block, 16 for ``sel_s``'s 2,048 rows), on ``TILINGS``' shapes in every
+    entry size, and on a sweep of column sizes around each power of two's
+    limit; a block's shared memory stays within 232,448 B."""
+    want = {"sel_s2": 16, "sel_s8": 16, "sel_s2f4": 16}
+    for row, make in probe_round4.ROWS_OF_TOOL:
+        fn, args, _ = make("cpu")
+        x, _ = fn.view(*args)
+        blend = fn.wrapper is pr4.blend_chain
+        mode, elem = fn.kwargs["mode"], x.element_size()
+        rows = pr4.staged_rows(mode, x.shape[0], blend=blend)
+        if not blend:
+            assert rows == host_lib.lzr4_staged_rows(
+                pr4.SELECT_MODES.index(mode), x.shape[0]), row
+        lb = pr4.lanes_per_block(rows, elem)
+        assert lb == host_lib.lzr4_lanes_per_block(rows, elem)
+        assert lb == want.get(row, 32), row
+        assert pr4.block_bytes(rows, lb, elem) == host_lib.lzr4_block_bytes(
+            rows, lb, elem) <= pr4.MAX_SHARED
+    for mode in pr4.SELECT_MODES:
+        for R in (1, 8, 784, 2048, 58113):
+            assert pr4.staged_rows(mode, R) == host_lib.lzr4_staged_rows(
+                pr4.SELECT_MODES.index(mode), R), (mode, R)
+    assert pr4.block_bytes(784, 32, 4) == 100352
+    assert pr4.block_bytes(3, 1, 1) == 16
+    got = {R: pr4.lanes_per_block(R, 4) for R, *_ in TILINGS}
+    assert got == {784: 32, 12: 32, 2100: 16, 5000: 8, 58112: 1}
+    assert pr4.lanes_per_block(58113, 4) == 0
+    assert pr4.staged_rows("null", 784) == 0
+    assert pr4.staged_rows("gather", 784) == 8
+    sizes = sorted({c // elem + d for lb in (1, 2, 4, 8, 16, 32, 64)
+                    for c in [pr4.MAX_SHARED // lb] for elem in (1, 2, 4)
+                    for d in (-1, 0, 1)} | {0, 1, 2})
+    for elem in (1, 2, 4):
+        for R in sizes:
+            lb = pr4.lanes_per_block(R, elem)
+            assert host_lib.lzr4_lanes_per_block(R, elem) == lb, (R, elem)
+            for b in {lb, 1, 32}:
+                assert pr4.block_bytes(R, b, elem) == \
+                    host_lib.lzr4_block_bytes(R, b, elem), (R, b, elem)
+            assert lb * R * elem <= pr4.MAX_SHARED
+            assert lb == 32 or lb == 0 and R * elem > pr4.MAX_SHARED \
+                or 2 * lb * R * elem > pr4.MAX_SHARED
 
 
 def test_host_build_refuses_bad_arguments(host_lib):
@@ -231,6 +296,68 @@ def test_host_build_refuses_bad_arguments(host_lib):
                                 mode="gather", iters=1)
     with pytest.raises(RuntimeError, match="bad argument"):
         pr4.launch_blend_chain(host_lib, x[:9], st, mode="mask", iters=1)
+    # one int32 column of 58,113 rows is 232,452 B: over a block's shared
+    # memory (58,112 rows fit, one lane a block)
+    big, st2 = ints((58113, 2), 72), ints((4, 2), 73)
+    for mode in ("sel", "par3"):
+        with pytest.raises(RuntimeError, match="bad argument"):
+            pr4.launch_select_chain(host_lib, big, st2, mode=mode, iters=1)
+    with pytest.raises(RuntimeError, match="bad argument"):
+        pr4.launch_blend_chain(host_lib, big, st2, mode="par3", iters=1)
+    # null stages no rows and gather 8: such a table runs
+    for mode, L in (("null", 2), ("gather", 128)):
+        xs = (ints((58113, L), 75), ints((4, L), 76))
+        kw = {"mode": mode, "iters": 5, "full": True}
+        assert_same(pr4.launch_select_chain(host_lib, *xs, **kw),
+                    pr4.select_chain_reference(*xs, **kw))
+
+
+# -- the chain read from SASS -------------------------------------------
+
+# a loop in the shape of sel1's (mix, clip, address, shared load, add,
+# and; the counter), after a staging loop of cp.async copies
+LISTING = [(0x10, "LDGSTS.E.BYPASS.128 [R5], desc[UR4][R2.64]"),
+           (0x20, "IADD3 R5, R5, 0x10, RZ"),
+           (0x30, "ISETP.NE.AND P0, PT, R5, R7, PT"),
+           (0x40, "@P0 BRA 0x10"),
+           (0x50, "IMAD R3, R2, 0x9e33, RZ"),
+           (0x60, "LOP3.LUT R3, R3, 0x3ff, RZ, 0xc0, !PT"),
+           (0x70, "VIMNMX R3, R3, 0x30f, PT"),
+           (0x80, "LEA R3, R3, UR6, 0x7"),
+           (0x90, "LDS R4, [R3]"),
+           (0xa0, "IADD3 R0, R0, 0x1, RZ"),
+           (0xb0, "IADD3 R2, R4, R2, RZ"),
+           (0xc0, "ISETP.NE.AND P0, PT, R0, UR5, PT"),
+           (0xd0, "LOP3.LUT R2, R2, 0xffff, RZ, 0xc0, !PT"),
+           (0xe0, "@P0 BRA 0x50"),
+           (0xf0, "STG.E desc[UR4][R8.64], R2")]
+
+
+def test_chain_read_from_sass():
+    """``tools/sass_chain.py`` on a hand-written listing: the two loops,
+    the one that reads shared memory, and its chain (IMAD, LOP3, VIMNMX,
+    LEA: 4 cycles each; LDS 30; IADD3, LOP3: 4 each: 54 cycles, the
+    counter's IADD3 and ISETP off the chain); operands as destinations and
+    sources."""
+    assert sass_chain.loops(LISTING) == [(0x10, 0x40), (0x50, 0xe0)]
+    body = sass_chain.loop_body(LISTING, sass_chain.reads_shared)
+    assert body == [ins for a, ins in LISTING if 0x50 <= a <= 0xe0]
+    assert not sass_chain.reads_shared([i for _, i in LISTING[:4]])
+    assert sass_chain.loop_body(LISTING, lambda b: False) == []
+    assert sass_chain.chain_cycles(body) == 54
+    # two independent loads of one index overlap: one load time more
+    wide = body[:5] + ["LDS R9, [R3+0x880]", "IADD3 R2, R9, R2, RZ"] + \
+        body[5:]
+    assert sass_chain.chain_cycles(wide) == 54 + 4 + 1
+    assert sass_chain.parse("@!P1 IADD3 R4, P2, PT, R2.reuse, R3, RZ") == (
+        "IADD3", ["R4", "P2"], ["P1", "R2", "R3"])
+    assert sass_chain.parse("LDS.64 R4, [R3+UR4]") == (
+        "LDS.64", ["R4", "R5"], ["R3", "UR4"])
+    assert sass_chain.parse("STS [R3+0x4], R5") == ("STS", [], ["R3", "R5"])
+    assert sass_chain.parse("PLOP3.LUT P0, P2, P1, PT, PT, 0x80, 0x0") == (
+        "PLOP3.LUT", ["P0", "P2"], ["P1"])
+    assert sass_chain.parse("LDG.E R5, desc[UR4][R2.64]")[2] == [
+        "UR4", "R2", "R3"]
 
 
 # -- the wrappers and the tool -------------------------------------------
@@ -373,3 +500,53 @@ def test_kernel_equals_plain_version_on_card(kernel, cuda_device):
                                                **kw))
             runs += 1
     assert runs and wrapper.launches == before + runs
+
+
+@pytest.mark.cuda
+def test_kernel_tilings_on_card(cuda_device):
+    """The block tilings of ``TILINGS`` on the card, every select and blend
+    build against its plain version (the gather at 256 lanes; narrow
+    tables for ``sel`` with n = 1), and a table that starts 4 bytes into
+    its storage (the select kernel stages it entry by entry; the blend
+    wrapper first clones it into an aligned copy, so the blends' entry-by-
+    entry staging is covered by the part-filled blocks of L = 1, 31, 33
+    and 130); a column over 232,448 B raises."""
+    runs = 0
+    for i, (R, L, mask, iters) in enumerate(TILINGS):
+        x = ints((R, L), 100 + i).to(cuda_device)
+        st = ints((4, L), 120 + i).to(cuda_device)
+        for mode, n in SELECT_BUILDS + [("blend", m) for m in BLEND_BUILDS]:
+            if mode == "gather" and L % 128:
+                continue
+            if mode == "blend":
+                if R < pr4.BLEND_ROWS:
+                    continue
+                kw = {"mode": n[0], "n": n[1], "iters": iters, "full": True}
+                got, want = pr4.blend_chain(x, st, **kw), \
+                    pr4.blend_chain_reference(x, st, **kw)
+            else:
+                kw = {"mode": mode, "n": n, "mask": mask, "iters": iters,
+                      "full": True}
+                for t in [x] + ([x.short(), x.char()] if (mode, n) == (
+                        "sel", 1) else []):
+                    got = pr4.select_chain(t, st, **kw)
+                    torch.cuda.synchronize()
+                    assert_same(got, pr4.select_chain_reference(t, st, **kw))
+                    runs += 1
+                continue
+            torch.cuda.synchronize()
+            assert_same(got, want)
+            runs += 1
+    x = ints((785, 256), 140).to(cuda_device).view(-1)[1:].view(-1)
+    x = x[:784 * 256].view(784, 256)  # 4 bytes into its storage
+    st = ints((4, 256), 141).to(cuda_device)
+    for kind in ("select", "blend"):
+        kw = {"mode": "par3", "iters": 50, "full": True}
+        w = pr4.select_chain if kind == "select" else pr4.blend_chain
+        got = w(x, st, **kw)
+        torch.cuda.synchronize()
+        assert_same(got, w.reference(x, st, **kw))
+    big = torch.zeros((58113, 2), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(RuntimeError, match="bad argument"):
+        pr4.select_chain(big, st[:, :2], mode="sel", iters=1)
+    assert runs > 50
