@@ -48,7 +48,11 @@ the port's native host library into
    iterations, at 8,192 and at 0 (the wrapper's table copy and state
    set-up, ``setup_ms`` beside ``ms``; CUDA events, median of 5); then
    every row's kernel against its plain version on both inputs, bit for
-   bit (output, final table, ring and state);
+   bit (output, final table, ring and state); realweight_step's registers
+   and spills (none allowed), blocks, threads and shared memory a block,
+   and an iteration's split into a round's ns and a fixed part from y4's
+   and y6's slopes, beside the split before its unrolled, pipelined
+   design;
 8. the mosaic probe kernels (``csrc/probes_mosaic.cu``): every row of
    ``lzma_rs_tpu_torch/tools/probe_mosaic.py`` (15) and
    ``probe_mosaic2.py`` (6) on the tool's input and on a seeded one
@@ -56,7 +60,10 @@ the port's native host library into
    +-2^31, so they wrap in int32 before the floor mod), timed as in
    phase 7 at the tool's own iterations (512, 64), 8,192 and 0; then each
    row's kernel against its plain version on both inputs, bit for bit
-   (output, final table, carried state);
+   (output, final table, carried state); P5's kernel (a block a lane, the
+   column in shared memory) with its registers and spills (none
+   allowed), blocks, threads and shared memory a block, and its slope an
+   iteration beside the thread-a-lane design's;
 9. the mosaic3 probe kernels (``csrc/probes_mosaic3.cu``): the 12 rows of
    ``lzma_rs_tpu_torch/tools/probe_mosaic3.py`` on the tool's input and
    on a seeded one (tables over the full int32 range; P7-P9 from a start
@@ -512,6 +519,92 @@ def probes_phase(torch, dev, phase: str, rows, wrappers, source: str,
             entries[-1]["iters"] = r["iters"]
             entries[-1]["plain_iters"] = checked_at[row]
     return entries, by
+
+
+# y4 (166 rounds) and y6 (83 rounds): one kernel at 1,024 lanes, so their
+# slopes split an iteration into its rounds and a fixed part
+REALWEIGHT_SPLIT = ("y4 real-weight S=8 nops=500", 166,
+                    "y6 real-weight S=8 nops=250", 83)
+# realweight_step's split before its unrolled, pipelined design: ns a
+# round and ns fixed an iteration, on the tool's and the seeded input (the
+# earlier build's y4 and y6 in turns with the redesign's on one H100 80GB
+# HBM3 at 700.00 W; PERF.md §6)
+REALWEIGHT_BEFORE = {"tool": (28.788, 100.99), "seeded": (28.788, 101.0)}
+# P5's ns an iteration in its first, thread-a-lane design (PERF.md §6)
+SEGMENTS_BEFORE_NS = 134_600.0
+SEGMENTS_ROW = "P5 static-slice swap with carried mask"
+
+
+def realweight_split(by: dict, what: str) -> tuple:
+    """(ns a round, ns fixed) of an iteration of realweight_step, from the
+    slopes of y4 and y6 on input ``what``."""
+    y4, r4, y6, r6 = REALWEIGHT_SPLIT
+    a, b = by[y4, what]["ns_per_iter"], by[y6, what]["ns_per_iter"]
+    per_round = (a - b) / (r4 - r6)
+    return per_round, a - r4 * per_round
+
+
+def realweight_lines(by: dict, entries: list, peaks) -> None:
+    """Phase 7's lines for realweight_step: its build's registers and
+    spills (none allowed), blocks, threads and shared memory a block, and
+    the split of an iteration into rounds and a fixed part (from y4's and
+    y6's slopes) beside the split before the redesign."""
+    import math
+
+    from lzma_rs_tpu_torch.ops import probes
+
+    a = probes.realweight_attributes()
+    check(a["local_bytes"] == 0, f"phase 7: realweight_step spills "
+          f"{a['local_bytes']} B a thread")
+    for e in entries:
+        if e["name"] == "realweight_step":
+            e.update(registers=a["registers"], local_bytes=a["local_bytes"])
+    lanes = by[PROBE_MAIN_ROW["realweight_step"], "tool"]["lanes"]
+    say("7 probes", f"realweight_step: {a['registers']} registers, "
+        f"{a['local_bytes']} B local a thread (spills); {probes.BLOCK} "
+        f"threads (lanes) a block, {math.ceil(lanes / probes.BLOCK)} blocks "
+        f"at {lanes} lanes, {a['static_shared']} B of shared memory a block")
+    for what in ("tool", "seeded"):
+        per_round, fixed = realweight_split(by, what)
+        before = ("; before the redesign {:.2f} ns ({:.1f} cycles) a round, "
+                  "{:.1f} ns ({:.0f} cycles) fixed".format(
+                      *(v * k for v in REALWEIGHT_BEFORE[what]
+                        for k in (1, peaks.clock_mhz / 1e3))))
+        say("7 probes", f"realweight_step [{what}], measured: a round "
+            f"{per_round:.2f} ns ({per_round * peaks.clock_mhz / 1e3:.1f} "
+            f"cycles), the fixed part of an iteration {fixed:.1f} ns "
+            f"({fixed * peaks.clock_mhz / 1e3:.0f} cycles) ((y4 - y6) / 83 "
+            f"and y4 - 166 x that, from the slopes){before}")
+
+
+def segments_lines(by: dict, entries: list, peaks) -> None:
+    """Phase 8's lines for P5 (segment_chain, mode segments): its build's
+    registers and spills (none allowed), blocks, threads and shared memory
+    a block, and its slope an iteration beside the thread-a-lane
+    design's."""
+    from lzma_rs_tpu_torch.ops import probes_mosaic as pm
+    from lzma_rs_tpu_torch.tools import probe_mosaic2
+
+    a = pm.segment_attributes()
+    check(a["local_bytes"] == 0, f"phase 8: P5's kernel spills "
+          f"{a['local_bytes']} B a thread")
+    for e in entries:
+        if e["name"] == "segment_chain":
+            e.update(registers=a["registers"], local_bytes=a["local_bytes"])
+    W, L = probe_mosaic2.W, probe_mosaic2.L
+    say("8 probes", f"P5: {a['registers']} registers, {a['local_bytes']} B "
+        f"local a thread (spills); a block a lane: {L} blocks of "
+        f"{pm.SEGMENT_THREADS} threads, {pm.segment_block_bytes(W)} B of "
+        f"shared memory a block (W = {W}; opted in to "
+        f"{a['max_dynamic_shared']} B)")
+    for what in ("tool", "seeded"):
+        r = by[SEGMENTS_ROW, what]
+        say("8 probes", f"P5 [{what}]: {r['ns_per_iter']:.2f} ns "
+            f"({r['cycles_per_iter']:.1f} cycles) an iteration, the slope "
+            f"from {r['iters']} to 8,192; a call at {r['iters']} iterations "
+            f"{r['ms'] * 1e3:.1f} us ({r['setup_ms'] * 1e3:.1f} us set-up); "
+            f"the thread-a-lane design {SEGMENTS_BEFORE_NS:,.0f} ns an "
+            f"iteration ({SEGMENTS_BEFORE_NS / r['ns_per_iter']:.0f}x)")
 
 
 # the round4 kernels of the kernel line's rows (mangled-name parts)
@@ -1973,17 +2066,20 @@ def main() -> None:
     from lzma_rs_tpu_torch.tools import (probe_lane2d, probe_mosaic,
                                          probe_mosaic2, probe_state_in_ref)
 
-    probe_entries, _ = probes_phase(
+    probe_entries, by = probes_phase(
         torch, dev, "7", probe_lane2d.ROWS_OF_TOOL
         + probe_state_in_ref.ROWS_OF_TOOL, probes.WRAPPERS,
         "lzma_rs_tpu_torch/csrc/probes.cu", PROBE_REPLACES, PROBE_MAIN_ROW)
+    realweight_lines(by, probe_entries, peaks)
 
     # -- 8. the mosaic probe kernels ---------------------------------
-    probe_entries += probes_phase(
+    entries, by = probes_phase(
         torch, dev, "8", probe_mosaic.ROWS_OF_TOOL
         + probe_mosaic2.ROWS_OF_TOOL, probes_mosaic.WRAPPERS,
         "lzma_rs_tpu_torch/csrc/probes_mosaic.cu", MOSAIC_REPLACES,
-        MOSAIC_MAIN_ROW)[0]
+        MOSAIC_MAIN_ROW)
+    segments_lines(by, entries, peaks)
+    probe_entries += entries
 
     # -- 9. the mosaic3 probe kernels --------------------------------
     from lzma_rs_tpu_torch.ops import probes_mosaic3

@@ -6,7 +6,10 @@
 // aid, for the host by g++ (-x c++ -DLZP_HOST_ENTRY), which then also
 // defines the C interface of probes.cu as host loops over lanes, so the
 // logic is checked on the CPU against the plain PyTorch versions
-// (ops/probes.py).
+// (ops/probes.py). tinyops and the bit decode are one dependent chain a
+// lane, timed as they are; y4's lane unrolls its rounds as the TPU traced
+// them and overlaps each iteration's loads with the next one's rounds
+// (realweight_lane), the same code on the host.
 //
 // Integer semantics are the probes': wrapping int32 and uint32. Signed
 // overflow is undefined in C++ and the compilers optimise on it, so every
@@ -160,30 +163,72 @@ struct RealState {
   int32_t a, b, d;
 };
 
-// y4 (y5, y6): `rounds` tiny-op rounds (the probe's nops // 3), idx moved
-// by a's low bit, the bit-decode step's table read and update, three ring
-// reads and, where the bit is 1, a read-modify-write of one ring row.
-// w1 is read as the probe reads it, but its value is masked to 0, so the
-// result does not depend on it and the compiler drops the load.
-LZP_FN void realweight_iter(const LaneMinorTable& tab,
-                            const LaneMinorTable& ring, RealState& r,
-                            int rounds) {
+// `rounds` tiny-op rounds, as the TPU traced them: straight-line code with
+// k & 7 a constant in each round (unrolled by 8, a branch once every 8
+// rounds, then the tail's rounds % 8 rounds; k & 7 is the round's only use
+// of k, and k = 8 n + j there).
+LZP_FN void tiny_rounds(int32_t& a, int32_t& b, int32_t& d, int rounds) {
+  int k = 0;
 #if defined(__CUDACC__)
 #pragma unroll 1
 #endif
-  for (int k = 0; k < rounds; ++k) tiny_round(r.a, r.b, r.d, k);
+  for (; k + 8 <= rounds; k += 8) {
+#if defined(__CUDACC__)
+#pragma unroll
+#endif
+    for (int j = 0; j < 8; ++j) tiny_round(a, b, d, j);
+  }
+  const int tail = rounds - k;
+#if defined(__CUDACC__)
+#pragma unroll
+#endif
+  for (int j = 0; j < 7; ++j)
+    if (j < tail) tiny_round(a, b, d, j);
+}
+
+// The loads of one y4 iteration, issued before the next iteration's rounds
+// and consumed after them: the table word p at idx, the ring words w0 (at
+// a & 511) and old (at q = b & 511).
+struct RealLoads {
+  int32_t p, w0, old;
+  int q;
+};
+
+// A table row whose word was loaded ahead: decode_bit reads the held word
+// and stores through the table.
+struct HeldRow {
+  LaneMinorTable tab;
+  int32_t p;
+  LZP_FN int32_t load(int) const { return p; }
+  LZP_FN void store(int r, int32_t v) const { tab.store(r, v); }
+};
+
+// y4 (y5, y6), one iteration in two halves. realweight_issue, after the
+// iteration's `rounds` tiny-op rounds (the probe's nops // 3): idx moved
+// by a's low bit, and the loads of the bit-decode step's table word and
+// of two ring words. The probe also reads w1 at (a + 1) & 511, but its
+// value enters the merge masked to 0, so the result does not depend on it
+// and it is not read. realweight_consume: the bit decode on the held word
+// (the table's update stored), where the bit is 1 the ring row q's low
+// byte replaced by w0's, and acc shifted.
+LZP_FN RealLoads realweight_issue(const LaneMinorTable& tab,
+                                  const LaneMinorTable& ring, RealState& r) {
   const int32_t idx = wrap(uint32_t(r.s.idx) + uint32_t(r.a & 1));
   r.s.idx = idx < 0 ? 0 : (idx > kRows - 1 ? kRows - 1 : idx);
-  BitState s = r.s;
-  const uint32_t bit = decode_bit(tab, s);
-  const int pw = r.a & (kRing - 1);
-  const int32_t w0 = ring.load(pw);
-  const int32_t w1 = ring.load((pw + 1) & (kRing - 1));
-  const int q = r.b & (kRing - 1);
-  const int32_t old = ring.load(q);
-  if (bit) ring.store(q, (old & ~0xFF) | (w0 & 0xFF) | (w1 & 0));
-  s.acc = shift_in(s.acc, bit);
-  r.s = s;
+  RealLoads ld;
+  ld.p = tab.load(r.s.idx);
+  ld.w0 = ring.load(r.a & (kRing - 1));
+  ld.q = r.b & (kRing - 1);
+  ld.old = ring.load(ld.q);
+  return ld;
+}
+
+LZP_FN void realweight_consume(const LaneMinorTable& tab,
+                               const LaneMinorTable& ring, RealState& r,
+                               const RealLoads& ld) {
+  const uint32_t bit = decode_bit(HeldRow{tab, ld.p}, r.s);
+  if (bit) ring.store(ld.q, (ld.old & ~0xFF) | (ld.w0 & 0xFF));
+  r.s.acc = shift_in(r.s.acc, bit);
 }
 
 // The state words of realweight's [7, L] state array, in this order.
@@ -211,14 +256,28 @@ LZP_FN void store_real(int32_t* st, size_t L, size_t lane,
   st[RW_D * L + lane] = r.d;
 }
 
+// `iters` iterations of y4, pipelined by hand: iteration i's loads are
+// issued, iteration i + 1's rounds run (they never read the loaded words
+// or the bit: a, b and d do not depend on them), and only then is i
+// consumed, so the loads' latency hides behind the rounds. i's table and
+// ring stores precede i + 1's loads, which are issued after the consume.
 LZP_FN void realweight_lane(int32_t* tab, int32_t* ring, int32_t* state,
                             int L, int lane, int iters, int rounds) {
   const LaneMinorTable t{tab + lane, L}, w{ring + lane, L};
   RealState r = load_real(state, size_t(L), size_t(lane));
+  if (iters > 0) {
+    tiny_rounds(r.a, r.b, r.d, rounds);
+    RealLoads ld = realweight_issue(t, w, r);
 #if defined(__CUDACC__)
 #pragma unroll 1
 #endif
-  for (int it = 0; it < iters; ++it) realweight_iter(t, w, r, rounds);
+    for (int it = 1; it < iters; ++it) {
+      tiny_rounds(r.a, r.b, r.d, rounds);
+      realweight_consume(t, w, r, ld);
+      ld = realweight_issue(t, w, r);
+    }
+    realweight_consume(t, w, r, ld);
+  }
   store_real(state, size_t(L), size_t(lane), r);
 }
 

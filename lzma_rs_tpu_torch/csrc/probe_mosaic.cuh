@@ -1,12 +1,13 @@
-// One thread of each mosaic probe kernel: the per-lane functions of the
-// JAX package's Pallas probes tools/probe_mosaic.py and
-// tools/probe_mosaic2.py, in scalar code.
+// One thread of each mosaic probe kernel, and one block of p5's: the
+// per-lane functions of the JAX package's Pallas probes
+// tools/probe_mosaic.py and tools/probe_mosaic2.py, in scalar code.
 //
 // Compiled for the card by probes_mosaic.cu and, as a test aid, for the
 // host by g++ (-x c++ -DLZP_HOST_ENTRY), which then also defines the C
-// interface of probes_mosaic.cu as host loops over threads, so the logic is
-// checked on the CPU against the plain PyTorch versions
-// (ops/probes_mosaic.py).
+// interface of probes_mosaic.cu as host loops over threads (p5: over
+// blocks, warps and their 32 ranks, with the same staging, step and
+// combine code), so the logic is checked on the CPU against the plain
+// PyTorch versions (ops/probes_mosaic.py).
 //
 // Integer semantics are the probes': wrapping int32 (and uint8 for the
 // gather's u8 row). Every add and multiply that can wrap is done in
@@ -132,60 +133,156 @@ LZM_FN void row_chain_lane(int32_t* x, int W, int L, int lane,
   state[size_t(L) + lane] = idx;
 }
 
-// p4 and p5 on a lane-minor table x ([W, L]), one lane; state: [2, L].
-//   SEG_REFILL (p4): every 8th step s = x[0:2] + i; acc += s.
-//                    state: acc of rows 0 and 1.
-//   SEG_SEGMENTS (p5): four segments of W / 4 rows; the segment `mask`
-//                    gets +1 (written back); total += each segment's max;
-//                    mask = (mask + 1) % 4. state: total, then mask.
-template <int kMode>
-LZM_FN void segment_chain_lane(int32_t* x, int W, int L, int lane,
-                               int32_t* state, int iters) {
+// p4 on a lane-minor table x ([W, L]), one lane; state: [2, L], the acc
+// of rows 0 and 1: every 8th step s = x[0:2] + i; acc += s.
+LZM_FN void refill_lane(const int32_t* x, int L, int lane, int32_t* state,
+                        int iters) {
   const size_t sL = size_t(L);
-  if (kMode == SEG_REFILL) {
-    uint32_t acc0 = uint32_t(state[lane]), acc1 = uint32_t(state[sL + lane]);
-    uint32_t s0 = 0, s1 = 0;
-    LZM_UNROLL(unroll 1)
-    for (int i = 0; i < iters; ++i) {
-      if (i % 8 == 0) {
-        s0 = uint32_t(x[lane]) + uint32_t(i);
-        s1 = uint32_t(x[sL + lane]) + uint32_t(i);
-      }
-      acc0 += s0;
-      acc1 += s1;
-    }
-    state[lane] = wrap(acc0);
-    state[sL + lane] = wrap(acc1);
-    return;
-  }
-  const int S = W / 4;
-  uint32_t total = uint32_t(state[lane]);
-  int32_t mask = floor_mod(state[sL + lane], 4);
+  uint32_t acc0 = uint32_t(state[lane]), acc1 = uint32_t(state[sL + lane]);
+  uint32_t s0 = 0, s1 = 0;
   LZM_UNROLL(unroll 1)
   for (int i = 0; i < iters; ++i) {
-    for (int s = 0; s < 4; ++s) {
-      int32_t* seg = x + size_t(s) * S * sL + lane;
-      int32_t m = INT32_MIN;
-      if (s == mask) {
-        LZM_UNROLL(unroll 8)
-        for (int r = 0; r < S; ++r) {
-          const int32_t v = wrap(uint32_t(seg[r * sL]) + 1u);
-          seg[r * sL] = v;
-          m = v > m ? v : m;
-        }
-      } else {
-        LZM_UNROLL(unroll 8)
-        for (int r = 0; r < S; ++r) {
-          const int32_t v = seg[r * sL];
-          m = v > m ? v : m;
-        }
-      }
-      total += uint32_t(m);
+    if (i % 8 == 0) {
+      s0 = uint32_t(x[lane]) + uint32_t(i);
+      s1 = uint32_t(x[sL + lane]) + uint32_t(i);
     }
-    mask = (mask + 1) % 4;
+    acc0 += s0;
+    acc1 += s1;
   }
-  state[lane] = wrap(total);
-  state[sL + lane] = mask;
+  state[lane] = wrap(acc0);
+  state[sL + lane] = wrap(acc1);
+}
+
+// p5, one block a lane. The lane's column (W rows of a lane-minor [W, L]
+// table) lives in the block's shared memory from staging to write-back;
+// each step, of its four segments of S = W / 4 rows the one equal to
+// `mask` gets +1 (written back), total adds each segment's max, and mask
+// = (mask + 1) % 4. state: [2, L], total then mask.
+//
+// Warp w walks segment w % 4 (two warps a segment): thread t is rank
+// seg_rank(t) of its segment's kSegGroup threads and owns rows u, u +
+// kSegGroup, ... of it, which it loads kSegRun at a time before it stores
+// any (so that many loads are in flight) and which no other thread
+// touches, so the steps need no barrier. A warp's max (__reduce_max_sync)
+// is the same in all its lanes; lane k keeps step k's of a chunk of
+// kSegChunk steps. At a chunk's end (or the run's) each lane posts what it
+// kept into slot (k, s) of `red` ([kSegChunk][4] int32) by a shared
+// atomicMax, so the two warps of a segment meet there; the block meets at
+// a barrier, threads t < 4 k' (k' steps in the chunk) add slot t to their
+// `part` and reset it, and the block meets again. total is the start's
+// plus every part (mod 2^32: the order is free).
+constexpr int kSegThreads = 256;                 // threads a p5 block
+constexpr int kSegWarps = kSegThreads / 32;
+constexpr int kSegGroup = kSegThreads / 4;       // threads a segment
+constexpr int kSegRun = 8;                       // rows loaded together
+constexpr int kSegChunk = 16;                    // steps between combines
+constexpr int kSegSlots = kSegChunk * 4;         // red's slots
+constexpr int kMaxShared = 232448;               // a block's shared memory
+                                                 // at most (227 KB)
+// The most rows a column may have: red and the column in kMaxShared.
+constexpr int kSegMaxRows = (kMaxShared / 4 - kSegSlots) / 4 * 4;
+static_assert(kSegThreads % 128 == 0, "whole warps for each segment");
+static_assert(kSegChunk <= 32 && kSegSlots <= kSegThreads,
+              "a lane a step, a thread a slot");
+
+// A p5 block's dynamic shared memory: red, then the column.
+LZM_FN size_t seg_block_bytes(int W) {
+  return (size_t(kSegSlots) + size_t(W)) * sizeof(int32_t);
+}
+
+// Thread t's rows (r = t, t + kSegThreads, ...) between the lane's column
+// of x and the block's copy col: in (kIn) or back. The block meets at a
+// barrier between this and the steps.
+template <bool kIn>
+LZM_FN void seg_copy(int32_t* x, int W, int L, int lane, int32_t* col,
+                     int t) {
+  for (int r = t; r < W; r += kSegThreads) {
+    int32_t* g = x + size_t(r) * L + lane;
+    if (kIn)
+      col[r] = *g;
+    else
+      *g = col[r];
+  }
+}
+
+LZM_FN int32_t max_of(int32_t a, int32_t b) { return a > b ? a : b; }
+
+// Thread t's segment (its warp's) and its rank among the segment's
+// kSegGroup threads.
+LZM_FN int seg_of(int t) { return (t >> 5) & 3; }
+LZM_FN int seg_rank(int t) { return ((t >> 7) << 5) | (t & 31); }
+
+// One step of a thread over its rows u, u + kSegGroup, ... < S of its
+// segment `seg` (seg_of, seg_rank): +1 on each where `add` (its segment is
+// the step's mask), and their max (INT32_MIN where it owns none).
+LZM_FN int32_t seg_step(int32_t* seg, int S, int u, bool add) {
+  constexpr int G = kSegGroup;
+  int32_t m = INT32_MIN;
+  int j = u;
+  LZM_UNROLL(unroll 1)
+  for (; j + (kSegRun - 1) * G < S; j += kSegRun * G) {
+    int32_t v[kSegRun];
+    LZM_UNROLL(unroll)
+    for (int e = 0; e < kSegRun; ++e) v[e] = seg[j + e * G];
+    if (add) {
+      LZM_UNROLL(unroll)
+      for (int e = 0; e < kSegRun; ++e) {
+        v[e] = wrap(uint32_t(v[e]) + 1u);
+        seg[j + e * G] = v[e];
+      }
+    }
+    LZM_UNROLL(unroll)
+    for (int e = 0; e < kSegRun; ++e) m = max_of(m, v[e]);
+  }
+  LZM_UNROLL(unroll 1)
+  for (; j < S; j += G) {
+    int32_t v = seg[j];
+    if (add) {
+      v = wrap(uint32_t(v) + 1u);
+      seg[j] = v;
+    }
+    m = max_of(m, v);
+  }
+  return m;
+}
+
+// The mask of the next step (mask is in [0, 4)).
+LZM_FN int seg_next(int mask) { return (mask + 1) & 3; }
+
+// What lane r keeps after step i: the warp's max m of the step if r is
+// the step's place in its chunk, else what it kept.
+LZM_FN int32_t seg_keep(int32_t kept, int r, int i, int32_t m) {
+  return r == i % kSegChunk ? m : kept;
+}
+
+// A lane's kept max into slot (k, s) of red: atomicMax on the card (two
+// warps a segment), a max on the host (which runs one block at a time).
+LZM_FN void seg_post(int32_t* red, int k, int s, int32_t v) {
+#if defined(__CUDA_ARCH__)
+  atomicMax(red + k * 4 + s, v);
+#else
+  red[k * 4 + s] = max_of(red[k * 4 + s], v);
+#endif
+}
+
+// Thread t (< kSegSlots) after a chunk's barrier: slot t into its part,
+// and the slot reset for the next chunk.
+LZM_FN void seg_take(int32_t* red, int t, uint32_t* part) {
+  *part += uint32_t(red[t]);
+  red[t] = INT32_MIN;
+}
+
+// After the last barrier, with each thread's part in red[t] (t <
+// kSegSlots): the lane's total, from its start.
+LZM_FN int32_t seg_total(const int32_t* red, int32_t start) {
+  uint32_t total = uint32_t(start);
+  for (int t = 0; t < kSegSlots; ++t) total += uint32_t(red[t]);
+  return wrap(total);
+}
+
+// The combine is due after step i: a chunk's last step, or the run's.
+LZM_FN bool seg_chunk_end(int i, int iters) {
+  return i % kSegChunk == kSegChunk - 1 || i == iters - 1;
 }
 
 // Argument checks shared by the card's and the host's C interface.
@@ -208,14 +305,18 @@ LZM_FN bool bad_row(int mode, int W, int L, int iters) {
   return mode < ROW_CLAMP || mode > ROW_BYTE || W < 2 || L < 0 || iters < 0;
 }
 
+// p5's column must fit a block's shared memory (kSegMaxRows).
 LZM_FN bool bad_segment(int mode, int W, int L, int iters) {
   return (mode != SEG_REFILL && mode != SEG_SEGMENTS) || W < 4 || W % 4 ||
-         L < 0 || iters < 0;
+         L < 0 || iters < 0 || (mode == SEG_SEGMENTS && W > kSegMaxRows);
 }
 
 }  // namespace lzm
 
 #if defined(LZP_HOST_ENTRY) && !defined(__CUDACC__)
+#include <algorithm>
+#include <vector>
+
 // probes_mosaic.cu's C interface as host loops over threads (tests only).
 // The stream argument is ignored.
 extern "C" {
@@ -280,17 +381,60 @@ int lzm_row_chain(int mode, int32_t* x, int W, int L, int32_t* state,
   return 0;
 }
 
+// p5 as host loops over blocks (lanes), warps and their 32 ranks: each
+// block stages its column, runs every step (a warp's max over its ranks
+// for __reduce_max_sync, kept by the lane of the step's place), posts and
+// combines at each chunk's end and writes back.
 int lzm_segment_chain(int mode, int32_t* x, int W, int L, int32_t* state,
                       int iters, void* /*stream*/) {
-  if (lzm::bad_segment(mode, W, L, iters)) return lzm::ERR_ARGS;
-  for (int l = 0; l < L; ++l) {
-    if (mode == lzm::SEG_REFILL)
-      lzm::segment_chain_lane<lzm::SEG_REFILL>(x, W, L, l, state, iters);
-    else
-      lzm::segment_chain_lane<lzm::SEG_SEGMENTS>(x, W, L, l, state, iters);
+  using namespace lzm;
+  if (bad_segment(mode, W, L, iters)) return ERR_ARGS;
+  if (mode == SEG_REFILL) {
+    for (int l = 0; l < L; ++l) refill_lane(x, L, l, state, iters);
+    return 0;
+  }
+  const int S = W / 4;
+  std::vector<int32_t> red(kSegSlots), col(W);
+  std::vector<int32_t> kept(size_t(kSegWarps) * 32);  // [warp][lane]
+  std::vector<uint32_t> part(kSegSlots);
+  for (int lane = 0; lane < L; ++lane) {
+    for (int t = 0; t < kSegThreads; ++t)
+      seg_copy<true>(x, W, L, lane, col.data(), t);
+    std::fill(red.begin(), red.end(), INT32_MIN);
+    std::fill(kept.begin(), kept.end(), INT32_MIN);
+    std::fill(part.begin(), part.end(), 0u);
+    int mask = floor_mod(state[size_t(L) + lane], 4);
+    for (int i = 0; i < iters; ++i) {
+      for (int w = 0; w < kSegWarps; ++w) {
+        const int s = seg_of(w * 32);
+        int32_t m = INT32_MIN;
+        for (int r = 0; r < 32; ++r)
+          m = max_of(m, seg_step(col.data() + s * S, S, seg_rank(w * 32 + r),
+                                 s == mask));
+        for (int r = 0; r < 32; ++r)
+          kept[w * 32 + r] = seg_keep(kept[w * 32 + r], r, i, m);
+      }
+      mask = seg_next(mask);
+      if (seg_chunk_end(i, iters)) {
+        for (int w = 0; w < kSegWarps; ++w)
+          for (int r = 0; r < kSegChunk; ++r) {
+            seg_post(red.data(), r, seg_of(w * 32), kept[w * 32 + r]);
+            kept[w * 32 + r] = INT32_MIN;
+          }
+        for (int t = 0; t < 4 * (i % kSegChunk + 1); ++t)
+          seg_take(red.data(), t, &part[t]);
+      }
+    }
+    for (int t = 0; t < kSegSlots; ++t) red[t] = wrap(part[t]);
+    state[lane] = seg_total(red.data(), state[lane]);
+    state[size_t(L) + lane] = mask;
+    for (int t = 0; t < kSegThreads; ++t)
+      seg_copy<false>(x, W, L, lane, col.data(), t);
   }
   return 0;
 }
+
+int lzm_segment_max_rows() { return lzm::kSegMaxRows; }
 
 const char* lzm_error_string(int code) {
   return code == lzm::ERR_ARGS ? "bad argument" : "host build";

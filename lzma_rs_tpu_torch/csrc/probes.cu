@@ -19,9 +19,18 @@
 //   - Each lane is one serial dependency chain (every op waits on the one
 //     before), and L is at most a few thousand threads against 132 SMs x
 //     2048: the card is latency-bound, neither bytes nor operations set
-//     the time. That is the point: the time per link is what the probes
-//     measure, to set beside the segment decoder's ~0.8 us per micro-op.
-//     Nothing is done to hide the latency.
+//     the time. The time per link is what tinyops_chain and
+//     bitdecode_chain measure, to set beside the segment decoder's step,
+//     so nothing is done there to hide the latency.
+//   - realweight_step (y4) is the decoder's step in miniature, and on the
+//     TPU its rounds were straight-line code (the probe's Python loop,
+//     k & 7 a constant in each round). Here they are unrolled by 8 the
+//     same way (probe_lane.cuh: tiny_rounds), and the iteration's memory
+//     is pipelined by hand: its table and ring loads are issued, the next
+//     iteration's rounds run (nothing in them reads a loaded word or the
+//     bit), and only then are the loads consumed, so their latency hides
+//     behind ~6,000 cycles of rounds. The chain of tiny ops stays what
+//     the probe prices.
 //   - bitdecode_chain's table read sits on the chain. Where the table
 //     lives is the template parameter: device memory lane-minor [ROWS, L]
 //     (the TPU layout; a warp's reads coalesce when its lanes' idx agree),
@@ -169,6 +178,21 @@ int lzp_realweight(int32_t* tab, int32_t* ring, int32_t* state, int L,
                              static_cast<cudaStream_t>(stream)>>>(
         tab, ring, state, L, iters, rounds);
   return static_cast<int>(cudaGetLastError());
+}
+
+// realweight_step's kernel: out[0..3] the registers a thread, local
+// memory a thread (spills), static shared memory and the dynamic shared
+// memory it may have (cudaFuncGetAttributes). Returns 0 or a CUDA error.
+int lzp_realweight_attributes(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(
+      &a, reinterpret_cast<const void*>(realweight_step_kernel));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = static_cast<int>(a.sharedSizeBytes);
+  out[3] = a.maxDynamicSharedSizeBytes;
+  return 0;
 }
 
 const char* lzp_error_string(int code) {

@@ -38,17 +38,32 @@
 //     as in p1-p3, and scatter when idx follows the data, as in p6). A
 //     carried index: each load's address waits on the last load (p6) or
 //     on the index's add and floor mod (p1-p3). Latency-bound by design.
-//   - segment_chain: one thread per lane; p4 re-reads two rows every 8th
-//     step, p5 walks all W rows of the table every step (coalesced: a
-//     warp reads 128 B of one row), a quarter of them written back; the
-//     row walk is unrolled by 8 so eight loads are in flight. p5 at L =
-//     128 is four warps on one SM walking 2,048 rows a step: what the probe
-//     asks, kept as it is.
+//   - segment_chain: p4 is one thread per lane re-reading two rows every
+//     8th step (most of its time is set-up). p5 is a vector pass over the
+//     whole table each step on the TPU (+1 on one segment, a max over rows
+//     on four): a lane's rows are not a serial chain, only the table,
+//     mask and total carry from step to step. So a block is a lane (the
+//     tool's 128 lanes are 128 blocks on 132 SMs): it stages the lane's
+//     column (8 KiB at W = 2,048) into shared memory once, and its 256
+//     threads walk it, two warps a segment, each thread its own rows, 8
+//     loads in flight before any store (so a step needs no barrier); a
+//     warp's max (__reduce_max_sync) is kept by one lane a step, and
+//     every 16 steps the lanes post them by a shared atomicMax into a
+//     step's slots and the block meets at a barrier pair to fold the
+//     slots into total (probe_mosaic.cuh). Every step still reads every
+//     row and writes the mask segment's: that walk is what the probe
+//     prices. Bound by the step's shared loads and their latency, and the
+//     warp reduction's; the table's bytes are read once. A column
+//     over kSegMaxRows (58,048 rows: the column and the slots in 227 KB)
+//     is refused (ERR_ARGS): there is no device-memory route.
 // Each launcher checks its arguments, launches on `stream` and returns
-// cudaGetLastError() (0 = launched) or lzm::ERR_ARGS.
+// cudaGetLastError() (0 = launched), a CUDA error of the opt-in, or
+// lzm::ERR_ARGS.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "probe_mosaic.cuh"
 
@@ -90,13 +105,77 @@ __global__ void __launch_bounds__(kBlock)
   lzm::row_chain_lane<kMode>(x, W, L, lane, state, iters);
 }
 
-template <int kMode>
 __global__ void __launch_bounds__(kBlock)
-    segment_chain_kernel(int32_t* x, int W, int L, int32_t* state,
-                         int iters) {
+    refill_kernel(const int32_t* __restrict__ x, int L,
+                  int32_t* __restrict__ state, int iters) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= L) return;
-  lzm::segment_chain_lane<kMode>(x, W, L, lane, state, iters);
+  lzm::refill_lane(x, L, lane, state, iters);
+}
+
+// p5: block b is lane b (probe_mosaic.cuh: the column in shared memory,
+// a warp a segment, a barrier pair every kSegChunk steps).
+__global__ void __launch_bounds__(lzm::kSegThreads)
+    segments_kernel(int32_t* __restrict__ x, int W, int L,
+                    int32_t* __restrict__ state, int iters) {
+  using namespace lzm;
+  extern __shared__ int32_t smem[];
+  int32_t* const red = smem;
+  int32_t* const col = smem + kSegSlots;
+  const int t = threadIdx.x, lane = blockIdx.x, S = W / 4;
+  // The thread's constants pass through an empty asm, so they stay in
+  // registers: left to itself nvcc re-read the thread index and derived
+  // them again every step (~28 ns a step on the H100).
+  int s = seg_of(t), u = seg_rank(t), r = t & 31;
+  asm volatile("" : "+r"(s), "+r"(u), "+r"(r));
+  int32_t* const seg = col + s * S;
+  seg_copy<true>(x, W, L, lane, col, t);
+  if (t < kSegSlots) red[t] = INT32_MIN;
+  int mask = floor_mod(state[size_t(L) + lane], 4);
+  uint32_t part = 0;
+  int32_t kept = INT32_MIN;
+  __syncthreads();
+#pragma unroll 1
+  for (int i = 0; i < iters; ++i) {
+    const int32_t m =
+        __reduce_max_sync(0xFFFFFFFFu, seg_step(seg, S, u, s == mask));
+    kept = seg_keep(kept, r, i, m);
+    mask = seg_next(mask);
+    if (seg_chunk_end(i, iters)) {  // the same i in every thread
+      if (r < kSegChunk) seg_post(red, r, s, kept);
+      kept = INT32_MIN;
+      __syncthreads();
+      if (t < 4 * (i % kSegChunk + 1)) seg_take(red, t, &part);
+      __syncthreads();
+    }
+  }
+  if (t < kSegSlots) red[t] = wrap(part);
+  __syncthreads();
+  if (t == 0) {
+    state[lane] = seg_total(red, state[lane]);
+    state[size_t(L) + lane] = mask;
+  }
+  seg_copy<false>(x, W, L, lane, col, t);
+}
+
+constexpr int kMaxDevices = 64;  // devices whose opt-in is remembered
+
+// segments_kernel opted in to the most dynamic shared memory a block may
+// have on the current device, once a device (at every call on a device
+// numbered kMaxDevices or more). Two threads may both opt in the first
+// time; setting the attribute twice is harmless.
+cudaError_t segments_opt_in() {
+  static std::atomic<bool> done[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  const bool known = dev < kMaxDevices;
+  if (e == cudaSuccess && !(known && done[dev].load())) {
+    e = cudaFuncSetAttribute(segments_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             lzm::kMaxShared);
+    if (e == cudaSuccess && known) done[dev].store(true);
+  }
+  return e;
 }
 
 int blocks(int n) { return (n + kBlock - 1) / kBlock; }
@@ -182,20 +261,42 @@ int lzm_row_chain(int mode, int32_t* x, int W, int L, int32_t* state,
 }
 
 // x: [W, L] int32 (updated in place by SEG_SEGMENTS); state: [2, L], the
-// start in, the end out.
+// start in, the end out. SEG_SEGMENTS: W <= kSegMaxRows, one block of
+// kSegThreads a lane.
 int lzm_segment_chain(int mode, int32_t* x, int W, int L, int32_t* state,
                       int iters, void* stream) {
   if (lzm::bad_segment(mode, W, L, iters)) return lzm::ERR_ARGS;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (L > 0) {
-    if (mode == lzm::SEG_REFILL)
-      segment_chain_kernel<lzm::SEG_REFILL><<<blocks(L), kBlock, 0, s>>>(
-          x, W, L, state, iters);
-    else
-      segment_chain_kernel<lzm::SEG_SEGMENTS><<<blocks(L), kBlock, 0, s>>>(
-          x, W, L, state, iters);
+  if (L == 0) return static_cast<int>(cudaGetLastError());
+  if (mode == lzm::SEG_REFILL) {
+    refill_kernel<<<blocks(L), kBlock, 0, s>>>(x, L, state, iters);
+  } else {
+    const cudaError_t e = segments_opt_in();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    segments_kernel<<<L, lzm::kSegThreads, lzm::seg_block_bytes(W), s>>>(
+        x, W, L, state, iters);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The most rows of a p5 column.
+int lzm_segment_max_rows() { return lzm::kSegMaxRows; }
+
+// p5's kernel: out[0..3] the registers a thread, local memory a thread
+// (spills), static shared memory and the dynamic shared memory it is
+// opted in to (cudaFuncGetAttributes). Returns 0 or a CUDA error.
+int lzm_segment_attributes(int* out) {
+  cudaError_t e = segments_opt_in();
+  cudaFuncAttributes a;
+  if (e == cudaSuccess)
+    e = cudaFuncGetAttributes(&a,
+                              reinterpret_cast<const void*>(segments_kernel));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = static_cast<int>(a.sharedSizeBytes);
+  out[3] = a.maxDynamicSharedSizeBytes;
+  return 0;
 }
 
 const char* lzm_error_string(int code) {

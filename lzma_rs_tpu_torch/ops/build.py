@@ -316,9 +316,12 @@ def bind_probes(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=1)
 def load_probes() -> ctypes.CDLL:
-    """Build (if needed) and bind the probe kernels; one handle per
-    process."""
-    return bind_probes(ctypes.CDLL(build_library(PROBES).path))
+    """Build (if needed) and bind the probe kernels (and the card build's
+    ``lzp_realweight_attributes``); one handle per process."""
+    lib = bind_probes(ctypes.CDLL(build_library(PROBES).path))
+    lib.lzp_realweight_attributes.restype = ctypes.c_int
+    lib.lzp_realweight_attributes.argtypes = [ctypes.c_void_p]
+    return lib
 
 
 def bind_mosaic(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -331,6 +334,7 @@ def bind_mosaic(lib: ctypes.CDLL) -> ctypes.CDLL:
         (lib.lzm_rw_chain, [ci, vp, ci, ci, vp, vp, ci, vp]),
         (lib.lzm_row_chain, [ci, vp, ci, ci, vp, ci, vp]),
         (lib.lzm_segment_chain, [ci, vp, ci, ci, vp, ci, vp]),
+        (lib.lzm_segment_max_rows, []),
     ):
         fn.restype, fn.argtypes = ci, args
     lib.lzm_error_string.restype = ctypes.c_char_p
@@ -340,9 +344,12 @@ def bind_mosaic(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=1)
 def load_mosaic() -> ctypes.CDLL:
-    """Build (if needed) and bind the mosaic probe kernels; one handle per
-    process."""
-    return bind_mosaic(ctypes.CDLL(build_library(MOSAIC).path))
+    """Build (if needed) and bind the mosaic probe kernels (and the card
+    build's ``lzm_segment_attributes``); one handle per process."""
+    lib = bind_mosaic(ctypes.CDLL(build_library(MOSAIC).path))
+    lib.lzm_segment_attributes.restype = ctypes.c_int
+    lib.lzm_segment_attributes.argtypes = [ctypes.c_void_p]
+    return lib
 
 
 def bind_mosaic3(lib: ctypes.CDLL) -> ctypes.CDLL:

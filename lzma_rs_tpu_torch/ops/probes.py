@@ -33,6 +33,7 @@ in PyTorch.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -44,6 +45,7 @@ __all__ = [
     "bitdecode_chain", "bitdecode_reference",
     "realweight_step", "realweight_reference",
     "TINYOPS_OPS", "BITDECODE_OPS", "realweight_ops",
+    "realweight_attributes",
 ]
 
 ITERS = 256       # the probes' ITERS
@@ -55,6 +57,7 @@ BITDECODE_INIT = (0, 1, -1, 12345)  # idx, acc, rng, cod of bitdecode_*
 Y_INIT = (0, 0, 0, 0)               # the y-series' (state refs zeroed)
 PLACEMENTS = ("minor", "major", "shared")  # csrc/probes.cu's table places
 STATES = ("registers", "slots", "arrays")  # registers; y1's; y2's
+BLOCK = 64        # threads (lanes) a block of the kernels (csrc/probes.cu)
 
 # Integer operations per lane and iteration, counted from the code (for
 # the bound): the probes' own count for tinyops (3 per round); for the bit
@@ -302,6 +305,21 @@ def launch_realweight(lib, table, *, rounds: int, iters: int = ITERS,
     return out, {"table": tab.reshape(table.shape),
                  "ring": ring.reshape(RING, *lanes),
                  "state": state.reshape(7, *lanes)}
+
+
+def realweight_attributes() -> dict:
+    """The card build's attributes of :func:`realweight_step`'s kernel:
+    ``registers`` and ``local_bytes`` a thread (spills), ``static_shared``
+    and ``max_dynamic_shared`` bytes (``cudaFuncGetAttributes``). Needs the
+    card."""
+    from lzma_rs_tpu_torch.ops import build
+
+    lib = build.load_probes()
+    out = (ctypes.c_int * 4)()
+    _raise_on(lib, lib.lzp_realweight_attributes(out),
+              "realweight_attributes")
+    return dict(zip(("registers", "local_bytes", "static_shared",
+                     "max_dynamic_shared"), out))
 
 
 # -- wrappers ------------------------------------------------------------

@@ -20,6 +20,12 @@ probes are direct indexed loads and stores here, with the same results):
 Each wrapper launches its hand-written kernel (``csrc/probes_mosaic.cu``)
 on a CUDA tensor, or raises; on a CPU tensor it runs its plain PyTorch
 version (``*_reference``: direct indexing, every thread in lockstep).
+The kernels run a thread per output element, row or lane, but p5's
+(``segment_chain``, mode ``"segments"``) runs a block of
+:data:`SEGMENT_THREADS` per lane, with the lane's whole column in the
+block's shared memory and its rows split over the threads; so its table
+holds at most :data:`SEGMENT_MAX_ROWS` rows, and the wrapper refuses more
+on either device.
 ``<wrapper>.launches`` counts kernel launches, ``<wrapper>.reference`` is
 the plain version. Inputs are not changed. ``full=True`` also returns a
 dict: the final table where the function writes one (E, p3, p5; D's output
@@ -32,6 +38,8 @@ and an index is jnp's ``%`` of a wrapped int32 (the floor mod).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from lzma_rs_tpu_torch.ops.probes import _stream
@@ -39,6 +47,8 @@ from lzma_rs_tpu_torch.ops.probes import _stream
 __all__ = [
     "AXES", "RW_MODES", "ROW_MODES", "SEGMENT_MODES", "WRAPPERS",
     "GATHER_OPS", "RW_OPS", "ROW_OPS", "segment_ops", "byte_rows_read",
+    "SEGMENT_THREADS", "SEGMENT_MAX_ROWS", "segment_block_bytes",
+    "segment_attributes",
     "gather_sum", "gather_sum_reference", "rw_chain", "rw_chain_reference",
     "row_chain", "row_chain_reference", "segment_chain",
     "segment_chain_reference",
@@ -50,6 +60,13 @@ ROW_MODES = ("clamp", "clamp_write", "byte")    # p1/p2, p3, p6
 SEGMENT_MODES = ("refill", "segments")          # p4, p5
 SCALAR_STRIDE = 37                              # E: j = 37 i % W
 REFILL_EVERY = 8                                # p4
+# p5's kernel (csrc/probe_mosaic.cuh): a block of SEGMENT_THREADS a lane,
+# its shared memory SEGMENT_SLOTS int32 slots (16 steps x 4 segments'
+# maxima) and the column, at most MAX_SHARED bytes in all
+SEGMENT_THREADS = 256
+SEGMENT_SLOTS = 64
+MAX_SHARED = 232448
+SEGMENT_MAX_ROWS = (MAX_SHARED // 4 - SEGMENT_SLOTS) // 4 * 4  # 58,048
 
 # Integer operations per thread and step, counted from the probes' code
 # (for the bound). gather_sum: the index's add (F: multiply), its mod (A:
@@ -72,6 +89,23 @@ def segment_ops(mode: str, W: int) -> float:
     if mode == "refill":
         return 4 + 4 / REFILL_EVERY
     return 2 * W + W // 4 + 4 * 2 + 2
+
+
+def segment_block_bytes(W: int) -> int:
+    """p5's shared memory a block (a lane) for a column of ``W`` rows."""
+    return 4 * (SEGMENT_SLOTS + W)
+
+
+def segment_attributes() -> dict:
+    """The card build's attributes of p5's kernel: ``registers`` and
+    ``local_bytes`` a thread (spills), ``static_shared`` bytes and the
+    ``max_dynamic_shared`` bytes it is opted in to
+    (``cudaFuncGetAttributes``). Needs the card."""
+    out = (ctypes.c_int * 4)()
+    lib = _cuda_lib()
+    _raise_on(lib, lib.lzm_segment_attributes(out), "segment_attributes")
+    return dict(zip(("registers", "local_bytes", "static_shared",
+                     "max_dynamic_shared"), out))
 
 
 # -- plain versions ------------------------------------------------------
@@ -398,12 +432,19 @@ def segment_chain(x, *, mode: str, iters: int, full: bool = False):
     ``acc += s``; the output is ``acc``'s row 0. ``"segments"`` (p5): each
     step, of four segments of W / 4 rows the one equal to the lane's
     ``mask`` (from 0) gets +1, ``total`` adds each segment's max, ``mask =
-    (mask + 1) % 4``; the output is ``total``. Both [1, L]."""
+    (mask + 1) % 4``; the output is ``total``. Both [1, L]. p5's kernel
+    holds a lane's column in one block's shared memory, so ``"segments"``
+    takes at most :data:`SEGMENT_MAX_ROWS` (58,048) rows, on the CPU as on
+    the card (ValueError beyond: there is no device-memory route)."""
     _check("x", x)
     _check_mode("mode", mode, SEGMENT_MODES)
     _check_int("iters", iters, 0)
     if x.shape[0] < 4 or x.shape[0] % 4:
         raise ValueError(f"x {tuple(x.shape)}: want a multiple of 4 rows")
+    if mode == "segments" and x.shape[0] > SEGMENT_MAX_ROWS:
+        raise ValueError(f"x {tuple(x.shape)}: p5's column of "
+                         f"{x.shape[0]} rows does not fit a block's shared "
+                         f"memory (at most {SEGMENT_MAX_ROWS})")
     if x.device.type == "cpu":
         return segment_chain_reference(x, mode=mode, iters=iters, full=full)
     res = launch_segment_chain(_cuda_lib(), x, mode=mode, iters=iters,

@@ -306,18 +306,26 @@ def test_host_build_bitdecode(placement, state, host_lib):
                                            full=True))
 
 
-@pytest.mark.parametrize("rounds", (10, 166))
+@pytest.mark.parametrize("rounds", (0, 1, 7, 8, 9, 10, 83, 166))
 def test_host_build_realweight(rounds, host_lib):
+    """The rounds unrolled by 8 and their tail (0-7 rounds), and the
+    pipeline's prologue and epilogue (0 and 1 iterations), from y4's zero
+    start and a seeded one. At 0 rounds a and b never change, so idx stays
+    put (a even) or sits at the last row and every iteration reads the
+    table word and ring row the last one wrote: a load issued before the
+    last store shows."""
     for i, (lo, hi) in enumerate((INT32, (0, 4096))):
         tab = table(lo, hi, 30 + i)
         start = {"init": lane_words(7, 35 + i),
                  "ring": table(*INT32, 37 + i)[:probes.RING].clone()}
         for kw in ({}, start):
-            assert_same(
-                probes.launch_realweight(host_lib, tab, rounds=rounds,
-                                         iters=60, full=True, **kw),
-                probes.realweight_reference(tab, rounds=rounds, iters=60,
-                                            full=True, **kw))
+            for iters in (0, 1, 60):
+                assert_same(
+                    probes.launch_realweight(host_lib, tab, rounds=rounds,
+                                             iters=iters, full=True, **kw),
+                    probes.realweight_reference(tab, rounds=rounds,
+                                                iters=iters, full=True,
+                                                **kw))
 
 
 def test_host_build_refuses_bad_arguments(host_lib):
@@ -485,3 +493,22 @@ def test_kernel_equals_plain_version_on_card(row, cuda_device):
         want = fn.plain(x, full=True, **kw)
         assert_same(tuple(got), tuple(want))
     assert fn.wrapper.launches == before + len(runs)
+
+
+@pytest.mark.cuda
+def test_realweight_kernel_edges_on_card(cuda_device):
+    """The unrolled rounds' tails and the pipeline's ends on the card,
+    from a seeded start, at 100 lanes (a part-filled block)."""
+    tab = table(0, 4096, 40).cuda()
+    start = {"init": lane_words(7, 41).cuda(),
+             "ring": table(*INT32, 42)[:probes.RING].cuda()}
+    before, runs = probes.realweight_step.launches, 0
+    for rounds in (0, 1, 7, 8, 9, 83, 166):
+        for iters in (0, 1, 60):
+            kw = {"rounds": rounds, "iters": iters, "full": True, **start}
+            got = probes.realweight_step(tab, **kw)
+            torch.cuda.synchronize()
+            assert_same(got, probes.realweight_reference(tab, **kw))
+            runs += 1
+    assert probes.realweight_step.launches == before + runs
+    assert probes.realweight_attributes()["local_bytes"] == 0

@@ -278,12 +278,41 @@ def test_host_build_row_chain(mode, host_lib):
 
 @pytest.mark.parametrize("mode", pm.SEGMENT_MODES)
 def test_host_build_segment_chain(mode, host_lib):
-    for i, (W, lo_hi) in enumerate(((64, INT32), (8, NEAR_LIMIT),
-                                    (2048, INT32))):
-        x = ints((W, 70), 40 + i, lo_hi)
-        kw = {"mode": mode, "iters": 41, "full": True}
-        assert_same(pm.launch_segment_chain(host_lib, x, **kw),
-                    pm.segment_chain_reference(x, **kw))
+    """p5's block (one a lane, 256 threads splitting the rows, a combine
+    every 16 steps) at W from one row a segment (thread 0 alone) past the
+    block's threads, tables that wrap on +1, 0 and 1 steps and a run that
+    ends inside a chunk."""
+    for i, W in enumerate((4, 8, 64, 100, 2048)):
+        for j, lo_hi in enumerate((INT32, NEAR_LIMIT)):
+            x = ints((W, 70), 40 + 2 * i + j, lo_hi)
+            for iters in (0, 1, 41):
+                kw = {"mode": mode, "iters": iters, "full": True}
+                assert_same(pm.launch_segment_chain(host_lib, x, **kw),
+                            pm.segment_chain_reference(x, **kw))
+
+
+def test_host_build_segment_chain_at_the_shared_memory_limit(host_lib):
+    """The largest column the block's shared memory holds runs; one more
+    row step is refused by the host build and by the wrapper on the CPU,
+    so both devices take the same inputs."""
+    W = pm.SEGMENT_MAX_ROWS
+    assert W == host_lib.lzm_segment_max_rows() == 58048
+    assert pm.segment_block_bytes(W) == pm.MAX_SHARED
+    x = ints((W, 2), 48, NEAR_LIMIT)
+    kw = {"mode": "segments", "iters": 3, "full": True}
+    assert_same(pm.launch_segment_chain(host_lib, x, **kw),
+                pm.segment_chain_reference(x, **kw))
+    assert torch.equal(pm.segment_chain(x, **kw)[0],
+                       pm.segment_chain_reference(x, **kw)[0])
+    over = torch.zeros((W + 4, 2), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="bad argument"):
+        pm.launch_segment_chain(host_lib, over, **kw)
+    with pytest.raises(ValueError, match="shared memory"):
+        pm.segment_chain(over, **kw)
+    # p4 keeps its thread a lane and takes any W
+    kw["mode"] = "refill"
+    assert_same(pm.launch_segment_chain(host_lib, over, **kw),
+                pm.segment_chain_reference(over, **kw))
 
 
 def test_host_build_refuses_bad_arguments(host_lib):
@@ -413,3 +442,24 @@ def test_kernel_equals_plain_version_on_card(kernel, cuda_device):
             assert_same(got, fn.plain(*xs, full=True))
             runs += 1
     assert runs and wrapper.launches == before + runs
+
+
+@pytest.mark.cuda
+def test_segments_kernel_edges_on_card(cuda_device):
+    """p5's block at the CPU tests' edges on the card: one row a segment,
+    rows past the block's threads, the largest column, at 1 and 130
+    lanes, runs that end inside and at a chunk's end."""
+    before, runs = pm.segment_chain.launches, 0
+    for i, (W, L) in enumerate(((4, 130), (100, 1), (2048, 130),
+                                (pm.SEGMENT_MAX_ROWS, 3))):
+        x = ints((W, L), 80 + i, NEAR_LIMIT).to(cuda_device)
+        for iters in (0, 1, 16, 41):
+            kw = {"mode": "segments", "iters": iters, "full": True}
+            got = pm.segment_chain(x, **kw)
+            torch.cuda.synchronize()
+            assert_same(got, pm.segment_chain_reference(x, **kw))
+            runs += 1
+    assert pm.segment_chain.launches == before + runs
+    a = pm.segment_attributes()
+    assert a["local_bytes"] == 0
+    assert a["max_dynamic_shared"] == pm.MAX_SHARED
