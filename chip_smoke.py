@@ -52,7 +52,9 @@ the port's native host library into
    and spills (none allowed), blocks, threads and shared memory a block,
    and an iteration's split into a round's ns and a fixed part from y4's
    and y6's slopes, beside the split before its unrolled, pipelined
-   design;
+   design; tinyops_chain's ns and cycles a round from its main row's
+   slope beside the round's before its redesign, and (a model at assumed
+   latencies) the loop's SASS chain a round (``tools/sass_chain.py``);
 8. the mosaic probe kernels (``csrc/probes_mosaic.cu``): every row of
    ``lzma_rs_tpu_torch/tools/probe_mosaic.py`` (15) and
    ``probe_mosaic2.py`` (6) on the tool's input and on a seeded one
@@ -63,7 +65,11 @@ the port's native host library into
    (output, final table, carried state); P5's kernel (a block a lane, the
    column in shared memory) with its registers and spills (none
    allowed), blocks, threads and shared memory a block, and its slope an
-   iteration beside the thread-a-lane design's;
+   iteration beside the thread-a-lane design's; gather_sum's threads an
+   output, threads a block, blocks and SMs a row, and the library call on
+   its main row (C [128, 2048]: ``torch.gather`` and a sum, the index
+   built outside the timed region, held equal to the kernel's output;
+   ``library_ms``);
 9. the mosaic3 probe kernels (``csrc/probes_mosaic3.cu``): the 12 rows of
    ``lzma_rs_tpu_torch/tools/probe_mosaic3.py`` on the tool's input and
    on a seeded one (tables over the full int32 range; P7-P9 from a start
@@ -511,6 +517,7 @@ def probes_phase(torch, dev, phase: str, rows, wrappers, source: str,
             "plain_ms": plain_ms[row, what],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None,  # no PyTorch call computes these chains
+                                 # (gather_sum's: gather_lines)
             "row": row, "input": what,
             "ms_per_iter_long": (None if r["ns_per_iter"] is None
                                  else r["ns_per_iter"] / 1e6),
@@ -605,6 +612,97 @@ def segments_lines(by: dict, entries: list, peaks) -> None:
             f"{r['ms'] * 1e3:.1f} us ({r['setup_ms'] * 1e3:.1f} us set-up); "
             f"the thread-a-lane design {SEGMENTS_BEFORE_NS:,.0f} ns an "
             f"iteration ({SEGMENTS_BEFORE_NS / r['ns_per_iter']:.0f}x)")
+
+
+# tinyops_chain's cycles a round before the round's redesign (the main
+# row's slope on one H100 80GB HBM3 at 700.00 W; PERF.md §6)
+TINYOPS_BEFORE_CYCLES = 38.4
+TINY_ROUNDS = 50  # a tinyops iteration's rounds (probe_lane.cuh)
+
+
+def tinyops_lines(by: dict, entries: list, path: str, peaks) -> None:
+    """Phase 7's lines for tinyops_chain: a round's ns and cycles from the
+    main row's slope (an iteration is 50 rounds) beside the round before
+    its redesign, and, as a model at assumed latencies (printed only), the
+    dependent chain of the loop's SASS (``tools/sass_chain.py``, integer 4
+    cycles) a round. The kernel line's entry gets the measured cycles."""
+    from lzma_rs_tpu_torch.tools import sass_chain
+
+    row = PROBE_MAIN_ROW["tinyops_chain"]
+    for what in ("tool", "seeded"):
+        r = by[row, what]
+        ns = r["ns_per_iter"] / TINY_ROUNDS
+        cyc = ns * peaks.clock_mhz / 1e3
+        say("7 probes", f"tinyops_chain [{what}], measured: a round {ns:.2f} "
+            f"ns ({cyc:.1f} cycles; the slope from {r['iters']} to 8,192 "
+            f"iterations of {TINY_ROUNDS} rounds); before the round's "
+            f"redesign {TINYOPS_BEFORE_CYCLES} cycles")
+        if what == "tool":
+            for e in entries:
+                if e["name"] == "tinyops_chain":
+                    e["cycles_per_round"] = cyc
+    kern = [v for k, v in sass_listing(path).items()
+            if "tinyops_chain_kernel" in k]
+    if len(kern) != 1:
+        say("7 probes", f"tinyops_chain's SASS chain: not read "
+            f"({len(kern)} kernels found)")
+        return
+    body = sass_chain.loop_body(kern[0], lambda b: len(b) > TINY_ROUNDS)
+    cyc = sass_chain.chain_cycles(body) / TINY_ROUNDS
+    say("7 probes", f"tinyops_chain: a model, not a measurement: the loop's "
+        f"{len(body)} instructions ({len(body) / TINY_ROUNDS:.1f} a round) "
+        f"hold a chain of {cyc:.2f} cycles a round at {sass_chain.ALU} "
+        f"cycles an integer instruction ({cyc / sass_chain.ALU:.2f} "
+        "dependent instructions a round)")
+
+
+# gather_sum's main row's function as PyTorch computes it: the walk's
+# index built outside the timed region, then torch.gather and a sum
+GATHER_ROW = "C onehot-read [128,2048] i32"
+
+
+def gather_lines(torch, dev, by: dict, entries: list, peaks) -> None:
+    """Phase 8's lines for gather_sum: each row's threads an output,
+    threads a block, blocks and SMs (``probes_mosaic.gather_launch``) beside
+    its time; and the library call on the main row (C [128, 2048], the
+    tool's input): ``torch.gather(x, 1, idx).sum(1, dtype=torch.int32)``,
+    two calls, held equal to the kernel's output and timed as the kernel
+    is (``probe_rows.median_ms``), the kernel line's ``library_ms``."""
+    from lzma_rs_tpu_torch.ops import probes_mosaic as pm
+    from lzma_rs_tpu_torch.tools import probe_mosaic, probe_rows
+
+    for name, make in probe_mosaic.ROWS_OF_TOOL:
+        fn, args, lanes = make(dev)
+        if fn.wrapper is not pm.gather_sum:
+            continue
+        group, block, blocks = pm.gather_launch(fn.kwargs["axis"], lanes)
+        t, z = by[name, "tool"], by[name, "seeded"]
+        say("8 probes", f"{name}: {lanes} outputs, {group} "
+            f"thread{'s' * (group > 1)} an output, {block} a block, {blocks} "
+            "blocks on "
+            f"{min(blocks, peaks.sms)} SMs; {t['ms'] * 1e3:.1f} / "
+            f"{z['ms'] * 1e3:.1f} us (tool's / seeded input)")
+    fn, (x, idx), _ = probe_mosaic.probe_onehot_read(128, 2048, torch.int32,
+                                                      device=dev)
+    _, start = fn.view(x, idx)
+    steps = torch.arange(fn.iters, device=dev)
+    walk = (start.long() + steps + 2**31) % 2**32 - 2**31  # wrapped int32
+    cols = torch.remainder(walk, fn.kwargs["mod"])
+
+    def library():
+        return torch.gather(x, 1, cols).sum(1, dtype=torch.int32)
+
+    want = fn(x, idx)
+    check(torch.equal(library(), want[:, 0]), "phase 8: torch.gather and "
+          "sum differ from gather_sum on the main row")
+    ms = probe_rows.median_ms(library)
+    for e in entries:
+        if e["name"] == "gather_sum":
+            e["library_ms"] = ms
+    kernel_ms = by[GATHER_ROW, "tool"]["ms"]
+    say("8 probes", f"gather_sum [{GATHER_ROW}], the library call "
+        f"(torch.gather and sum, the index built outside): {ms * 1e3:.1f} us"
+        f" against the kernel's {kernel_ms * 1e3:.1f} us")
 
 
 # the round4 kernels of the kernel line's rows (mangled-name parts)
@@ -2071,6 +2169,8 @@ def main() -> None:
         + probe_state_in_ref.ROWS_OF_TOOL, probes.WRAPPERS,
         "lzma_rs_tpu_torch/csrc/probes.cu", PROBE_REPLACES, PROBE_MAIN_ROW)
     realweight_lines(by, probe_entries, peaks)
+    tinyops_lines(by, probe_entries, build.build_library(build.PROBES).path,
+                  peaks)
 
     # -- 8. the mosaic probe kernels ---------------------------------
     entries, by = probes_phase(
@@ -2079,6 +2179,7 @@ def main() -> None:
         "lzma_rs_tpu_torch/csrc/probes_mosaic.cu", MOSAIC_REPLACES,
         MOSAIC_MAIN_ROW)
     segments_lines(by, entries, peaks)
+    gather_lines(torch, dev, by, entries, peaks)
     probe_entries += entries
 
     # -- 9. the mosaic3 probe kernels --------------------------------

@@ -7,7 +7,11 @@
 // defines the C interface of probes.cu as host loops over lanes, so the
 // logic is checked on the CPU against the plain PyTorch versions
 // (ops/probes.py). tinyops and the bit decode are one dependent chain a
-// lane, timed as they are; y4's lane unrolls its rounds as the TPU traced
+// lane, timed as they are; a tiny-op round forms its successor's a - d for
+// both outcomes of d's select before the compare that picks one
+// (tiny_round), so four instructions, not five, lie from one round's a to
+// the next, and every register stays what the probe computes; y4 runs
+// the same rounds. y4's lane unrolls its rounds as the TPU traced
 // them and overlaps each iteration's loads with the next one's rounds
 // (realweight_lane), the same code on the host.
 //
@@ -39,11 +43,58 @@ static_assert((-64 >> 5) == -2, "needs an arithmetic >> of int32");
 
 LZP_FN int32_t wrap(uint32_t v) { return static_cast<int32_t>(v); }
 
-// One round of the "tiny op" chain (k is the round index).
-LZP_FN void tiny_round(int32_t& a, int32_t& b, int32_t& d, int k) {
-  a = b > (k & 7) ? wrap(uint32_t(a) + 1u) : wrap(uint32_t(a) - uint32_t(d));
-  b = (b ^ a) & 0xFFFF;
-  d = a > b ? (d | 1) : wrap(uint32_t(d) << 1);
+// The "tiny op" chain's registers, and e = a - d (wrapped): a round's a
+// where b <= k & 7, formed by the round before.
+struct Tiny {
+  int32_t a, b, d, e;
+};
+
+LZP_FN Tiny tiny_start(int32_t a, int32_t b, int32_t d) {
+  return Tiny{a, b, d, wrap(uint32_t(a) - uint32_t(d))};
+}
+
+// One round of the chain (k is the round index), as the probe writes it:
+//   a = b > (k & 7) ? a + 1 : a - d
+//   b = (b ^ a) & 0xFFFF
+//   d = a > b ? d | 1 : d << 1
+// The next round's a - d is formed for both outcomes of d's select as soon
+// as a is known (e1 = a - (d | 1), e2 = a - (d << 1)), so the compare
+// a > b picks between values already there. From one round's a to the
+// next: the xor and mask (one LOP3), the compare (ISETP), e's select and
+// a's select (on the H100 a predicated IADD and a predicated VIADD), four
+// dependent instructions where the plain form has five or more; a + 1,
+// d | 1, d << 1, the two differences and the compare of b with k & 7 run
+// beside them. On the card the round is one inline-PTX block: written as
+// C, nvcc folds e's select of two differences of a into a - (d's select),
+// or ptxas splits the xor from the mask, each a step more on the chain
+// (on the H100 the C form took 28.7 cycles a round, this block 24.7;
+// PERF.md).
+LZP_FN void tiny_round(Tiny& t, int k) {
+  const int32_t d1 = t.d | 1, d2 = wrap(uint32_t(t.d) << 1);
+  const int32_t a1 = wrap(uint32_t(t.a) + 1u);
+#if defined(__CUDA_ARCH__)
+  int32_t a, b, d, e;
+  asm("{\n\t.reg .pred q, p;\n\t.reg .b32 e1, e2;\n\t"
+      "setp.gt.s32 q, %4, %9;\n\t"          // q = b > (k & 7)
+      "selp.b32 %0, %8, %5, q;\n\t"         // a = q ? a + 1 : e
+      "lop3.b32 %1, %4, %0, %10, 0x28;\n\t"  // b = (b ^ a) & 0xFFFF
+      "setp.gt.s32 p, %0, %1;\n\t"          // p = a > b
+      "sub.s32 e1, %0, %6;\n\t"
+      "sub.s32 e2, %0, %7;\n\t"
+      "selp.b32 %2, %6, %7, p;\n\t"         // d = p ? d | 1 : d << 1
+      "selp.b32 %3, e1, e2, p;\n\t}"        // e = a - d
+      : "=&r"(a), "=&r"(b), "=&r"(d), "=&r"(e)
+      : "r"(t.b), "r"(t.e), "r"(d1), "r"(d2), "r"(a1), "r"(k & 7),
+        "r"(0xFFFF));
+  t = Tiny{a, b, d, e};
+#else
+  t.a = t.b > (k & 7) ? a1 : t.e;
+  t.b = (t.b ^ t.a) & 0xFFFF;
+  const bool p = t.a > t.b;
+  t.e = p ? wrap(uint32_t(t.a) - uint32_t(d1))
+          : wrap(uint32_t(t.a) - uint32_t(d2));
+  t.d = p ? d1 : d2;
+#endif
 }
 
 // tinyops_only_1d / _2d: a = x, b = x + 1, d = x + 2, then `iters`
@@ -51,7 +102,7 @@ LZP_FN void tiny_round(int32_t& a, int32_t& b, int32_t& d, int k) {
 // of the Pallas kernel does.
 LZP_FN void tinyops_lane(int32_t x, int iters, int32_t* out_a,
                          int32_t* out_b, int32_t* out_d) {
-  int32_t a = x, b = wrap(uint32_t(x) + 1u), d = wrap(uint32_t(x) + 2u);
+  Tiny t = tiny_start(x, wrap(uint32_t(x) + 1u), wrap(uint32_t(x) + 2u));
 #if defined(__CUDACC__)
 #pragma unroll 1
 #endif
@@ -59,11 +110,11 @@ LZP_FN void tinyops_lane(int32_t x, int iters, int32_t* out_a,
 #if defined(__CUDACC__)
 #pragma unroll
 #endif
-    for (int k = 0; k < kTinyRounds; ++k) tiny_round(a, b, d, k);
+    for (int k = 0; k < kTinyRounds; ++k) tiny_round(t, k);
   }
-  *out_a = a;
-  *out_b = b;
-  *out_d = d;
+  *out_a = t.a;
+  *out_b = t.b;
+  *out_d = t.d;
 }
 
 // Table placements (the template parameter of the bit-decode step).
@@ -168,6 +219,7 @@ struct RealState {
 // rounds, then the tail's rounds % 8 rounds; k & 7 is the round's only use
 // of k, and k = 8 n + j there).
 LZP_FN void tiny_rounds(int32_t& a, int32_t& b, int32_t& d, int rounds) {
+  Tiny t = tiny_start(a, b, d);
   int k = 0;
 #if defined(__CUDACC__)
 #pragma unroll 1
@@ -176,14 +228,17 @@ LZP_FN void tiny_rounds(int32_t& a, int32_t& b, int32_t& d, int rounds) {
 #if defined(__CUDACC__)
 #pragma unroll
 #endif
-    for (int j = 0; j < 8; ++j) tiny_round(a, b, d, j);
+    for (int j = 0; j < 8; ++j) tiny_round(t, j);
   }
   const int tail = rounds - k;
 #if defined(__CUDACC__)
 #pragma unroll
 #endif
   for (int j = 0; j < 7; ++j)
-    if (j < tail) tiny_round(a, b, d, j);
+    if (j < tail) tiny_round(t, j);
+  a = t.a;
+  b = t.b;
+  d = t.d;
 }
 
 // The loads of one y4 iteration, issued before the next iteration's rounds
@@ -358,6 +413,22 @@ int lzp_tinyops(const int32_t* x, int32_t* state, int L, int iters,
   for (int l = 0; l < L; ++l)
     lzp::tinyops_lane(x[l], iters, state + l, state + L + l,
                       state + 2 * size_t(L) + l);
+  return 0;
+}
+
+// `rounds` rounds of tiny_round on each of n triples (a[i], b[i], d[i]),
+// in place, the first at round index `first` (host build only: the round
+// alone, against the probe's form).
+int lzp_tiny_rounds_host(int32_t* a, int32_t* b, int32_t* d, int n,
+                         int first, int rounds) {
+  if (n < 0 || first < 0 || rounds < 0) return lzp::ERR_ARGS;
+  for (int i = 0; i < n; ++i) {
+    lzp::Tiny t = lzp::tiny_start(a[i], b[i], d[i]);
+    for (int k = first; k < first + rounds; ++k) lzp::tiny_round(t, k);
+    a[i] = t.a;
+    b[i] = t.b;
+    d[i] = t.d;
+  }
   return 0;
 }
 

@@ -1,11 +1,13 @@
-// One thread of each mosaic probe kernel, and one block of p5's: the
-// per-lane functions of the JAX package's Pallas probes
-// tools/probe_mosaic.py and tools/probe_mosaic2.py, in scalar code.
+// One thread of each mosaic probe kernel, one rank of gather_sum's group
+// and one block of p5's: the per-lane functions of the JAX package's
+// Pallas probes tools/probe_mosaic.py and tools/probe_mosaic2.py, in scalar
+// code.
 //
 // Compiled for the card by probes_mosaic.cu and, as a test aid, for the
 // host by g++ (-x c++ -DLZP_HOST_ENTRY), which then also defines the C
-// interface of probes_mosaic.cu as host loops over threads (p5: over
-// blocks, warps and their 32 ranks, with the same staging, step and
+// interface of probes_mosaic.cu as host loops over threads (gather_sum:
+// over each output's ranks, their partial sums added in rank order; p5:
+// over blocks, warps and their 32 ranks, with the same staging, step and
 // combine code), so the logic is checked on the CPU against the plain
 // PyTorch versions (ops/probes_mosaic.py).
 //
@@ -60,21 +62,121 @@ LZM_FN int32_t walk(int32_t start, int32_t stride, int i, int32_t mod) {
                    mod);
 }
 
-// A, B, C, F: sum over `iters` steps of x at the walk's index along one
-// line of x ([rows, cols], row-major): row `line` (minor) or column `line`
-// (major). The sum wraps in T (uint8 or int32). The loads are independent
-// of each other; only the sum carries.
+// A, B, C, F: out[e] sums, over `iters` steps i, x at walk(start[e],
+// stride, i, mod) along one line of x ([rows, cols], row-major): row
+// `line` (minor) or column `line` (major). The sum wraps in T (uint8 or
+// int32). The loads are independent of each other; only the sum carries,
+// and a wrapping add gives the same bits in any order. So an output's
+// steps are split over a group of G threads: rank r of the group takes
+// steps r, r + G, r + 2 G, ..., and the group's partial sums are added
+// (on the card a warp's __reduce_add_sync; the uint8 sum is the low byte
+// of the uint32 one).
+//
+// The split is a function of the row's shape (gather_group), set by
+// measuring each row both ways on the H100 (PERF.md): a warp an
+// output (kGatherWarp) along the minor axis, where a warp's 32 reads of a
+// step are 32 neighbouring words of one row and coalesce, and along the
+// major axis below kGatherThreadMin outputs (B [8, 128], F: 1,024 and 128
+// outputs); a thread an output on the major axis from there (B [64, 128],
+// B [512, 128]: a warp's threads are 32 columns of one row of outputs,
+// whose reads coalesce where their rows agree). Blocks (gather_block): a
+// warp a block below kGatherSpread outputs, so C's and F's 128 outputs run
+// on 128 SMs, not one; otherwise kBlock threads a block for a warp an
+// output and one warp a block for a thread an output (B [512, 128] on
+// random rows ran faster so).
+constexpr int kGatherWarp = 32;
+constexpr int kGatherThreadMin = 4096;
+constexpr int kGatherSpread = 1024;
+
+LZM_FN int gather_group(int axis, int n_out) {
+  return axis == AXIS_MAJOR && n_out >= kGatherThreadMin ? 1 : kGatherWarp;
+}
+
+LZM_FN int gather_block(int group, int n_out) {
+  return group == kGatherWarp && n_out >= kGatherSpread ? kBlock
+                                                         : kGatherWarp;
+}
+
+LZM_FN int gather_blocks(int group, int n_out) {
+  const int block = gather_block(group, n_out);
+  return int(((long long)(n_out) * group + block - 1) / block);
+}
+
+// The steps that rank r of a group of G takes of `iters`.
+LZM_FN int gather_count(int r, int G, int iters) {
+  return r < iters ? (iters - r + G - 1) / G : 0;
+}
+
+// Rank r walks from wrap(start + stride r) by S = wrap(stride G).
+LZM_FN int32_t gather_first(int32_t start, int32_t stride, int r) {
+  return wrap(uint32_t(start) + uint32_t(stride) * uint32_t(r));
+}
+
+LZM_FN int32_t gather_stride(int32_t stride, int G) {
+  return wrap(uint32_t(stride) * uint32_t(G));
+}
+
+// The reads of a walk from v by S that stay inside int32 before it wraps:
+// count, or fewer (at least 1 where count is). Between wraps v + S j is
+// the integer sum, so floor_mod(v + S j, mod) advances by floor_mod(S,
+// mod) a read.
+LZM_FN int no_wrap_reads(int32_t v, int32_t S, int count) {
+  if (S == 0) return count;
+  const uint32_t room = S > 0 ? 0x7FFFFFFFu - uint32_t(v)
+                              : uint32_t(v) - 0x80000000u;
+  const uint32_t mag = S > 0 ? uint32_t(S) : 0u - uint32_t(S);
+  if (uint64_t(mag) * uint64_t(count - 1) <= room) return count;
+  return int(room / mag) + 1;
+}
+
+// floor_mod(v + S, mod) from k = floor_mod(v, mod) and step =
+// floor_mod(S, mod), where v + S does not wrap: k + step less mod where
+// that is smaller (k + step < 2 mod <= 2^32, so the sum does not wrap).
+// The same on k, step and mod scaled by a row pitch.
+LZM_FN uint32_t next_index(uint32_t k, uint32_t step, uint32_t mod) {
+  const uint32_t n = k + step, w = n - mod;
+  return w < n ? w : n;
+}
+
+// One rank's partial sum: `count` reads of line `line` at the walk from
+// v by S, whose index steps by step = floor_mod(S, mod) (the launch's, the
+// same for every rank): the element offset (the index times the line's
+// pitch, below rows x cols < 2^31) steps by an add and a conditional
+// subtract. floor_mod's integer divide runs at the walk's start and after
+// each int32 wrap only (none on most walks, one every read or two where
+// |S| nears 2^31). The line's first element is held in a register (an
+// empty asm): left to itself nvcc rebuilt each read's 64-bit address from
+// the line and the row length, two instructions more a read.
 template <int kAxis, class T>
-LZM_FN T gather_sum_elem(const T* x, int cols, int line, int32_t start,
-                         int32_t stride, int32_t mod, int iters) {
+LZM_FN uint32_t gather_part(const T* x, int cols, int line, int32_t v,
+                            int32_t S, uint32_t step, int32_t mod,
+                            int count) {
+  const T* base = kAxis == AXIS_MINOR ? x + size_t(line) * cols : x + line;
+#if defined(__CUDA_ARCH__)
+  asm("" : "+l"(base));
+#endif
+  const uint32_t pitch = kAxis == AXIS_MINOR ? 1u : uint32_t(cols);
+  const uint32_t step_p = step * pitch, mod_p = uint32_t(mod) * pitch;
   uint32_t acc = 0;
-  LZM_UNROLL(unroll 4)
-  for (int i = 0; i < iters; ++i) {
-    const int32_t k = walk(start, stride, i, mod);
-    acc += uint32_t(kAxis == AXIS_MINOR ? x[size_t(line) * cols + k]
-                                        : x[size_t(k) * cols + line]);
+  while (count > 0) {
+    const int run = no_wrap_reads(v, S, count);
+    uint32_t q = uint32_t(floor_mod(v, mod)) * pitch;
+    LZM_UNROLL(unroll 4)
+    for (int j = 0; j < run; ++j) {
+      acc += uint32_t(base[q]);
+      q = next_index(q, step_p, mod_p);
+    }
+    v = wrap(uint32_t(v) + uint32_t(S) * uint32_t(run));
+    count -= run;
   }
-  return static_cast<T>(acc);
+  return acc;
+}
+
+// The line of x that output e reads: its row (minor) or its column
+// (major).
+template <int kAxis>
+LZM_FN int gather_line(int e, int out_cols) {
+  return kAxis == AXIS_MINOR ? e / out_cols : e % out_cols;
 }
 
 // D: `iters` read-modify-writes of one row (`cols` words): +1 at the
@@ -317,8 +419,31 @@ LZM_FN bool bad_segment(int mode, int W, int L, int iters) {
 #include <algorithm>
 #include <vector>
 
-// probes_mosaic.cu's C interface as host loops over threads (tests only).
-// The stream argument is ignored.
+// gather_sum as the card splits it (gather_group), one output at a time:
+// each rank of the output's group sums its steps, and the ranks' partial
+// sums are added in rank order, as the warp's __reduce_add_sync adds them.
+template <int kAxis, class T>
+void host_gather(const T* x, int x_cols, const int32_t* start, int stride,
+                 int mod, T* out, int n_out, int out_cols, int iters) {
+  const int G = lzm::gather_group(kAxis, n_out);
+  const int32_t S = lzm::gather_stride(stride, G);
+  const uint32_t step = uint32_t(lzm::floor_mod(S, mod));
+  for (int e = 0; e < n_out; ++e) {
+    const int line = lzm::gather_line<kAxis>(e, out_cols);
+    uint32_t acc = 0;
+    for (int r = 0; r < G; ++r) {
+      const int count = lzm::gather_count(r, G, iters);
+      if (count > 0)
+        acc += lzm::gather_part<kAxis, T>(
+            x, x_cols, line, lzm::gather_first(start[e], stride, r), S, step,
+            mod, count);
+    }
+    out[e] = static_cast<T>(acc);
+  }
+}
+
+// probes_mosaic.cu's C interface as host loops over threads (tests only;
+// gather_sum over each output's ranks). The stream argument is ignored.
 extern "C" {
 
 int lzm_gather_sum(int axis, int elem, const void* x, int x_rows, int x_cols,
@@ -327,30 +452,36 @@ int lzm_gather_sum(int axis, int elem, const void* x, int x_rows, int x_cols,
   if (lzm::bad_gather(axis, elem, x_rows, x_cols, mod, n_out, out_cols,
                       iters))
     return lzm::ERR_ARGS;
-  for (int e = 0; e < n_out; ++e) {
-    const int line = axis == lzm::AXIS_MINOR ? e / out_cols : e % out_cols;
-    if (elem == lzm::ELEM_U8) {
-      const uint8_t* xs = static_cast<const uint8_t*>(x);
-      static_cast<uint8_t*>(out)[e] =
-          axis == lzm::AXIS_MINOR
-              ? lzm::gather_sum_elem<lzm::AXIS_MINOR>(xs, x_cols, line,
-                                                      start[e], stride, mod,
-                                                      iters)
-              : lzm::gather_sum_elem<lzm::AXIS_MAJOR>(xs, x_cols, line,
-                                                      start[e], stride, mod,
-                                                      iters);
-    } else {
-      const int32_t* xs = static_cast<const int32_t*>(x);
-      static_cast<int32_t*>(out)[e] =
-          axis == lzm::AXIS_MINOR
-              ? lzm::gather_sum_elem<lzm::AXIS_MINOR>(xs, x_cols, line,
-                                                      start[e], stride, mod,
-                                                      iters)
-              : lzm::gather_sum_elem<lzm::AXIS_MAJOR>(xs, x_cols, line,
-                                                      start[e], stride, mod,
-                                                      iters);
-    }
+  if (elem == lzm::ELEM_U8) {
+    const uint8_t* xs = static_cast<const uint8_t*>(x);
+    uint8_t* o = static_cast<uint8_t*>(out);
+    if (axis == lzm::AXIS_MINOR)
+      host_gather<lzm::AXIS_MINOR>(xs, x_cols, start, stride, mod, o, n_out,
+                                   out_cols, iters);
+    else
+      host_gather<lzm::AXIS_MAJOR>(xs, x_cols, start, stride, mod, o, n_out,
+                                   out_cols, iters);
+  } else {
+    const int32_t* xs = static_cast<const int32_t*>(x);
+    int32_t* o = static_cast<int32_t*>(out);
+    if (axis == lzm::AXIS_MINOR)
+      host_gather<lzm::AXIS_MINOR>(xs, x_cols, start, stride, mod, o, n_out,
+                                   out_cols, iters);
+    else
+      host_gather<lzm::AXIS_MAJOR>(xs, x_cols, start, stride, mod, o, n_out,
+                                   out_cols, iters);
   }
+  return 0;
+}
+
+// gather_sum's launch for `n_out` outputs along `axis`: out[0] the threads
+// an output, out[1] the threads a block, out[2] the blocks.
+int lzm_gather_launch(int axis, int n_out, int* out) {
+  if ((axis != lzm::AXIS_MINOR && axis != lzm::AXIS_MAJOR) || n_out < 0)
+    return lzm::ERR_ARGS;
+  out[0] = lzm::gather_group(axis, n_out);
+  out[1] = lzm::gather_block(out[0], n_out);
+  out[2] = lzm::gather_blocks(out[0], n_out);
   return 0;
 }
 

@@ -21,7 +21,13 @@
 //     2048: the card is latency-bound, neither bytes nor operations set
 //     the time. The time per link is what tinyops_chain and
 //     bitdecode_chain measure, to set beside the segment decoder's step,
-//     so nothing is done there to hide the latency.
+//     so nothing is done there to hide the latency. What a tiny-op round
+//     puts on the chain is shortened instead (probe_lane.cuh: tiny_round,
+//     one inline-PTX block): the next round's a - d formed for both
+//     outcomes of d's select before the compare, so four dependent
+//     instructions a round where the probe's form has five, each lane's
+//     registers bit for bit the same. Blocks of 32, 64 or 128 lanes ran alike (one
+//     warp a scheduler either way): kBlock stays 64.
 //   - realweight_step (y4) is the decoder's step in miniature, and on the
 //     TPU its rounds were straight-line code (the probe's Python loop,
 //     k & 7 a constant in each round). Here they are unrolled by 8 the

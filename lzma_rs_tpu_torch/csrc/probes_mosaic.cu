@@ -20,14 +20,20 @@
 //   segment_chain <- p4 (probe_mosaic2.py:162), p5 (:198)
 //
 // What bounds them on this card, and what the design does about it:
-//   - gather_sum: one thread per output element, `iters` loads whose
-//     addresses do not depend on loaded data, summed. Up to 131,072 threads
-//     (A [128, 1024]): the loads pipeline (unrolled by 4) and the card is
-//     bound by its load and integer issue, the index's floor mod (an
-//     integer division) included; at 128 threads (C, F) it is one SM's
-//     latency. C reads lane-major (a warp's 32 loads hit 32 rows: 32
-//     sectors), B and F lane-minor (a warp's loads coalesce). The memory
-//     is not the limit: every table fits the 50 MB L2.
+//   - gather_sum: `iters` loads an output element whose addresses do not
+//     depend on loaded data, summed (a wrapping add, so in any order). A
+//     thread an output would put C's and F's 128 outputs on one SM, 4
+//     warps each walking 512 loads; so an output's loads are split over a
+//     warp (probe_mosaic.cuh: gather_group), whose 32 loads of a step
+//     along a row coalesce, and the partial sums meet in
+//     __reduce_add_sync: C and F run a warp a block on 128 SMs. The major
+//     axis from 4,096 outputs (B [64, 128], B [512, 128]) keeps a thread an
+//     output, in 32-thread blocks. The index's floor mod by the run-time
+//     mod, an integer divide, runs at a walk's start and its int32 wraps
+//     only; between them the index steps by an add and a conditional
+//     subtract. Every table fits the 50 MB L2; the loads' issue and
+//     latency, and at A [128, 1024] the 4 M threads' own set-up, set the
+//     time.
 //   - rw_chain: D is one thread per row, a read-modify-write at an advancing
 //     address (independent of the last, but a load may not pass an earlier
 //     store to a possibly equal address); E is one thread: a load, an add,
@@ -71,17 +77,29 @@ namespace {
 
 using lzm::kBlock;
 
-template <int kAxis, class T>
+// gather_sum: kGroup threads an output (probe_mosaic.cuh: gather_group),
+// rank r of the group taking steps r, r + kGroup, ...; a warp's ranks add
+// their partial sums with __reduce_add_sync. A group is a whole warp or
+// one thread and a block a whole number of warps, so a warp's threads all
+// serve outputs below n_out or none does.
+template <int kAxis, class T, int kGroup>
 __global__ void __launch_bounds__(kBlock)
     gather_sum_kernel(const T* __restrict__ x, int x_cols,
                       const int32_t* __restrict__ start, int32_t stride,
-                      int32_t mod, T* __restrict__ out, int n_out,
-                      int out_cols, int iters) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+                      int32_t S, uint32_t step, int32_t mod,
+                      T* __restrict__ out, int n_out, int out_cols,
+                      int iters) {
+  const long long t = (long long)(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int e = int(t / kGroup), r = int(t % kGroup);
   if (e >= n_out) return;
-  const int line = kAxis == lzm::AXIS_MINOR ? e / out_cols : e % out_cols;
-  out[e] = lzm::gather_sum_elem<kAxis, T>(x, x_cols, line, start[e], stride,
-                                          mod, iters);
+  const int count = lzm::gather_count(r, kGroup, iters);
+  uint32_t acc = 0;
+  if (count > 0)
+    acc = lzm::gather_part<kAxis, T>(
+        x, x_cols, lzm::gather_line<kAxis>(e, out_cols),
+        lzm::gather_first(start[e], stride, r), S, step, mod, count);
+  if (kGroup > 1) acc = __reduce_add_sync(0xFFFFFFFFu, acc);
+  if (r == 0) out[e] = static_cast<T>(acc);
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -180,13 +198,30 @@ cudaError_t segments_opt_in() {
 
 int blocks(int n) { return (n + kBlock - 1) / kBlock; }
 
+template <int kAxis, class T, int kGroup>
+void launch_group(const T* x, int x_cols, const int32_t* start, int stride,
+                  int mod, T* out, int n_out, int out_cols, int iters,
+                  cudaStream_t s) {
+  const int32_t S = lzm::gather_stride(stride, kGroup);
+  const uint32_t step = uint32_t(lzm::floor_mod(S, mod));
+  gather_sum_kernel<kAxis, T, kGroup>
+      <<<lzm::gather_blocks(kGroup, n_out), lzm::gather_block(kGroup, n_out),
+         0, s>>>(x, x_cols, start, stride, S, step, mod, out, n_out, out_cols,
+                 iters);
+}
+
 template <int kAxis, class T>
 void launch_gather(const void* x, int x_cols, const int32_t* start,
                    int stride, int mod, void* out, int n_out, int out_cols,
                    int iters, cudaStream_t s) {
-  gather_sum_kernel<kAxis, T><<<blocks(n_out), kBlock, 0, s>>>(
-      static_cast<const T*>(x), x_cols, start, stride, mod,
-      static_cast<T*>(out), n_out, out_cols, iters);
+  const T* xs = static_cast<const T*>(x);
+  T* o = static_cast<T*>(out);
+  if (lzm::gather_group(kAxis, n_out) == lzm::kGatherWarp)
+    launch_group<kAxis, T, lzm::kGatherWarp>(xs, x_cols, start, stride, mod,
+                                             o, n_out, out_cols, iters, s);
+  else
+    launch_group<kAxis, T, 1>(xs, x_cols, start, stride, mod, o, n_out,
+                              out_cols, iters, s);
 }
 
 template <class T>
@@ -223,6 +258,17 @@ int lzm_gather_sum(int axis, int elem, const void* x, int x_rows, int x_cols,
                              out_cols, iters, s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// gather_sum's launch for `n_out` outputs along `axis`: out[0] the threads
+// an output, out[1] the threads a block, out[2] the blocks.
+int lzm_gather_launch(int axis, int n_out, int* out) {
+  if ((axis != lzm::AXIS_MINOR && axis != lzm::AXIS_MAJOR) || n_out < 0)
+    return lzm::ERR_ARGS;
+  out[0] = lzm::gather_group(axis, n_out);
+  out[1] = lzm::gather_block(out[0], n_out);
+  out[2] = lzm::gather_blocks(out[0], n_out);
+  return 0;
 }
 
 // x: [rows, cols] int32, updated in place. RW_ROWS: start [rows], one

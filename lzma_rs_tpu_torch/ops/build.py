@@ -335,6 +335,7 @@ def bind_mosaic(lib: ctypes.CDLL) -> ctypes.CDLL:
         (lib.lzm_row_chain, [ci, vp, ci, ci, vp, ci, vp]),
         (lib.lzm_segment_chain, [ci, vp, ci, ci, vp, ci, vp]),
         (lib.lzm_segment_max_rows, []),
+        (lib.lzm_gather_launch, [ci, ci, vp]),
     ):
         fn.restype, fn.argtypes = ci, args
     lib.lzm_error_string.restype = ctypes.c_char_p

@@ -20,12 +20,14 @@ probes are direct indexed loads and stores here, with the same results):
 Each wrapper launches its hand-written kernel (``csrc/probes_mosaic.cu``)
 on a CUDA tensor, or raises; on a CPU tensor it runs its plain PyTorch
 version (``*_reference``: direct indexing, every thread in lockstep).
-The kernels run a thread per output element, row or lane, but p5's
-(``segment_chain``, mode ``"segments"``) runs a block of
-:data:`SEGMENT_THREADS` per lane, with the lane's whole column in the
-block's shared memory and its rows split over the threads; so its table
-holds at most :data:`SEGMENT_MAX_ROWS` rows, and the wrapper refuses more
-on either device.
+The kernels run a thread per row or lane, with two exceptions.
+``gather_sum`` splits an output's steps over a warp (the minor axis, and
+the major axis below :data:`GATHER_THREAD_MIN` outputs) or gives each
+output a thread (:func:`gather_launch`). p5's (``segment_chain``, mode
+``"segments"``) runs a block of :data:`SEGMENT_THREADS` per lane, with
+the lane's whole column in the block's shared memory and its rows split
+over the threads; so its table holds at most :data:`SEGMENT_MAX_ROWS`
+rows, and the wrapper refuses more on either device.
 ``<wrapper>.launches`` counts kernel launches, ``<wrapper>.reference`` is
 the plain version. Inputs are not changed. ``full=True`` also returns a
 dict: the final table where the function writes one (E, p3, p5; D's output
@@ -48,7 +50,7 @@ __all__ = [
     "AXES", "RW_MODES", "ROW_MODES", "SEGMENT_MODES", "WRAPPERS",
     "GATHER_OPS", "RW_OPS", "ROW_OPS", "segment_ops", "byte_rows_read",
     "SEGMENT_THREADS", "SEGMENT_MAX_ROWS", "segment_block_bytes",
-    "segment_attributes",
+    "segment_attributes", "GATHER_THREAD_MIN", "gather_launch",
     "gather_sum", "gather_sum_reference", "rw_chain", "rw_chain_reference",
     "row_chain", "row_chain_reference", "segment_chain",
     "segment_chain_reference",
@@ -67,6 +69,15 @@ SEGMENT_THREADS = 256
 SEGMENT_SLOTS = 64
 MAX_SHARED = 232448
 SEGMENT_MAX_ROWS = (MAX_SHARED // 4 - SEGMENT_SLOTS) // 4 * 4  # 58,048
+
+# gather_sum's launch (csrc/probe_mosaic.cuh: gather_group, gather_block):
+# a warp an output, or a thread an output on the major axis from
+# GATHER_THREAD_MIN outputs; a warp a block below GATHER_SPREAD outputs and
+# for a thread an output, else BLOCK threads (the mosaic kernels' block)
+GATHER_WARP = 32
+GATHER_THREAD_MIN = 4096
+GATHER_SPREAD = 1024
+BLOCK = 128
 
 # Integer operations per thread and step, counted from the probes' code
 # (for the bound). gather_sum: the index's add (F: multiply), its mod (A:
@@ -89,6 +100,17 @@ def segment_ops(mode: str, W: int) -> float:
     if mode == "refill":
         return 4 + 4 / REFILL_EVERY
     return 2 * W + W // 4 + 4 * 2 + 2
+
+
+def gather_launch(axis: str, n_out: int) -> tuple:
+    """``gather_sum``'s launch for ``n_out`` outputs along ``axis``: the
+    threads an output, the threads a block and the blocks (a copy of the
+    kernel's rule, ``lzm_gather_launch``)."""
+    group = (1 if axis == "major" and n_out >= GATHER_THREAD_MIN
+             else GATHER_WARP)
+    block = (BLOCK if group == GATHER_WARP and n_out >= GATHER_SPREAD
+             else GATHER_WARP)
+    return group, block, -(-n_out * group // block)
 
 
 def segment_block_bytes(W: int) -> int:

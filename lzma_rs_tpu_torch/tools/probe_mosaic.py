@@ -3,11 +3,12 @@
 The port of the JAX package's ``tools/probe_mosaic.py``, with its function
 names, inputs and rows. On the TPU the probe asked which dynamic-indexing
 patterns Mosaic lowers and what each costs; on the card every pattern is
-a plain indexed load or store, and the question is what the access costs
-a thread: a gather along a row (A, C: lane-major, a warp's loads 32 rows
-apart for C) or down a column (B, F: lane-minor, coalesced), a
-read-modify-write per row (D), and one thread's load-after-store chain
-(E). The one-hot forms of C and D are direct indexed accesses here.
+a plain indexed load or store, and the question is what the access
+costs: a gather along a row (A, C: a warp an output, its 32 loads of a
+step neighbouring words) or down a column (B, F: a warp an output below
+4,096 outputs, else a thread an output, a warp's loads coalesced where
+its columns' rows agree), a read-modify-write per row (D), and one
+thread's load-after-store chain (E). The one-hot forms of C and D are direct indexed accesses here.
 
 Run on the card::
 
@@ -15,8 +16,10 @@ Run on the card::
 
 or through the plain versions on the CPU with ``--device cpu``. Each
 function returns ``(fn, args, lanes)``: ``fn(*args)`` runs the row
-(``fn.plain`` the plain version), ``lanes`` is its threads; ``device``
-defaults to the card.
+(``fn.plain`` the plain version), ``lanes`` is its threads, for the
+gathers its output elements (the bound's count of work: the kernel gives
+an output a warp or a thread, ``ops/probes_mosaic.py::gather_launch``);
+``device`` defaults to the card.
 """
 
 from __future__ import annotations

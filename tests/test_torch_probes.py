@@ -279,9 +279,94 @@ def assert_same(got, want):
         assert torch.equal(got[1][k], want[1][k]), k
 
 
-@pytest.mark.parametrize("kind", ("wide", "narrow"))
+# tiny-op registers at the edges of the round's paths: INT32_MIN and
+# INT32_MAX (a + 1, a - d and d << 1 wrap), d with its top bit set, b at
+# 0-8 (either side of every k & 7) and 0xFFFF, a either side of b; then
+# seeded triples over the full range
+EDGE_WORDS = (-2**31, -2**31 + 1, -2**30, -65536, -1, 0, 1, 2, 7, 8,
+              0xFFFF, 0x10000, 2**30, 2**31 - 2, 2**31 - 1)
+
+
+def tiny_triples(seed: int = 12):
+    """(a, b, d) int32 arrays: the edge words crossed with b's edges, and
+    seeded triples."""
+    edge_b = tuple(range(9)) + (0xFFFF, -1, 2**31 - 1, -2**31)
+    a, b, d = (np.array(v, dtype=np.int64) for v in zip(*[
+        (x, y, z) for x in EDGE_WORDS for y in edge_b
+        for z in (EDGE_WORDS[0], EDGE_WORDS[-1], -3, 5, x)]))
+    rng = np.random.default_rng(seed)
+    more = rng.integers(*INT32, size=(3, 256), dtype=np.int64)
+    more[1, :128] &= 0xFFFF  # b as the rounds leave it
+    return tuple(np.concatenate([v, m]).astype(np.int32)
+                 for v, m in zip((a, b, d), more))
+
+
+def jax_tiny_rounds(a, b, d, first: int, rounds: int):
+    """The probe's rounds as ``tools/probe_lane2d.py`` writes them, in
+    jax.numpy (int32, wrapping)."""
+    import jax.numpy as jnp
+
+    a, b, d = map(jnp.asarray, (a, b, d))
+    for k in range(first, first + rounds):
+        a = jnp.where(b > (k & 7), a + 1, a - d)
+        b = (b ^ a) & 0xFFFF
+        d = jnp.where(a > b, d | 1, d << 1)
+    return tuple(np.asarray(v) for v in (a, b, d))
+
+
+def host_tiny_rounds(lib, a, b, d, first: int, rounds: int):
+    """``lzp_tiny_rounds_host``: the g++ build's tiny_round (the card's
+    round in its C form), on copies."""
+    fn = lib.lzp_tiny_rounds_host
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] * 3
+    a, b, d = (np.ascontiguousarray(v, dtype=np.int32).copy()
+               for v in (a, b, d))
+    assert fn(a.ctypes.data, b.ctypes.data, d.ctypes.data, a.size, first,
+              rounds) == 0
+    return a, b, d
+
+
+@pytest.mark.parametrize("rounds", (1, 50))
+@pytest.mark.parametrize("k", range(8))
+def test_tiny_round_equals_the_probes_form(k, rounds, host_lib):
+    """The rewritten round (a - d formed for both outcomes of d's select
+    ahead of the compare) against the probe's three lines, from round k:
+    one round at each k & 7, and 50 from there (every k & 7 and the carried
+    a - d)."""
+    triples = tiny_triples()
+    got = host_tiny_rounds(host_lib, *triples, k, rounds)
+    want = jax_tiny_rounds(*triples, k, rounds)
+    for name, g, w in zip("abd", got, want):
+        assert np.array_equal(g, w), name
+
+
+def test_tiny_triples_reach_every_path():
+    """Both sides of each select are taken at some k: b > k & 7 and not,
+    a > b and not, and a + 1, a - d and d << 1 wrap."""
+    a, b, d = (v.astype(np.int64) for v in tiny_triples())
+    for k in range(8):
+        assert (b > k).any() and (b <= k).any()
+    assert (a == 2**31 - 1).any() and (d < 0).any()
+    assert ((a - d) > 2**31 - 1).any() and ((a - d) < -2**31).any()
+    assert ((d << 1) > 2**31 - 1).any()
+
+
+def tinyops_input(kind: str):
+    """tinyops' x ([2, 50] int32): seeded ("wide", "narrow"), or the edge
+    words and their neighbours ("edge": a = x, b = x + 1, d = x + 2 wrap
+    at INT32_MAX)."""
+    if kind != "edge":
+        return torch.from_numpy(seeded((2, 50), kind, True, 11))
+    words = np.array(EDGE_WORDS + tuple(w - 2 for w in EDGE_WORDS),
+                     dtype=np.int64)
+    x = np.resize(words, 100).reshape(2, 50)
+    return torch.from_numpy(((x + 2**31) % 2**32 - 2**31).astype(np.int32))
+
+
+@pytest.mark.parametrize("kind", ("wide", "narrow", "edge"))
 def test_host_build_tinyops(kind, host_lib):
-    x = torch.from_numpy(seeded((2, 50), kind, True, 11))
+    x = tinyops_input(kind)
     assert_same(probes.launch_tinyops(host_lib, x, iters=40, full=True),
                 probes.tinyops_reference(x, iters=40, full=True))
 
@@ -310,15 +395,20 @@ def test_host_build_bitdecode(placement, state, host_lib):
 def test_host_build_realweight(rounds, host_lib):
     """The rounds unrolled by 8 and their tail (0-7 rounds), and the
     pipeline's prologue and epilogue (0 and 1 iterations), from y4's zero
-    start and a seeded one. At 0 rounds a and b never change, so idx stays
+    start, a seeded one and one whose a, b, d are the tiny round's edge
+    triples. At 0 rounds a and b never change, so idx stays
     put (a even) or sits at the last row and every iteration reads the
     table word and ring row the last one wrote: a load issued before the
     last store shows."""
+    edge = lane_words(7, 39)
+    a, b, d = tiny_triples()
+    edge[4:7] = torch.from_numpy(np.stack([a, b, d])[:, :100]).reshape(
+        3, 2, 50)  # a, b, d at the round's edges
     for i, (lo, hi) in enumerate((INT32, (0, 4096))):
         tab = table(lo, hi, 30 + i)
-        start = {"init": lane_words(7, 35 + i),
-                 "ring": table(*INT32, 37 + i)[:probes.RING].clone()}
-        for kw in ({}, start):
+        ring = table(*INT32, 37 + i)[:probes.RING].clone()
+        start = {"init": lane_words(7, 35 + i), "ring": ring}
+        for kw in ({}, start, {"init": edge, "ring": ring}):
             for iters in (0, 1, 60):
                 assert_same(
                     probes.launch_realweight(host_lib, tab, rounds=rounds,
@@ -493,6 +583,26 @@ def test_kernel_equals_plain_version_on_card(row, cuda_device):
         want = fn.plain(x, full=True, **kw)
         assert_same(tuple(got), tuple(want))
     assert fn.wrapper.launches == before + len(runs)
+
+
+@pytest.mark.cuda
+def test_tinyops_kernel_edges_on_card(cuda_device):
+    """The card's round (its inline PTX, which the host build does not
+    compile) from the edge words, and y4's from the edge triples."""
+    x = tinyops_input("edge").cuda()
+    got = probes.tinyops_chain(x, iters=40, full=True)
+    torch.cuda.synchronize()
+    assert_same(got, probes.tinyops_reference(x, iters=40, full=True))
+    a, b, d = tiny_triples()
+    init = lane_words(7, 39)
+    init[4:7] = torch.from_numpy(np.stack([a, b, d])[:, :100]).reshape(
+        3, 2, 50)
+    tab = table(0, 4096, 45).cuda()
+    kw = {"rounds": 13, "iters": 20, "full": True, "init": init.cuda(),
+          "ring": table(*INT32, 46)[:probes.RING].cuda()}
+    got = probes.realweight_step(tab, **kw)
+    torch.cuda.synchronize()
+    assert_same(got, probes.realweight_reference(tab, **kw))
 
 
 @pytest.mark.cuda

@@ -16,7 +16,11 @@
   E and D at W = 64 (512 steps), p3 and p6 at W = 64 with 200 steps.
 - A g++ build of ``csrc/probe_mosaic.cuh`` (``-DLZP_HOST_ENTRY``, the C
   interface of ``csrc/probes_mosaic.cu`` as host loops) against the plain
-  versions, for every mode and element type: output and final table.
+  versions, for every mode and element type: output and final table;
+  ``gather_sum``'s split (an output's ranks and their sum in rank order)
+  also against the Pallas probe on every gather row and input, at the
+  tool's twelve row shapes at reduced steps, over strides and starts that
+  wrap int32 mid-walk, and its launch rule against the Python copy.
 - The wrappers' checks, the tools' command lines, p6's row count for the
   bound, and (marked ``cuda``) each kernel against its plain version on
   the card. (``ops/build.py``'s per-library hash, the ``mosaic`` library
@@ -119,7 +123,7 @@ def check_equal(got, want, what: str):
 
 @pytest.mark.parametrize("kind", INPUTS)
 @pytest.mark.parametrize("row", MOSAIC_ROWS)
-def test_mosaic_port_equals_the_pallas_probe(row, kind):
+def test_mosaic_port_equals_the_pallas_probe(row, kind, host_lib):
     import jax
     import jax.numpy as jnp
 
@@ -139,6 +143,10 @@ def test_mosaic_port_equals_the_pallas_probe(row, kind):
     want = np.asarray(jax.block_until_ready(jfn(*map(jnp.asarray, xs))))
     got, full = pfn(*map(torch.from_numpy, xs), full=True)
     check_equal(got, want, "out")
+    if pfn.wrapper is pm.gather_sum:  # the kernel's split, its g++ build
+        x, start = pfn.view(*map(torch.from_numpy, xs))
+        check_equal(pm.launch_gather_sum(host_lib, x, start, iters=pfn.iters,
+                                         **pfn.kwargs), want, "host build")
     if kind != "tool" and fname == "probe_onehot_write":
         # the edge input's +1 wraps at 2^31 - 1 somewhere
         assert (xs[0] == 2**31 - 1).any() or kind == "wide"
@@ -239,16 +247,90 @@ GATHER_STARTS = {
 }
 
 
+# strides of the walks: the tools' 1 and 13, negative ones, and large ones
+# whose walk wraps int32 every read or two (2^31 - 1, -2^31) or every few
+GATHER_STRIDES = (1, 13, -5, -1, 2**31 - 1, -2**31, 2**30 + 3,
+                  -(2**31 - 7), 123_456_789)
+
+
 @pytest.mark.parametrize("dtype", (torch.int32, torch.uint8))
 @pytest.mark.parametrize("axis", pm.AXES)
 def test_host_build_gather_sum(axis, dtype, host_lib):
+    """Each output's ranks (a warp's 32 or one thread) and their sum in
+    rank order, at 300 steps and at 45 (not a multiple of 32: ranks 0-12
+    take two, the rest one), over moduli that are not powers of two,
+    starts within 1,024 of +-2^31 that wrap mid-walk, and every stride of
+    GATHER_STRIDES."""
     x = ints((24, 40), 1, (0, 256) if dtype == torch.uint8 else INT32, dtype)
     for i, (shape, mod, stride, lo_hi) in enumerate(GATHER_STARTS[axis]):
         start = ints(shape, 2 + i, lo_hi)
-        kw = {"axis": axis, "mod": mod, "stride": stride, "iters": 300,
-              "full": True}
+        for st in (stride, *GATHER_STRIDES):
+            for iters in (300, 45):
+                kw = {"axis": axis, "mod": mod, "stride": st,
+                      "iters": iters, "full": True}
+                assert_same(pm.launch_gather_sum(host_lib, x, start, **kw),
+                            pm.gather_sum_reference(x, start, **kw))
+
+
+@pytest.mark.parametrize("dtype", (torch.int32, torch.uint8))
+def test_host_build_gather_sum_a_thread_an_output(dtype, host_lib):
+    """The major axis from GATHER_THREAD_MIN outputs: a thread an output
+    (x [24, 256], start [16, 256]: 4,096 outputs), and one output fewer, a
+    warp an output, on the same walks."""
+    x = ints((24, 256), 3, (0, 256) if dtype == torch.uint8 else INT32,
+             dtype)
+    start = ints((16, 256), 4, NEAR_LIMIT)
+    assert pm.gather_launch("major", start.numel())[0] == 1
+    assert pm.gather_launch("major", start.numel() - 256)[0] == 32
+    for st in (1, -5, 2**31 - 1, 123_456_789):
+        for rows, mod in ((16, 24), (15, 17)):
+            kw = {"axis": "major", "mod": mod, "stride": st, "iters": 45,
+                  "full": True}
+            s = start[:rows]
+            assert_same(pm.launch_gather_sum(host_lib, x, s, **kw),
+                        pm.gather_sum_reference(x, s, **kw))
+
+
+GATHER_ROWS = [(i, n, m) for i, (n, m) in enumerate(probe_mosaic.ROWS_OF_TOOL)
+               if n[0] in "ABCF"]
+
+
+@pytest.mark.parametrize("steps", (0, 1, 31, 45))
+@pytest.mark.parametrize("row", [n for _, n, _ in GATHER_ROWS])
+def test_host_build_gather_sum_tool_rows(row, steps, host_lib):
+    """The tool's twelve gather rows at their shapes, at reduced steps (a
+    rank with none, one, or one or two), on the tool's input and the
+    seeded one (starts within 1,024 of +-2^31)."""
+    i, make = next((i, m) for i, n, m in GATHER_ROWS if n == row)
+    fn, args, lanes = make("cpu")
+    for xs in (args, fn.seeded_inputs(args, 70 + i)):
+        x, start = fn.view(*xs)
+        assert start.numel() == lanes
+        kw = {**fn.kwargs, "iters": steps, "full": True}
         assert_same(pm.launch_gather_sum(host_lib, x, start, **kw),
                     pm.gather_sum_reference(x, start, **kw))
+
+
+def test_gather_launch_is_the_kernels(host_lib):
+    """The Python copy of the split against the header's
+    (``lzm_gather_launch``), and the split of the tool's rows: C and F a
+    warp an output and a warp a block (128 blocks), B [512, 128] a thread
+    an output in 32-thread blocks."""
+    for axis in pm.AXES:
+        for n in (0, 1, 127, 128, 1023, 1024, 1025, 4095, 4096, 65536,
+                  131072):
+            out = (ctypes.c_int * 3)()
+            assert host_lib.lzm_gather_launch(pm.AXES.index(axis), n,
+                                              out) == 0
+            assert tuple(out) == pm.gather_launch(axis, n), (axis, n)
+    assert host_lib.lzm_gather_launch(2, 1, (ctypes.c_int * 3)()) != 0
+    split = {n: pm.gather_launch(make("cpu")[0].kwargs["axis"],
+                                 make("cpu")[2]) for _, n, make in GATHER_ROWS}
+    assert split["C onehot-read [128,2048] i32"] == (32, 32, 128)
+    assert split["F dynrow pl.ds [4096,128]"] == (32, 32, 128)
+    assert split["A gather-minor [128,1024] i32"] == (32, 128, 32768)
+    assert split["B gather-sublane [64,128] i32"] == (1, 32, 256)
+    assert split["B gather-sublane [512,128] i32"] == (1, 32, 2048)
 
 
 @pytest.mark.parametrize("mode", pm.RW_MODES)
@@ -442,6 +524,30 @@ def test_kernel_equals_plain_version_on_card(kernel, cuda_device):
             assert_same(got, fn.plain(*xs, full=True))
             runs += 1
     assert runs and wrapper.launches == before + runs
+
+
+@pytest.mark.cuda
+def test_gather_kernel_edges_on_card(cuda_device):
+    """The host tests' walks on the card: both axes and element types, a
+    warp an output and a thread an output, strides that wrap int32 every
+    read or two, 45 steps, starts within 1,024 of +-2^31."""
+    before, runs = pm.gather_sum.launches, 0
+    for dtype in (torch.int32, torch.uint8):
+        lo_hi = (0, 256) if dtype == torch.uint8 else INT32
+        for axis, xshape, sshape, mod in (("minor", (24, 40), (10, 3), 7),
+                                          ("major", (24, 40), (5, 40), 23),
+                                          ("major", (24, 256), (16, 256),
+                                           17)):
+            x = ints(xshape, 5, lo_hi, dtype).to(cuda_device)
+            start = ints(sshape, 6, NEAR_LIMIT).to(cuda_device)
+            for st in GATHER_STRIDES:
+                kw = {"axis": axis, "mod": mod, "stride": st, "iters": 45,
+                      "full": True}
+                got = pm.gather_sum(x, start, **kw)
+                torch.cuda.synchronize()
+                assert_same(got, pm.gather_sum_reference(x, start, **kw))
+                runs += 1
+    assert pm.gather_sum.launches == before + runs
 
 
 @pytest.mark.cuda
