@@ -48,7 +48,11 @@ the port's native host library into
    iterations, at 8,192 and at 0 (the wrapper's table copy and state
    set-up, ``setup_ms`` beside ``ms``; CUDA events, median of 5); then
    every row's kernel against its plain version on both inputs, bit for
-   bit (output, final table, ring and state); realweight_step's registers
+   bit (output, final table, ring and state); bitdecode_chain's ns and
+   cycles an iteration on every row (its pipelined lane: both candidate
+   rows loaded before the bit) with each kernel's registers and spills
+   (none allowed), the main row's beside its time before that design;
+   realweight_step's registers
    and spills (none allowed), blocks, threads and shared memory a block,
    and an iteration's split into a round's ns and a fixed part from y4's
    and y6's slopes, beside the split before its unrolled, pipelined
@@ -69,7 +73,11 @@ the port's native host library into
    output, threads a block, blocks and SMs a row, and the library call on
    its main row (C [128, 2048]: ``torch.gather`` and a sum, the index
    built outside the timed region, held equal to the kernel's output;
-   ``library_ms``);
+   ``library_ms``); rw_chain's D (a warp a row) and E (the row in shared
+   memory) with their threads a row, threads a block, blocks, SMs,
+   registers and spills (none allowed), and D's library call on its main
+   row (D [128, 2048]: ``clone`` and ``scatter_add_``, the index built
+   outside, held equal to the kernel's output; ``library_ms``);
 9. the mosaic3 probe kernels (``csrc/probes_mosaic3.cu``): the 12 rows of
    ``lzma_rs_tpu_torch/tools/probe_mosaic3.py`` on the tool's input and
    on a seeded one (tables over the full int32 range; P7-P9 from a start
@@ -517,7 +525,8 @@ def probes_phase(torch, dev, phase: str, rows, wrappers, source: str,
             "plain_ms": plain_ms[row, what],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None,  # no PyTorch call computes these chains
-                                 # (gather_sum's: gather_lines)
+                                 # (gather_sum's: gather_lines; rw_chain's
+                                 # D: rw_lines)
             "row": row, "input": what,
             "ms_per_iter_long": (None if r["ns_per_iter"] is None
                                  else r["ns_per_iter"] / 1e6),
@@ -703,6 +712,97 @@ def gather_lines(torch, dev, by: dict, entries: list, peaks) -> None:
     say("8 probes", f"gather_sum [{GATHER_ROW}], the library call "
         f"(torch.gather and sum, the index built outside): {ms * 1e3:.1f} us"
         f" against the kernel's {kernel_ms * 1e3:.1f} us")
+
+
+def rw_lines(torch, dev, by: dict, entries: list, peaks) -> None:
+    """Phase 8's lines for rw_chain: D's and E's threads a row, threads a
+    block, blocks and SMs (``probes_mosaic.rw_launch``) and their kernels'
+    registers and spills (none allowed) beside their times; and the
+    library call on D's main row (the tool's input):
+    ``x.clone().scatter_add_(1, cols, ones)``, the index built outside
+    the timed call, two calls, held equal to the kernel's output and timed
+    as the kernel is (``tools/probe_mosaic.py::library_row``), the kernel
+    line's ``library_ms``."""
+    from lzma_rs_tpu_torch.ops import probes_mosaic as pm
+    from lzma_rs_tpu_torch.tools import probe_mosaic
+
+    attrs = {m: pm.rw_attributes(m) for m in pm.RW_MODES}
+    check(all(a["local_bytes"] == 0 for a in attrs.values()),
+          f"phase 8: rw_chain's kernels spill: {attrs}")
+    for name, make in probe_mosaic.ROWS_OF_TOOL:
+        fn, args, _ = make("cpu")
+        if fn.wrapper is not pm.rw_chain:
+            continue
+        mode = fn.kwargs["mode"]
+        per, block, blocks = pm.rw_launch(mode, args[0].shape[0])
+        a, t, z = attrs[mode], by[name, "tool"], by[name, "seeded"]
+        say("8 probes", f"{name}: {per} thread{'s' * (per > 1)} a row, "
+            f"{block} a block, {blocks} block{'s' * (blocks > 1)} on "
+            f"{min(blocks, peaks.sms)} SM{'s' * (blocks > 1)}; "
+            f"{a['registers']} registers, {a['local_bytes']} B local a "
+            f"thread; {t['ms'] * 1e3:.1f} / {z['ms'] * 1e3:.1f} us (tool's "
+            f"/ seeded input), set-up {t['setup_ms'] * 1e3:.1f} us, "
+            f"{slope_text(t)}")
+    lib = probe_mosaic.library_row(dev)
+    check(lib["equal"], "phase 8: clone and scatter_add_ differ from "
+          "rw_chain on D's main row")
+    for e in entries:
+        if e["name"] == "rw_chain":
+            a = attrs["rows"]
+            e.update(library_ms=lib["ms"], registers=a["registers"],
+                     local_bytes=a["local_bytes"])
+    kernel_ms = by[probe_mosaic.LIBRARY_ROW, "tool"]["ms"]
+    say("8 probes", f"rw_chain [{probe_mosaic.LIBRARY_ROW}], the library "
+        f"call (clone and scatter_add_, the index built outside): "
+        f"{lib['ms'] * 1e3:.1f} us against the kernel's "
+        f"{kernel_ms * 1e3:.1f} us")
+
+
+# bitdecode_chain's main row before the pipelined lane: ns an iteration
+# (the slope; the earlier build in turns with this one in one call, on
+# one H100 80GB HBM3 at 700.00 W; PERF.md §6)
+BITDECODE_BEFORE_NS = 89.73
+
+
+def bitdecode_lines(by: dict, entries: list, peaks) -> None:
+    """Phase 7's lines for bitdecode_chain: every row's ns and cycles an
+    iteration (the slope from 256 to 8,192 iterations) and its kernel's
+    registers and spills (none allowed), blocks and threads; the main
+    row's beside its time before the pipelined lane. The kernel line's
+    entry gets the main row's registers, spills and cycles."""
+    import math
+
+    from lzma_rs_tpu_torch.ops import probes
+    from lzma_rs_tpu_torch.tools import probe_lane2d, probe_state_in_ref
+
+    main = PROBE_MAIN_ROW["bitdecode_chain"]
+    for name, make in (probe_lane2d.ROWS_OF_TOOL
+                       + probe_state_in_ref.ROWS_OF_TOOL):
+        fn, _, lanes = make("cpu")
+        if fn.wrapper is not probes.bitdecode_chain:
+            continue
+        place = fn.layout.get("placement", "minor")
+        state = fn.layout.get("state", "registers")
+        a = probes.bitdecode_attributes(place, state)
+        check(a["local_bytes"] == 0, f"phase 7: bitdecode_chain ({place}, "
+              f"{state}) spills {a['local_bytes']} B a thread")
+        t, z = by[name, "tool"], by[name, "seeded"]
+        say("7 probes", f"bitdecode_chain {name} ({place}, {state}): "
+            f"{a['registers']} registers, {a['local_bytes']} B local a "
+            f"thread, {math.ceil(lanes / probes.BLOCK)} blocks of "
+            f"{probes.BLOCK} lanes; tool's input {slope_text(t)}; seeded "
+            f"{slope_text(z)}; a call {t['ms'] * 1e3:.1f} / "
+            f"{z['ms'] * 1e3:.1f} us, set-up {t['setup_ms'] * 1e3:.1f} us")
+        if name == main:
+            for e in entries:
+                if e["name"] == "bitdecode_chain":
+                    e.update(registers=a["registers"],
+                             local_bytes=a["local_bytes"],
+                             cycles_per_iter=t["cycles_per_iter"])
+            say("7 probes", f"bitdecode_chain [{main}]: "
+                f"{t['ns_per_iter']:.2f} ns an iteration against "
+                f"{BITDECODE_BEFORE_NS} before the pipelined lane "
+                f"({BITDECODE_BEFORE_NS / t['ns_per_iter']:.2f}x)")
 
 
 # the round4 kernels of the kernel line's rows (mangled-name parts)
@@ -2169,6 +2269,7 @@ def main() -> None:
         + probe_state_in_ref.ROWS_OF_TOOL, probes.WRAPPERS,
         "lzma_rs_tpu_torch/csrc/probes.cu", PROBE_REPLACES, PROBE_MAIN_ROW)
     realweight_lines(by, probe_entries, peaks)
+    bitdecode_lines(by, probe_entries, peaks)
     tinyops_lines(by, probe_entries, build.build_library(build.PROBES).path,
                   peaks)
 
@@ -2180,6 +2281,7 @@ def main() -> None:
         MOSAIC_MAIN_ROW)
     segments_lines(by, entries, peaks)
     gather_lines(torch, dev, by, entries, peaks)
+    rw_lines(torch, dev, by, entries, peaks)
     probe_entries += entries
 
     # -- 9. the mosaic3 probe kernels --------------------------------

@@ -11,7 +11,9 @@
 // both outcomes of d's select before the compare that picks one
 // (tiny_round), so four instructions, not five, lie from one round's a to
 // the next, and every register stays what the probe computes; y4 runs
-// the same rounds. y4's lane unrolls its rounds as the TPU traced
+// the same rounds. bitdecode_chain's lane likewise loads the next
+// iteration's table word for both outcomes of the bit before it resolves
+// (bitdecode_lane); bisect keeps the one-chain step (bitdecode_iter). y4's lane unrolls its rounds as the TPU traced
 // them and overlaps each iteration's loads with the next one's rounds
 // (realweight_lane), the same code on the host.
 //
@@ -126,6 +128,10 @@ struct LaneMinorTable {
   int stride;
   LZP_FN int32_t load(int r) const { return row0[size_t(r) * stride]; }
   LZP_FN void store(int r, int32_t v) const { row0[size_t(r) * stride] = v; }
+  // Row r's word, its offset in 32-bit arithmetic, for bitdecode_lane
+  // (load and store keep their size_t offsets): r x stride < 2^31 because
+  // lzp_bitdecode refuses more than kMaxLanes lanes (bad_bitdecode).
+  LZP_FN int32_t* at(int r) const { return row0 + r * stride; }
 };
 
 // Lane-major: a lane's rows are contiguous ([L, ROWS]), the decoder's own
@@ -134,6 +140,7 @@ struct LaneMajorTable {
   int32_t* row0;
   LZP_FN int32_t load(int r) const { return row0[r]; }
   LZP_FN void store(int r, int32_t v) const { row0[r] = v; }
+  LZP_FN int32_t* at(int r) const { return row0 + r; }
 };
 
 // The bit-decode state (idx, acc, rng, cod).
@@ -200,12 +207,65 @@ LZP_FN void bitdecode_iter(const Tab& tab, State& st) {
   st.store(s);
 }
 
+// The climb and the clip of bitdecode_iter in closed form: the count of k
+// < 10 with acc > k is acc clamped to [0, 10], added to idx with the ten
+// adds' int32 wrap, then clipped to the table's rows.
+LZP_FN int32_t climb_clip(int32_t idx, int32_t acc) {
+  const int32_t n = acc < 0 ? 0 : (acc > 10 ? 10 : acc);
+  const int32_t c = wrap(uint32_t(idx) + uint32_t(n));
+  return c < 0 ? 0 : (c > kRows - 1 ? kRows - 1 : c);
+}
+
+// bitdecode_chain's lane: `iters` iterations of bitdecode_iter, the next
+// iteration's table word loaded before this one's bit resolves. Its row
+// depends only on idx and acc, and acc takes one of two values after the
+// bit, so both candidate rows (c0 for a 0, c1 for a 1) are formed and
+// loaded first; the bit then picks one. Those loads precede this
+// iteration's store, so where the picked row is the row just stored (as
+// on the probe's own input, where idx sits at the last row) the stored
+// word is taken from registers. A warp issues in order, so the pick waits
+// for its loads at the top of the next iteration, after that iteration's
+// own candidate loads are issued: each load has an iteration to arrive.
+// The loop is unrolled by 2, so the words loaded and the words picked sit
+// in different registers and the loads can be issued ahead of the pick
+// (unrolled by 1, nvcc gave both one register and the loads waited behind
+// the pick). The chain an iteration is the range coder on the picked word
+// and the bit's selects; the climb (climb_clip), the clip and the loads
+// run beside it. The state is loaded and stored every iteration as
+// bitdecode_iter does it: in memory (MemState) that round trip stays on
+// the chain, in registers (RegState) it is free. decode_bit's arithmetic
+// on the picked word is inline: its new word is forwarded.
 template <class Tab, class State>
 LZP_FN void bitdecode_lane(const Tab& tab, State& st, int iters) {
+  if (iters <= 0) return;
+  BitState s = st.load();
+  int32_t c = climb_clip(s.idx, s.acc);
+  int32_t q0 = *tab.at(c), q1 = q0, np = 0;  // the first word, no forward
+  uint32_t bit = 0, fwd = 0;
 #if defined(__CUDACC__)
-#pragma unroll 1
+#pragma unroll 2
 #endif
-  for (int it = 0; it < iters; ++it) bitdecode_iter(tab, st);
+  for (int it = 0; it < iters; ++it) {
+    const int32_t a0 = shift_in(s.acc, 0u), a1 = shift_in(s.acc, 1u);
+    const int32_t c0 = climb_clip(c, a0), c1 = climb_clip(c, a1);
+    const int32_t n0 = *tab.at(c0), n1 = *tab.at(c1);
+    const int32_t p = fwd ? np : (bit ? q1 : q0);
+    const uint32_t bound = (s.rng >> 11) * uint32_t(p & 0x7FF);
+    bit = s.cod >= bound ? 1u : 0u;
+    np = bit ? wrap(uint32_t(p) - uint32_t(p >> 5)) : wrap(uint32_t(p) + 3u);
+    *tab.at(c) = np;
+    s.rng = bit ? s.rng - bound : (s.rng | 1u);
+    s.cod ^= bit;
+    s.idx = c;
+    s.acc = bit ? a1 : a0;
+    st.store(s);
+    const int32_t next = bit ? c1 : c0;
+    fwd = next == c ? 1u : 0u;
+    c = next;
+    q0 = n0;
+    q1 = n1;
+    s = st.load();
+  }
 }
 
 // y4's state: bit-decode state plus the tiny-op registers.
@@ -362,6 +422,15 @@ constexpr int ERR_ARGS = -1;  // a bad argument: nothing was launched
 
 LZP_FN bool bad_args(int L, int iters) { return L < 0 || iters < 0; }
 
+// bitdecode_chain's table ([ROWS, L] or [L, ROWS]) is addressed in 32-bit
+// offsets (at), so it holds fewer than 2^31 words: at most kMaxLanes lanes.
+constexpr int kMaxLanes = INT32_MAX / kRows;  // 3,314,017
+
+LZP_FN bool bad_bitdecode(int place, int L, int iters) {
+  return bad_args(L, iters) || L > kMaxLanes || place < PLACE_MINOR ||
+         place > PLACE_SHARED;
+}
+
 }  // namespace lzp
 
 #if defined(LZP_HOST_ENTRY) && !defined(__CUDACC__)
@@ -435,9 +504,7 @@ int lzp_tiny_rounds_host(int32_t* a, int32_t* b, int32_t* d, int n,
 int lzp_bitdecode(int place, int mem_state, int32_t* tab, int32_t* idx,
                   int32_t* acc, int32_t* rng, int32_t* cod, int L, int iters,
                   void* /*stream*/) {
-  if (lzp::bad_args(L, iters) || place < lzp::PLACE_MINOR ||
-      place > lzp::PLACE_SHARED)
-    return lzp::ERR_ARGS;
+  if (lzp::bad_bitdecode(place, L, iters)) return lzp::ERR_ARGS;
   if (mem_state)
     lzp::host_bitdecode<true>(place, tab, idx, acc, rng, cod, L, iters);
   else
@@ -452,6 +519,8 @@ int lzp_realweight(int32_t* tab, int32_t* ring, int32_t* state, int L,
     lzp::realweight_lane(tab, ring, state, L, l, iters, rounds);
   return 0;
 }
+
+int lzp_bitdecode_max_lanes() { return lzp::kMaxLanes; }
 
 const char* lzp_error_string(int code) {
   return code == lzp::ERR_ARGS ? "bad argument" : "host build";

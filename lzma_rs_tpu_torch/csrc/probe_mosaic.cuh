@@ -6,10 +6,11 @@
 // Compiled for the card by probes_mosaic.cu and, as a test aid, for the
 // host by g++ (-x c++ -DLZP_HOST_ENTRY), which then also defines the C
 // interface of probes_mosaic.cu as host loops over threads (gather_sum:
-// over each output's ranks, their partial sums added in rank order; p5:
-// over blocks, warps and their 32 ranks, with the same staging, step and
-// combine code), so the logic is checked on the CPU against the plain
-// PyTorch versions (ops/probes_mosaic.py).
+// over each output's ranks, their partial sums added in rank order; D:
+// over each row's 32 ranks in turn; p5: over blocks, warps and their 32
+// ranks, with the same staging, step and combine code), so the logic is
+// checked on the CPU against the plain PyTorch versions
+// (ops/probes_mosaic.py).
 //
 // Integer semantics are the probes': wrapping int32 (and uint8 for the
 // gather's u8 row). Every add and multiply that can wrap is done in
@@ -37,6 +38,11 @@ namespace lzm {
 constexpr int kBlock = 128;        // threads per block
 constexpr int kScalarStride = 37;  // row E: j = 37 i % W
 constexpr int ERR_ARGS = -1;       // a bad argument: nothing was launched
+constexpr int kMaxShared = 232448; // a block's shared memory at most (227 KB)
+// E's block: its threads stage the row into shared memory and back; the
+// row is at most kScalarMaxCols words
+constexpr int kScalarThreads = 256;
+constexpr int kScalarMaxCols = kMaxShared / 4;
 static_assert((-64 >> 5) == -2, "needs an arithmetic >> of int32");
 
 // gather_sum's axis: the output element (r, c) reads along its row
@@ -55,12 +61,9 @@ LZM_FN int32_t floor_mod(int32_t a, int32_t m) {
   return r < 0 ? r + m : r;
 }
 
-// The i-th index of a walk from `start` by `stride`: wrap to int32, then
-// the floor mod by `mod`.
-LZM_FN int32_t walk(int32_t start, int32_t stride, int i, int32_t mod) {
-  return floor_mod(wrap(uint32_t(start) + uint32_t(stride) * uint32_t(i)),
-                   mod);
-}
+// walk(start, stride, i, mod) below names the i-th index of a walk from
+// `start` by `stride`: floor_mod(wrap(start + stride i), mod), the sum
+// wrapped to int32, then the floor mod.
 
 // A, B, C, F: out[e] sums, over `iters` steps i, x at walk(start[e],
 // stride, i, mod) along one line of x ([rows, cols], row-major): row
@@ -179,27 +182,163 @@ LZM_FN int gather_line(int e, int out_cols) {
   return kAxis == AXIS_MINOR ? e / out_cols : e % out_cols;
 }
 
-// D: `iters` read-modify-writes of one row (`cols` words): +1 at the
-// walk's index from `start` by 1.
-LZM_FN void rw_row(int32_t* row, int cols, int32_t start, int iters) {
-  LZM_UNROLL(unroll 1)
-  for (int i = 0; i < iters; ++i) {
-    const int32_t k = walk(start, 1, i, cols);
-    row[k] = wrap(uint32_t(row[k]) + 1u);
+// D: `iters` read-modify-writes of each row: x[r, walk(start[r], 1, i,
+// cols)] += 1. The addresses do not depend on the data and a wrapping add
+// commutes, so the adds may land in any order, and two that hit one word
+// (iters > cols, or cols < 32) give its sum either way. So a row's steps
+// are split over a warp as gather_sum splits an output's (kGatherWarp
+// ranks, rank r taking steps r, r + 32, ...; the launch is gather_sum's for
+// as many outputs as rows: a warp a block below kGatherSpread rows, so the
+// probe's 128 rows run on 128 SMs), and each step is an atomic add whose
+// result is not read (RED on the card; on the host the ranks run in turn).
+// A warp's 32 adds of a step are 32 neighbouring words of the row and
+// coalesce. The index steps by an add and a conditional subtract, the
+// divide only at a walk's start and its int32 wraps (gather_part).
+LZM_FN void add_one(int32_t* p) {
+#if defined(__CUDA_ARCH__)
+  atomicAdd(reinterpret_cast<unsigned int*>(p), 1u);
+#else
+  *p = wrap(uint32_t(*p) + 1u);
+#endif
+}
+
+// One rank's `count` adds along `row`, at the walk from v by S whose index
+// steps by step = floor_mod(S, mod).
+LZM_FN void rw_part(int32_t* row, int32_t v, int32_t S, uint32_t step,
+                    int32_t mod, int count) {
+#if defined(__CUDA_ARCH__)
+  asm("" : "+l"(row));
+#endif
+  while (count > 0) {
+    const int run = no_wrap_reads(v, S, count);
+    uint32_t q = uint32_t(floor_mod(v, mod));
+    LZM_UNROLL(unroll 4)
+    for (int j = 0; j < run; ++j) {
+      add_one(row + q);
+      q = next_index(q, step, uint32_t(mod));
+    }
+    v = wrap(uint32_t(v) + uint32_t(S) * uint32_t(run));
+    count -= run;
   }
 }
 
-// E: one serial chain through memory: j = 37 i % W; v = x[j];
-// x[(j + 1) % W] = v + carry; carry += v. Returns carry.
-LZM_FN int32_t rw_scalar(int32_t* x, int cols, int iters) {
-  uint32_t carry = 0;
-  LZM_UNROLL(unroll 1)
-  for (int i = 0; i < iters; ++i) {
-    const int32_t j = walk(0, kScalarStride, i, cols);
-    const uint32_t v = uint32_t(x[j]);
-    x[floor_mod(j + 1, cols)] = wrap(v + carry);
-    carry += v;
+// Rank r (of kGatherWarp) of row `row`'s warp: its steps of the row's walk
+// from `start` by 1; step = floor_mod(kGatherWarp, cols), the launch's.
+LZM_FN void rw_rank(int32_t* row, int cols, int32_t start, uint32_t step,
+                    int r, int iters) {
+  const int count = gather_count(r, kGatherWarp, iters);
+  if (count > 0)
+    rw_part(row, gather_first(start, 1, r), gather_stride(1, kGatherWarp),
+            step, cols, count);
+}
+
+// E: one serial chain, j = 37 i % W; v = x[j]; x[(j + 1) % W] = v + carry;
+// carry += v, over the row in a block's shared memory (so W is at most
+// kScalarMaxCols words); returns carry. The chain of carries is what the
+// probe prices and stays serial, but the load addresses do not depend on
+// the data, so each iteration's load is issued kScalarAhead iterations
+// early, after the store of the iteration that issues it. A load issued so
+// misses the stores of the kScalarAhead - 1 iterations between; when its
+// word is one of theirs (j_i = j_m + 1 mod W for m in i - kScalarAhead + 1
+// .. i - 1: 37 d = 1 mod W for a d below kScalarAhead, as at W = 36, 73 or
+// 110), the newest such store's word is taken from registers instead. The
+// word stored at iteration m is carry after it, so a match costs a select
+// on the chain, and an iteration's chain is that select and carry's add.
+// Loads, stores and their indices sit in slot i % kScalarAhead of small
+// arrays; the loop runs kScalarAhead iterations a pass, so every slot is a
+// constant and the arrays stay in registers.
+constexpr int kScalarAhead = 4;
+constexpr uint32_t kNoStore = 0xFFFFFFFFu;  // a slot before the first store
+
+// The walk of E: v = wrap(37 n) and j = floor_mod(v, W), to n + 1: an add
+// and a conditional subtract, the divide only where 37 n wraps int32.
+// kMayWrap false leaves the wrap's test out: a pass of kScalarAhead steps
+// that cannot wrap (may_wrap) is then one block of straight-line code,
+// which the compiler can schedule across steps (a test and branch in each
+// step kept each step's instructions behind the last one's: 54 cycles an
+// iteration on the H100).
+struct ScalarWalk {
+  int32_t v;
+  uint32_t j;
+  template <bool kMayWrap>
+  LZM_FN void next(uint32_t step, int32_t W) {
+    const int32_t n = wrap(uint32_t(v) + uint32_t(kScalarStride));
+    if (kMayWrap && n < v)
+      j = uint32_t(floor_mod(n, W));
+    else
+      j = next_index(j, step, uint32_t(W));
+    v = n;
   }
+  // Whether 37 n may wrap in the next kScalarAhead steps.
+  LZM_FN bool may_wrap() const {
+    return v > INT32_MAX - kScalarStride * kScalarAhead;
+  }
+};
+
+struct ScalarSlots {
+  uint32_t lj[kScalarAhead];  // the index of the load in the slot
+  uint32_t lw[kScalarAhead];  // its word, as loaded
+  uint32_t sj[kScalarAhead];  // the index of the store in the slot
+  uint32_t sw[kScalarAhead];  // its word (carry after it)
+};
+
+// Iteration i (s = i % kScalarAhead, a constant once the caller's loop
+// is unrolled) of E: its word (the slot's load, or the newest pending
+// store to its index), carry's add and the store; then the load of
+// iteration i + kScalarAhead into the slot.
+template <bool kMayWrap>
+LZM_FN void scalar_step(int32_t* x, int32_t W, uint32_t step, ScalarSlots& q,
+                        ScalarWalk& w, uint32_t& carry, int s) {
+  constexpr int K = kScalarAhead;
+  uint32_t v = q.lw[s];
+  LZM_UNROLL(unroll)
+  for (int t = 1; t < K; ++t) {  // stores i - K + 1 .. i - 1, oldest first
+    const int m = (s + t) % K;
+    v = q.sj[m] == q.lj[s] ? q.sw[m] : v;
+  }
+  carry += v;
+  const uint32_t a = q.lj[s] + 1u == uint32_t(W) ? 0u : q.lj[s] + 1u;
+  x[a] = wrap(carry);
+  q.sj[s] = a;
+  q.sw[s] = carry;
+  q.lj[s] = w.j;
+  q.lw[s] = uint32_t(x[w.j]);
+  w.template next<kMayWrap>(step, W);
+}
+
+// The probe's walk starts at v0 = 0, where 37 n first wraps after ~58 M
+// iterations; the host build's tests start it near INT32_MAX
+// (lzm_rw_scalar_from) so that it wraps within a few.
+LZM_FN int32_t rw_scalar(int32_t* x, int cols, int iters, int32_t v0 = 0) {
+  constexpr int K = kScalarAhead;
+  const uint32_t step = uint32_t(floor_mod(kScalarStride, cols));
+  ScalarSlots q;
+  ScalarWalk w{v0, uint32_t(floor_mod(v0, cols))};
+  LZM_UNROLL(unroll)
+  for (int s = 0; s < K; ++s) {  // the loads of iterations 0 .. K - 1
+    q.sj[s] = kNoStore;
+    q.sw[s] = 0;
+    q.lj[s] = w.j;
+    q.lw[s] = uint32_t(x[w.j]);
+    w.next<true>(step, cols);
+  }
+  uint32_t carry = 0;
+  int i = 0;
+  LZM_UNROLL(unroll 1)
+  for (; iters - i >= K; i += K) {
+    if (w.may_wrap()) {
+      LZM_UNROLL(unroll)
+      for (int s = 0; s < K; ++s)
+        scalar_step<true>(x, cols, step, q, w, carry, s);
+    } else {
+      LZM_UNROLL(unroll)
+      for (int s = 0; s < K; ++s)
+        scalar_step<false>(x, cols, step, q, w, carry, s);
+    }
+  }
+  LZM_UNROLL(unroll)
+  for (int s = 0; s < K; ++s)
+    if (s < iters - i) scalar_step<true>(x, cols, step, q, w, carry, s);
   return wrap(carry);
 }
 
@@ -279,8 +418,6 @@ constexpr int kSegGroup = kSegThreads / 4;       // threads a segment
 constexpr int kSegRun = 8;                       // rows loaded together
 constexpr int kSegChunk = 16;                    // steps between combines
 constexpr int kSegSlots = kSegChunk * 4;         // red's slots
-constexpr int kMaxShared = 232448;               // a block's shared memory
-                                                 // at most (227 KB)
 // The most rows a column may have: red and the column in kMaxShared.
 constexpr int kSegMaxRows = (kMaxShared / 4 - kSegSlots) / 4 * 4;
 static_assert(kSegThreads % 128 == 0, "whole warps for each segment");
@@ -398,9 +535,25 @@ LZM_FN bool bad_gather(int axis, int elem, int x_rows, int x_cols,
   return mod > x_rows || out_cols != x_cols;
 }
 
+// E's row must fit a block's shared memory (kScalarMaxCols).
 LZM_FN bool bad_rw(int mode, int rows, int cols, int iters) {
   return (mode != RW_ROWS && mode != RW_SCALAR) || rows < 0 || cols < 1 ||
-         iters < 0 || (mode == RW_SCALAR && rows != 1);
+         iters < 0 ||
+         (mode == RW_SCALAR && (rows != 1 || cols > kScalarMaxCols));
+}
+
+// rw_chain's launch: out[0] the threads a row (D; 1 for E's one chain),
+// out[1] the threads a block, out[2] the blocks.
+LZM_FN void rw_launch(int mode, int rows, int* out) {
+  if (mode == RW_SCALAR) {
+    out[0] = 1;
+    out[1] = kScalarThreads;
+    out[2] = 1;
+    return;
+  }
+  out[0] = kGatherWarp;
+  out[1] = gather_block(kGatherWarp, rows);
+  out[2] = gather_blocks(kGatherWarp, rows);
 }
 
 LZM_FN bool bad_row(int mode, int W, int L, int iters) {
@@ -485,16 +638,51 @@ int lzm_gather_launch(int axis, int n_out, int* out) {
   return 0;
 }
 
+// D as host loops over rows and each row's 32 ranks, in rank order; E on
+// x itself (the card's staged copy holds the same words).
 int lzm_rw_chain(int mode, int32_t* x, int rows, int cols,
                  const int32_t* start, int32_t* out, int iters,
                  void* /*stream*/) {
-  if (lzm::bad_rw(mode, rows, cols, iters)) return lzm::ERR_ARGS;
-  if (mode == lzm::RW_SCALAR) {
-    *out = lzm::rw_scalar(x, cols, iters);
+  using namespace lzm;
+  if (bad_rw(mode, rows, cols, iters)) return ERR_ARGS;
+  if (mode == RW_SCALAR) {
+    *out = rw_scalar(x, cols, iters);
     return 0;
   }
-  for (int r = 0; r < rows; ++r)
-    lzm::rw_row(x + size_t(r) * cols, cols, start[r], iters);
+  const uint32_t step = uint32_t(floor_mod(kGatherWarp, cols));
+  for (int e = 0; e < rows; ++e)
+    for (int r = 0; r < kGatherWarp; ++r)
+      rw_rank(x + size_t(e) * cols, cols, start[e], step, r, iters);
+  return 0;
+}
+
+int lzm_rw_launch(int mode, int rows, int* out) {
+  if ((mode != lzm::RW_ROWS && mode != lzm::RW_SCALAR) || rows < 0)
+    return lzm::ERR_ARGS;
+  lzm::rw_launch(mode, rows, out);
+  return 0;
+}
+
+int lzm_rw_max_cols() { return lzm::kScalarMaxCols; }
+
+// Host build only, for the tests of E's int32 wrap: E's chain on x with
+// its walk from v0 (the probe's is 0), and the first n indices of that
+// walk as ScalarWalk steps it (next<true>, the step that handles a wrap).
+int lzm_rw_scalar_from(int32_t* x, int cols, int32_t v0, int32_t* out,
+                       int iters) {
+  if (lzm::bad_rw(lzm::RW_SCALAR, 1, cols, iters)) return lzm::ERR_ARGS;
+  *out = lzm::rw_scalar(x, cols, iters, v0);
+  return 0;
+}
+
+int lzm_scalar_walk(int32_t v0, int cols, int32_t* js, int n) {
+  if (cols < 1 || n < 0) return lzm::ERR_ARGS;
+  const uint32_t step = uint32_t(lzm::floor_mod(lzm::kScalarStride, cols));
+  lzm::ScalarWalk w{v0, uint32_t(lzm::floor_mod(v0, cols))};
+  for (int i = 0; i < n; ++i) {
+    js[i] = int32_t(w.j);
+    w.next<true>(step, cols);
+  }
   return 0;
 }
 

@@ -37,21 +37,32 @@
 //     bit), and only then are the loads consumed, so their latency hides
 //     behind ~6,000 cycles of rounds. The chain of tiny ops stays what
 //     the probe prices.
-//   - bitdecode_chain's table read sits on the chain. Where the table
-//     lives is the template parameter: device memory lane-minor [ROWS, L]
-//     (the TPU layout; a warp's reads coalesce when its lanes' idx agree),
-//     device memory lane-major [L, ROWS] (the decoder's layout: a warp's
-//     reads are 2,592 B apart), or shared memory (a block's 64 lanes'
-//     tables, 648 x 64 x 4 = 165,888 B, lane-minor, so any idx pattern is
-//     free of bank conflicts; filled at the start, written back at the end).
+//   - bitdecode_chain: an iteration's table row depends only on idx and
+//     acc, and acc takes one of two values after the bit; so both
+//     candidate rows of the next iteration are climbed, clipped and loaded
+//     before the bit resolves, the bit picks one, and where it is the row
+//     just stored the new word is forwarded in registers
+//     (probe_lane.cuh: bitdecode_lane). The chain an iteration is the
+//     range coder on the held word and the bit's selects; the climb (in
+//     closed form, the same wrapping int32 result), the clip and the
+//     table's load run beside it. Where the table lives is the template
+//     parameter: device memory lane-minor [ROWS, L] (the TPU layout; a
+//     warp's reads coalesce when its lanes' idx agree), device memory
+//     lane-major [L, ROWS] (the decoder's layout: a warp's reads are
+//     2,592 B apart), or shared memory (a block's 64 lanes' tables, 648 x
+//     64 x 4 = 165,888 B, lane-minor, so any idx pattern is free of bank
+//     conflicts; filled at the start, written back at the end). bisect's
+//     rows keep bitdecode_iter, the whole step on one chain.
 //   - State in registers, or (y1, y2) in device memory through volatile
-//     pointers, loaded and stored every iteration.
+//     pointers, loaded and stored every iteration: that round trip stays
+//     on y1's and y2's chain, the candidate loads beside it.
 // Each launcher checks its arguments, launches on `stream` and returns
 // cudaGetLastError() (0 = launched) or lzp::ERR_ARGS.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernel_attributes.cuh"
 #include "probe_lane.cuh"
 
 namespace {
@@ -87,14 +98,20 @@ __global__ void __launch_bounds__(kBlock)
     for (int r = 0; r < kRows; ++r)
       tab[size_t(r) * L + lane] = smem[r * kBlock + t];
   } else if (lane < L) {
+    // The lane's first word is held in a register (an empty asm): left to
+    // itself nvcc folded it into each row's address and rebuilt that in
+    // 64-bit arithmetic, four instructions on the chain to each load. Not
+    // for the shared table, whose pointer would turn generic (its loads
+    // slower than shared ones).
+    int32_t* row0 = kPlace == lzp::PLACE_MINOR ? tab + lane
+                                               : tab + size_t(lane) * kRows;
+    asm("" : "+l"(row0));
     if (kPlace == lzp::PLACE_MINOR)
       lzp::bitdecode_run<lzp::LaneMinorTable, kMem>(
-          lzp::LaneMinorTable{tab + lane, L}, idx, acc, rng, cod, lane,
-          iters);
+          lzp::LaneMinorTable{row0, L}, idx, acc, rng, cod, lane, iters);
     else
       lzp::bitdecode_run<lzp::LaneMajorTable, kMem>(
-          lzp::LaneMajorTable{tab + size_t(lane) * kRows}, idx, acc, rng,
-          cod, lane, iters);
+          lzp::LaneMajorTable{row0}, idx, acc, rng, cod, lane, iters);
   }
 }
 
@@ -136,6 +153,11 @@ int launch_bitdecode(int mem_state, int32_t* tab, int32_t* idx, int32_t* acc,
                                                      L, iters, stream);
 }
 
+template <int kPlace, bool kMem>
+const void* bitdecode_kernel() {
+  return reinterpret_cast<const void*>(bitdecode_chain_kernel<kPlace, kMem>);
+}
+
 }  // namespace
 
 extern "C" {
@@ -156,7 +178,7 @@ int lzp_tinyops(const int32_t* x, int32_t* state, int L, int iters,
 int lzp_bitdecode(int place, int mem_state, int32_t* tab, int32_t* idx,
                   int32_t* acc, int32_t* rng, int32_t* cod, int L, int iters,
                   void* stream) {
-  if (lzp::bad_args(L, iters)) return lzp::ERR_ARGS;
+  if (lzp::bad_bitdecode(place, L, iters)) return lzp::ERR_ARGS;
   if (L == 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (place) {
@@ -174,6 +196,10 @@ int lzp_bitdecode(int place, int mem_state, int32_t* tab, int32_t* idx,
   }
 }
 
+// The most lanes lzp_bitdecode takes (its table's words fit 32-bit
+// offsets).
+int lzp_bitdecode_max_lanes() { return lzp::kMaxLanes; }
+
 // tab: [ROWS, L], ring: [RING, L], both updated in place; state: [7, L]
 // (idx, acc, rng, cod, a, b, d), the initial state in, the final out.
 int lzp_realweight(int32_t* tab, int32_t* ring, int32_t* state, int L,
@@ -186,19 +212,33 @@ int lzp_realweight(int32_t* tab, int32_t* ring, int32_t* state, int L,
   return static_cast<int>(cudaGetLastError());
 }
 
+// bitdecode_chain's kernel for `place` and `mem_state`: out[0..3] the
+// registers a thread, local memory a thread (spills), static shared memory
+// and the dynamic shared memory it may have (cudaFuncGetAttributes).
+// Returns 0, a CUDA error or ERR_ARGS.
+int lzp_bitdecode_attributes(int place, int mem_state, int* out) {
+  using lzp::PLACE_MAJOR;
+  using lzp::PLACE_MINOR;
+  using lzp::PLACE_SHARED;
+  static const void* const kernels[] = {  // [place][mem_state]
+      bitdecode_kernel<PLACE_MINOR, false>(),
+      bitdecode_kernel<PLACE_MINOR, true>(),
+      bitdecode_kernel<PLACE_MAJOR, false>(),
+      bitdecode_kernel<PLACE_MAJOR, true>(),
+      bitdecode_kernel<PLACE_SHARED, false>(),
+      bitdecode_kernel<PLACE_SHARED, true>(),
+  };
+  if (place < PLACE_MINOR || place > PLACE_SHARED) return lzp::ERR_ARGS;
+  return lzk::kernel_attributes(kernels[place * 2 + (mem_state ? 1 : 0)],
+                                out);
+}
+
 // realweight_step's kernel: out[0..3] the registers a thread, local
 // memory a thread (spills), static shared memory and the dynamic shared
 // memory it may have (cudaFuncGetAttributes). Returns 0 or a CUDA error.
 int lzp_realweight_attributes(int* out) {
-  cudaFuncAttributes a;
-  const cudaError_t e = cudaFuncGetAttributes(
-      &a, reinterpret_cast<const void*>(realweight_step_kernel));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  out[0] = a.numRegs;
-  out[1] = static_cast<int>(a.localSizeBytes);
-  out[2] = static_cast<int>(a.sharedSizeBytes);
-  out[3] = a.maxDynamicSharedSizeBytes;
-  return 0;
+  return lzk::kernel_attributes(
+      reinterpret_cast<const void*>(realweight_step_kernel), out);
 }
 
 const char* lzp_error_string(int code) {

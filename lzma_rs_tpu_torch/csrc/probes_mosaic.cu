@@ -34,11 +34,20 @@
 //     subtract. Every table fits the 50 MB L2; the loads' issue and
 //     latency, and at A [128, 1024] the 4 M threads' own set-up, set the
 //     time.
-//   - rw_chain: D is one thread per row, a read-modify-write at an advancing
-//     address (independent of the last, but a load may not pass an earlier
-//     store to a possibly equal address); E is one thread: a load, an add,
-//     a store, each load after the last store. Both are latency-bound: the
-//     time per iteration is what the probe measures. Nothing hides it.
+//   - rw_chain: D's read-modify-writes (+1 at an advancing index of each
+//     row) do not depend on each other's data, and a wrapping add commutes.
+//     A thread a row put the 128 rows on one SM, each load waiting behind
+//     the last store; so a row's steps are split over a warp (gather_sum's
+//     launch: the 128 rows on 128 SMs), each step an atomic add whose
+//     result is not read (RED), a warp's 32 of a step neighbouring words
+//     of the row; the index steps as gather_sum's does. Bound by the adds'
+//     issue at L2 and the launch. E is one serial chain of carries: a block
+//     stages its [1, W] row into shared memory (W <= kScalarMaxCols, else
+//     ERR_ARGS), one thread runs the chain there, the block writes the row
+//     back. The loads' addresses do not depend on the data, so each is
+//     issued kScalarAhead iterations early; a load that a pending store
+//     overwrites takes the stored word from registers (probe_mosaic.cuh:
+//     rw_scalar). The chain an iteration is a select and carry's add.
 //   - row_chain: one thread per lane over the lane-minor [W, L] table
 //     (the TPU layout; a warp's loads coalesce while its lanes' idx agree,
 //     as in p1-p3, and scatter when idx follows the data, as in p6). A
@@ -71,6 +80,7 @@
 
 #include <atomic>
 
+#include "kernel_attributes.cuh"
 #include "probe_mosaic.cuh"
 
 namespace {
@@ -102,17 +112,29 @@ __global__ void __launch_bounds__(kBlock)
   if (r == 0) out[e] = static_cast<T>(acc);
 }
 
+// D: a warp a row (probe_mosaic.cuh: rw_rank), gather_sum's launch for
+// as many outputs as rows; step = floor_mod(kGatherWarp, cols).
 __global__ void __launch_bounds__(kBlock)
     rw_rows_kernel(int32_t* x, int rows, int cols,
-                   const int32_t* __restrict__ start, int iters) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  lzm::rw_row(x + size_t(r) * cols, cols, start[r], iters);
+                   const int32_t* __restrict__ start, uint32_t step,
+                   int iters) {
+  const long long t = (long long)(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int e = int(t / lzm::kGatherWarp), r = int(t % lzm::kGatherWarp);
+  if (e >= rows) return;
+  lzm::rw_rank(x + size_t(e) * cols, cols, start[e], step, r, iters);
 }
 
-__global__ void rw_scalar_kernel(int32_t* x, int cols, int32_t* out,
-                                 int iters) {
-  *out = lzm::rw_scalar(x, cols, iters);
+// E: one block stages the row into shared memory, thread 0 runs the chain
+// there (probe_mosaic.cuh: rw_scalar), and the block writes the row back.
+__global__ void __launch_bounds__(lzm::kScalarThreads)
+    rw_scalar_kernel(int32_t* __restrict__ x, int cols,
+                     int32_t* __restrict__ out, int iters) {
+  extern __shared__ int32_t row[];
+  for (int k = threadIdx.x; k < cols; k += lzm::kScalarThreads) row[k] = x[k];
+  __syncthreads();
+  if (threadIdx.x == 0) *out = lzm::rw_scalar(row, cols, iters);
+  __syncthreads();
+  for (int k = threadIdx.x; k < cols; k += lzm::kScalarThreads) x[k] = row[k];
 }
 
 template <int kMode>
@@ -178,22 +200,37 @@ __global__ void __launch_bounds__(lzm::kSegThreads)
 
 constexpr int kMaxDevices = 64;  // devices whose opt-in is remembered
 
-// segments_kernel opted in to the most dynamic shared memory a block may
-// have on the current device, once a device (at every call on a device
-// numbered kMaxDevices or more). Two threads may both opt in the first
-// time; setting the attribute twice is harmless.
-cudaError_t segments_opt_in() {
-  static std::atomic<bool> done[kMaxDevices];
+// Whether a kernel has opted in on each device numbered below kMaxDevices.
+struct OptedIn {
+  std::atomic<bool> done[kMaxDevices];
+};
+OptedIn segments_opted, scalar_opted;
+
+// `kernel` opted in to the most dynamic shared memory a block may have on
+// the current device, once a device (at every call on a device numbered
+// kMaxDevices or more). Two threads may both opt in the first time;
+// setting the attribute twice is harmless.
+template <class Kernel>
+cudaError_t opt_in(Kernel* kernel, OptedIn& opted) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   const bool known = dev < kMaxDevices;
-  if (e == cudaSuccess && !(known && done[dev].load())) {
-    e = cudaFuncSetAttribute(segments_kernel,
+  if (e == cudaSuccess && !(known && opted.done[dev].load())) {
+    e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              lzm::kMaxShared);
-    if (e == cudaSuccess && known) done[dev].store(true);
+    if (e == cudaSuccess && known) opted.done[dev].store(true);
   }
   return e;
+}
+
+// `kernel`'s attributes into out[0..3] (lzk::kernel_attributes), after
+// its opt-in where it has one.
+template <class Kernel>
+int attributes(Kernel* kernel, OptedIn* opted, int* out) {
+  const cudaError_t e = opted ? opt_in(kernel, *opted) : cudaSuccess;
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return lzk::kernel_attributes(reinterpret_cast<const void*>(kernel), out);
 }
 
 int blocks(int n) { return (n + kBlock - 1) / kBlock; }
@@ -271,19 +308,47 @@ int lzm_gather_launch(int axis, int n_out, int* out) {
   return 0;
 }
 
-// x: [rows, cols] int32, updated in place. RW_ROWS: start [rows], one
-// thread per row; RW_SCALAR: rows == 1, one thread, out [1] the carry.
+// x: [rows, cols] int32, updated in place. RW_ROWS: start [rows], a warp a
+// row; RW_SCALAR: rows == 1 and cols <= kScalarMaxCols, one block, out [1]
+// the carry.
 int lzm_rw_chain(int mode, int32_t* x, int rows, int cols,
                  const int32_t* start, int32_t* out, int iters,
                  void* stream) {
   if (lzm::bad_rw(mode, rows, cols, iters)) return lzm::ERR_ARGS;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode == lzm::RW_SCALAR)
-    rw_scalar_kernel<<<1, 1, 0, s>>>(x, cols, out, iters);
-  else if (rows > 0)
-    rw_rows_kernel<<<blocks(rows), kBlock, 0, s>>>(x, rows, cols, start,
-                                                   iters);
+  int launch[3];
+  lzm::rw_launch(mode, rows, launch);
+  if (mode == lzm::RW_SCALAR) {
+    const cudaError_t e = opt_in(rw_scalar_kernel, scalar_opted);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    rw_scalar_kernel<<<launch[2], launch[1], size_t(cols) * sizeof(int32_t),
+                       s>>>(x, cols, out, iters);
+  } else if (rows > 0) {
+    const uint32_t step = uint32_t(lzm::floor_mod(lzm::kGatherWarp, cols));
+    rw_rows_kernel<<<launch[2], launch[1], 0, s>>>(x, rows, cols, start,
+                                                   step, iters);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// rw_chain's launch for `rows` rows: out[0] the threads a row (1 for E's
+// chain), out[1] the threads a block, out[2] the blocks.
+int lzm_rw_launch(int mode, int rows, int* out) {
+  if ((mode != lzm::RW_ROWS && mode != lzm::RW_SCALAR) || rows < 0)
+    return lzm::ERR_ARGS;
+  lzm::rw_launch(mode, rows, out);
+  return 0;
+}
+
+// The most words of E's row.
+int lzm_rw_max_cols() { return lzm::kScalarMaxCols; }
+
+// rw_chain's kernels (mode RW_ROWS or RW_SCALAR): see attributes.
+int lzm_rw_attributes(int mode, int* out) {
+  if (mode == lzm::RW_SCALAR)
+    return attributes(rw_scalar_kernel, &scalar_opted, out);
+  if (mode == lzm::RW_ROWS) return attributes(rw_rows_kernel, nullptr, out);
+  return lzm::ERR_ARGS;
 }
 
 // x: [W, L] int32 (updated in place by ROW_CLAMP_WRITE); state: [2, L]
@@ -317,7 +382,7 @@ int lzm_segment_chain(int mode, int32_t* x, int W, int L, int32_t* state,
   if (mode == lzm::SEG_REFILL) {
     refill_kernel<<<blocks(L), kBlock, 0, s>>>(x, L, state, iters);
   } else {
-    const cudaError_t e = segments_opt_in();
+    const cudaError_t e = opt_in(segments_kernel, segments_opted);
     if (e != cudaSuccess) return static_cast<int>(e);
     segments_kernel<<<L, lzm::kSegThreads, lzm::seg_block_bytes(W), s>>>(
         x, W, L, state, iters);
@@ -328,21 +393,9 @@ int lzm_segment_chain(int mode, int32_t* x, int W, int L, int32_t* state,
 // The most rows of a p5 column.
 int lzm_segment_max_rows() { return lzm::kSegMaxRows; }
 
-// p5's kernel: out[0..3] the registers a thread, local memory a thread
-// (spills), static shared memory and the dynamic shared memory it is
-// opted in to (cudaFuncGetAttributes). Returns 0 or a CUDA error.
+// p5's kernel: see attributes.
 int lzm_segment_attributes(int* out) {
-  cudaError_t e = segments_opt_in();
-  cudaFuncAttributes a;
-  if (e == cudaSuccess)
-    e = cudaFuncGetAttributes(&a,
-                              reinterpret_cast<const void*>(segments_kernel));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  out[0] = a.numRegs;
-  out[1] = static_cast<int>(a.localSizeBytes);
-  out[2] = static_cast<int>(a.sharedSizeBytes);
-  out[3] = a.maxDynamicSharedSizeBytes;
-  return 0;
+  return attributes(segments_kernel, &segments_opted, out);
 }
 
 const char* lzm_error_string(int code) {

@@ -57,6 +57,7 @@
 
 #include <atomic>
 
+#include "kernel_attributes.cuh"
 #include "probe_round4.cuh"
 
 namespace {
@@ -143,18 +144,10 @@ int launch(const void* k, cudaError_t opt, int L, int lb, int rows, int elem,
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-// out[0..3]: registers a thread, local memory a thread (spills), static
-// shared memory, and the dynamic shared memory the kernel is opted in to.
+// out[0..3] (lzk::kernel_attributes) of a kernel whose opt-in gave `opt`.
 int attributes(const void* k, cudaError_t opt, int* out) {
   if (opt != cudaSuccess) return static_cast<int>(opt);
-  cudaFuncAttributes a;
-  const cudaError_t e = cudaFuncGetAttributes(&a, k);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  out[0] = a.numRegs;
-  out[1] = static_cast<int>(a.localSizeBytes);
-  out[2] = static_cast<int>(a.sharedSizeBytes);
-  out[3] = a.maxDynamicSharedSizeBytes;
-  return 0;
+  return lzk::kernel_attributes(k, out);
 }
 
 }  // namespace

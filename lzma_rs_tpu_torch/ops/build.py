@@ -11,16 +11,17 @@ library alone and an unchanged one loads at once. Eleven libraries:
 - ``segvar``: the decoder's variants (``decode_variants.cu`` over the same
   two headers), :func:`load_variants`;
 - ``probes``: the lane2d and state-in-ref probe kernels (``probes.cu`` +
-  ``probe_lane.cuh``), :func:`load_probes`;
+  ``probe_lane.cuh`` + ``kernel_attributes.cuh``), :func:`load_probes`;
 - ``mosaic``: the mosaic probe kernels (``probes_mosaic.cu`` +
-  ``probe_mosaic.cuh``), :func:`load_mosaic`;
+  ``probe_mosaic.cuh`` + ``kernel_attributes.cuh``), :func:`load_mosaic`;
 - ``mosaic3``: the mosaic3 probe kernels (``probes_mosaic3.cu`` +
   ``probe_mosaic3.cuh``, which includes ``probe_mosaic.cuh``),
   :func:`load_mosaic3`;
 - ``mosaic4``: the mosaic4 probe kernel (``probes_mosaic4.cu`` +
   ``probe_mosaic4.cuh`` + ``probe_mosaic.cuh``), :func:`load_mosaic4`;
 - ``round4``: the round4 probe kernels (``probes_round4.cu`` +
-  ``probe_round4.cuh`` + ``probe_mosaic.cuh``), :func:`load_round4`;
+  ``probe_round4.cuh`` + ``probe_mosaic.cuh`` +
+  ``kernel_attributes.cuh``), :func:`load_round4`;
 - ``bisect``: the bisect probe kernel (``probes_bisect.cu`` +
   ``probe_bisect.cuh`` + ``probe_lane.cuh``), :func:`load_bisect`;
 - ``stepcost``: the decoder's step-cost builds (``step_cost.cu`` over
@@ -72,14 +73,16 @@ SEGDEC = Library("segdec", ("decode_segments.cu", "segment_kernel.cuh",
                             "lzma_lane.cuh"))
 SEGVAR = Library("segvar", ("decode_variants.cu", "segment_kernel.cuh",
                             "lzma_lane.cuh"))
-PROBES = Library("probes", ("probes.cu", "probe_lane.cuh"))
-MOSAIC = Library("mosaic", ("probes_mosaic.cu", "probe_mosaic.cuh"))
+PROBES = Library("probes", ("probes.cu", "probe_lane.cuh",
+                            "kernel_attributes.cuh"))
+MOSAIC = Library("mosaic", ("probes_mosaic.cu", "probe_mosaic.cuh",
+                            "kernel_attributes.cuh"))
 MOSAIC3 = Library("mosaic3", ("probes_mosaic3.cu", "probe_mosaic3.cuh",
                               "probe_mosaic.cuh"))
 MOSAIC4 = Library("mosaic4", ("probes_mosaic4.cu", "probe_mosaic4.cuh",
                               "probe_mosaic.cuh"))
 ROUND4 = Library("round4", ("probes_round4.cu", "probe_round4.cuh",
-                            "probe_mosaic.cuh"))
+                            "probe_mosaic.cuh", "kernel_attributes.cuh"))
 BISECT = Library("bisect", ("probes_bisect.cu", "probe_bisect.cuh",
                             "probe_lane.cuh"))
 STEPCOST = Library("stepcost", ("step_cost.cu", "segment_kernel.cuh",
@@ -307,6 +310,7 @@ def bind_probes(lib: ctypes.CDLL) -> ctypes.CDLL:
         (lib.lzp_tinyops, [vp, vp, ci, ci, vp]),
         (lib.lzp_bitdecode, [ci, ci, vp, vp, vp, vp, vp, ci, ci, vp]),
         (lib.lzp_realweight, [vp, vp, vp, ci, ci, ci, vp]),
+        (lib.lzp_bitdecode_max_lanes, []),
     ):
         fn.restype, fn.argtypes = ci, args
     lib.lzp_error_string.restype = ctypes.c_char_p
@@ -317,10 +321,14 @@ def bind_probes(lib: ctypes.CDLL) -> ctypes.CDLL:
 @functools.lru_cache(maxsize=1)
 def load_probes() -> ctypes.CDLL:
     """Build (if needed) and bind the probe kernels (and the card build's
-    ``lzp_realweight_attributes``); one handle per process."""
+    ``lzp_realweight_attributes`` and ``lzp_bitdecode_attributes``); one
+    handle per process."""
     lib = bind_probes(ctypes.CDLL(build_library(PROBES).path))
     lib.lzp_realweight_attributes.restype = ctypes.c_int
     lib.lzp_realweight_attributes.argtypes = [ctypes.c_void_p]
+    lib.lzp_bitdecode_attributes.restype = ctypes.c_int
+    lib.lzp_bitdecode_attributes.argtypes = [ctypes.c_int, ctypes.c_int,
+                                             ctypes.c_void_p]
     return lib
 
 
@@ -336,6 +344,8 @@ def bind_mosaic(lib: ctypes.CDLL) -> ctypes.CDLL:
         (lib.lzm_segment_chain, [ci, vp, ci, ci, vp, ci, vp]),
         (lib.lzm_segment_max_rows, []),
         (lib.lzm_gather_launch, [ci, ci, vp]),
+        (lib.lzm_rw_launch, [ci, ci, vp]),
+        (lib.lzm_rw_max_cols, []),
     ):
         fn.restype, fn.argtypes = ci, args
     lib.lzm_error_string.restype = ctypes.c_char_p
@@ -346,10 +356,13 @@ def bind_mosaic(lib: ctypes.CDLL) -> ctypes.CDLL:
 @functools.lru_cache(maxsize=1)
 def load_mosaic() -> ctypes.CDLL:
     """Build (if needed) and bind the mosaic probe kernels (and the card
-    build's ``lzm_segment_attributes``); one handle per process."""
+    build's ``lzm_segment_attributes`` and ``lzm_rw_attributes``); one
+    handle per process."""
     lib = bind_mosaic(ctypes.CDLL(build_library(MOSAIC).path))
     lib.lzm_segment_attributes.restype = ctypes.c_int
     lib.lzm_segment_attributes.argtypes = [ctypes.c_void_p]
+    lib.lzm_rw_attributes.restype = ctypes.c_int
+    lib.lzm_rw_attributes.argtypes = [ctypes.c_int, ctypes.c_void_p]
     return lib
 
 

@@ -40,18 +40,21 @@ import torch
 
 __all__ = [
     "ITERS", "ROWS", "RING", "NST", "BITDECODE_INIT", "Y_INIT",
-    "PLACEMENTS", "STATES", "WRAPPERS",
+    "PLACEMENTS", "STATES", "WRAPPERS", "BITDECODE_MAX_LANES",
     "tinyops_chain", "tinyops_reference",
     "bitdecode_chain", "bitdecode_reference",
     "realweight_step", "realweight_reference",
     "TINYOPS_OPS", "BITDECODE_OPS", "realweight_ops",
-    "realweight_attributes",
+    "realweight_attributes", "bitdecode_attributes",
 ]
 
 ITERS = 256       # the probes' ITERS
 ROWS = 648        # table rows (PROB_WORDS at NLIT=1)
 RING = 512        # y4's ring window rows
 NST = 8           # y1's state slots
+# bitdecode_chain's kernel addresses its table in 32-bit offsets: fewer
+# than 2^31 words, the same bound as every wrapper's _check on a tensor
+BITDECODE_MAX_LANES = (2**31 - 1) // ROWS  # 3,314,017
 TINY_ROUNDS = 50  # tiny-op rounds per tinyops iteration (3 ops each)
 BITDECODE_INIT = (0, 1, -1, 12345)  # idx, acc, rng, cod of bitdecode_*
 Y_INIT = (0, 0, 0, 0)               # the y-series' (state refs zeroed)
@@ -312,12 +315,28 @@ def realweight_attributes() -> dict:
     ``registers`` and ``local_bytes`` a thread (spills), ``static_shared``
     and ``max_dynamic_shared`` bytes (``cudaFuncGetAttributes``). Needs the
     card."""
+    return _attributes(lambda lib, out: lib.lzp_realweight_attributes(out),
+                       "realweight_attributes")
+
+
+def bitdecode_attributes(placement: str, state: str) -> dict:
+    """The card build's attributes of :func:`bitdecode_chain`'s kernel for
+    ``placement`` and ``state``, as :func:`realweight_attributes` gives
+    y4's. Needs the card."""
+    if placement not in PLACEMENTS or state not in STATES:
+        raise ValueError(f"placement {placement!r} or state {state!r}")
+    return _attributes(
+        lambda lib, out: lib.lzp_bitdecode_attributes(
+            PLACEMENTS.index(placement), int(state != "registers"), out),
+        "bitdecode_attributes")
+
+
+def _attributes(query, what: str) -> dict:
     from lzma_rs_tpu_torch.ops import build
 
     lib = build.load_probes()
     out = (ctypes.c_int * 4)()
-    _raise_on(lib, lib.lzp_realweight_attributes(out),
-              "realweight_attributes")
+    _raise_on(lib, query(lib, out), what)
     return dict(zip(("registers", "local_bytes", "static_shared",
                      "max_dynamic_shared"), out))
 
@@ -345,10 +364,11 @@ def bitdecode_chain(table, *, init=BITDECODE_INIT, iters: int = ITERS,
                     full: bool = False):
     """The final ``acc`` of ``iters`` bit-decode iterations from the state
     ``init`` (idx, acc, rng, cod: ints, or int32 tensors of the lanes'
-    shape) over ``table`` ([ROWS, *lanes] int32, not changed); the output
-    has the lanes' shape. ``placement`` puts the kernel's table in device
-    memory lane-minor (the TPU layout), lane-major (the decoder's) or in
-    shared memory; ``state`` keeps the kernel's state in registers, in
+    shape) over ``table`` ([ROWS, *lanes] int32, not changed; at most
+    :data:`BITDECODE_MAX_LANES` lanes, on the CPU as on the card); the
+    output has the lanes' shape. ``placement`` puts the kernel's table in
+    device memory lane-minor (the TPU layout), lane-major (the decoder's)
+    or in shared memory; ``state`` keeps the kernel's state in registers, in
     memory slots of one [NST, L] array (y1) or in four [L] arrays (y2).
     The function is the same for all of them. With ``full``, also
     ``{"table": final, "state": [4, *lanes]}``."""

@@ -10,8 +10,8 @@ probes are direct indexed loads and stores here, with the same results):
   sums ``iters`` values of ``x`` along its row (``axis="minor"``) or its
   column (``"major"``) at ``(start + stride * i) % mod``;
 - :func:`rw_chain` (``probe_onehot_write`` D, ``probe_scalar_rw`` E): a
-  read-modify-write per step, one row per thread (D), or one serial
-  load-after-store chain (E);
+  read-modify-write per step, a warp per row (D), or one serial
+  load-after-store chain (E) over the row in one block's shared memory;
 - :func:`row_chain` (``p1``/``p2``, ``p3``, ``p6``): a lane-carried index
   over a lane-minor ``[W, L]`` table;
 - :func:`segment_chain` (``p4``, ``p5``): a periodic two-row refill, or
@@ -20,14 +20,18 @@ probes are direct indexed loads and stores here, with the same results):
 Each wrapper launches its hand-written kernel (``csrc/probes_mosaic.cu``)
 on a CUDA tensor, or raises; on a CPU tensor it runs its plain PyTorch
 version (``*_reference``: direct indexing, every thread in lockstep).
-The kernels run a thread per row or lane, with two exceptions.
+The kernels run a thread per row or lane, with four exceptions.
 ``gather_sum`` splits an output's steps over a warp (the minor axis, and
 the major axis below :data:`GATHER_THREAD_MIN` outputs) or gives each
-output a thread (:func:`gather_launch`). p5's (``segment_chain``, mode
+output a thread (:func:`gather_launch`); ``rw_chain``'s D splits a row's
+steps over a warp the same way (:func:`rw_launch`). E (``rw_chain``, mode
+``"scalar"``) runs its chain in one block's shared memory, so its row
+holds at most :data:`RW_MAX_COLS` words. p5's (``segment_chain``, mode
 ``"segments"``) runs a block of :data:`SEGMENT_THREADS` per lane, with
 the lane's whole column in the block's shared memory and its rows split
 over the threads; so its table holds at most :data:`SEGMENT_MAX_ROWS`
-rows, and the wrapper refuses more on either device.
+rows. The wrappers refuse a larger E row or p5 column on either
+device.
 ``<wrapper>.launches`` counts kernel launches, ``<wrapper>.reference`` is
 the plain version. Inputs are not changed. ``full=True`` also returns a
 dict: the final table where the function writes one (E, p3, p5; D's output
@@ -51,6 +55,7 @@ __all__ = [
     "GATHER_OPS", "RW_OPS", "ROW_OPS", "segment_ops", "byte_rows_read",
     "SEGMENT_THREADS", "SEGMENT_MAX_ROWS", "segment_block_bytes",
     "segment_attributes", "GATHER_THREAD_MIN", "gather_launch",
+    "RW_MAX_COLS", "rw_launch", "rw_attributes",
     "gather_sum", "gather_sum_reference", "rw_chain", "rw_chain_reference",
     "row_chain", "row_chain_reference", "segment_chain",
     "segment_chain_reference",
@@ -69,6 +74,10 @@ SEGMENT_THREADS = 256
 SEGMENT_SLOTS = 64
 MAX_SHARED = 232448
 SEGMENT_MAX_ROWS = (MAX_SHARED // 4 - SEGMENT_SLOTS) // 4 * 4  # 58,048
+# E's kernel: a block of RW_SCALAR_THREADS stages the row (at most
+# RW_MAX_COLS words) into shared memory, one thread runs the chain
+RW_SCALAR_THREADS = 256
+RW_MAX_COLS = MAX_SHARED // 4  # 58,112
 
 # gather_sum's launch (csrc/probe_mosaic.cuh: gather_group, gather_block):
 # a warp an output, or a thread an output on the major axis from
@@ -113,6 +122,16 @@ def gather_launch(axis: str, n_out: int) -> tuple:
     return group, block, -(-n_out * group // block)
 
 
+def rw_launch(mode: str, rows: int) -> tuple:
+    """``rw_chain``'s launch for ``rows`` rows: the threads a row (D: a
+    warp, gather_sum's launch for as many outputs; E: one thread runs the
+    chain), the threads a block and the blocks (a copy of the kernel's
+    rule, ``lzm_rw_launch``)."""
+    if mode == "scalar":
+        return 1, RW_SCALAR_THREADS, 1
+    return (GATHER_WARP,) + gather_launch("minor", rows)[1:]
+
+
 def segment_block_bytes(W: int) -> int:
     """p5's shared memory a block (a lane) for a column of ``W`` rows."""
     return 4 * (SEGMENT_SLOTS + W)
@@ -123,9 +142,23 @@ def segment_attributes() -> dict:
     ``local_bytes`` a thread (spills), ``static_shared`` bytes and the
     ``max_dynamic_shared`` bytes it is opted in to
     (``cudaFuncGetAttributes``). Needs the card."""
+    return _attributes(lambda lib, out: lib.lzm_segment_attributes(out),
+                       "segment_attributes")
+
+
+def rw_attributes(mode: str) -> dict:
+    """The card build's attributes of ``rw_chain``'s kernel for ``mode``,
+    as :func:`segment_attributes` gives p5's. Needs the card."""
+    _check_mode("mode", mode, RW_MODES)
+    return _attributes(
+        lambda lib, out: lib.lzm_rw_attributes(RW_MODES.index(mode), out),
+        "rw_attributes")
+
+
+def _attributes(query, what: str) -> dict:
     out = (ctypes.c_int * 4)()
     lib = _cuda_lib()
-    _raise_on(lib, lib.lzm_segment_attributes(out), "segment_attributes")
+    _raise_on(lib, query(lib, out), what)
     return dict(zip(("registers", "local_bytes", "static_shared",
                      "max_dynamic_shared"), out))
 
@@ -407,7 +440,10 @@ def rw_chain(x, start=None, *, mode: str, iters: int, full: bool = False):
     i, ``x[r, (start[r] + i) % W] += 1``; the output is the final table.
     ``"scalar"`` (E, ``x`` [1, W], no ``start``): ``j = 37 i % W;
     v = x[0, j]; x[0, (j + 1) % W] = v + carry; carry += v``; the output is
-    ``carry`` [1, 1], and ``full`` adds the final table."""
+    ``carry`` [1, 1], and ``full`` adds the final table. E's kernel holds
+    the row in one block's shared memory, so ``"scalar"`` takes at most
+    :data:`RW_MAX_COLS` (58,112) words, on the CPU as on the card
+    (ValueError beyond)."""
     _check("x", x)
     _check_mode("mode", mode, RW_MODES)
     _check_int("iters", iters, 0)
@@ -419,6 +455,10 @@ def rw_chain(x, start=None, *, mode: str, iters: int, full: bool = False):
                              f"[{x.shape[0]}]")
     elif start is not None or x.shape[0] != 1:
         raise ValueError("mode 'scalar' takes x [1, W] and no start")
+    elif x.shape[1] > RW_MAX_COLS:
+        raise ValueError(f"x {tuple(x.shape)}: E's row of {x.shape[1]} "
+                         "words does not fit a block's shared memory (at "
+                         f"most {RW_MAX_COLS})")
     if x.device.type == "cpu":
         return rw_chain_reference(x, start, mode=mode, iters=iters,
                                   full=full)

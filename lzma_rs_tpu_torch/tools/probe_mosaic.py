@@ -7,8 +7,11 @@ a plain indexed load or store, and the question is what the access
 costs: a gather along a row (A, C: a warp an output, its 32 loads of a
 step neighbouring words) or down a column (B, F: a warp an output below
 4,096 outputs, else a thread an output, a warp's loads coalesced where
-its columns' rows agree), a read-modify-write per row (D), and one
-thread's load-after-store chain (E). The one-hot forms of C and D are direct indexed accesses here.
+its columns' rows agree), a read-modify-write per row (D: a warp a row,
+its adds atomic), and one thread's load-after-store chain (E, over the
+row in shared memory). The one-hot forms of C and D are direct indexed
+accesses here. On the card, a run that includes D's main row also times
+its library call (:func:`library_row`).
 
 Run on the card::
 
@@ -124,6 +127,34 @@ def probe_dynrow(R, C, device=None):
     return fn, (x,), C
 
 
+LIBRARY_ROW = "D onehot-write [128,2048] i32"
+
+
+def onehot_write_library(W=2048, device=None):
+    """D's function on its row [128, W] as one PyTorch call: ``call()`` is
+    ``x.clone().scatter_add_(1, cols, ones)``, the walk's wrapped column
+    index ``cols`` ([128, ITERS]) built here, outside the call. Returns
+    ``(call, fn, args)``: ``fn(*args)`` is the row's kernel."""
+    fn, args, _ = probe_onehot_write(128, W, torch.int32, device=device)
+    x, idx = args
+    steps = torch.arange(fn.iters, device=x.device)
+    walk = (idx.long()[:, None] + steps + 2**31) % 2**32 - 2**31
+    cols = torch.remainder(walk, W)
+    ones = torch.ones_like(cols, dtype=torch.int32)
+    return (lambda: x.clone().scatter_add_(1, cols, ones)), fn, args
+
+
+def library_row(device) -> dict:
+    """D's library call on the card: whether it equals the kernel's output
+    and its median ms, timed as the rows are (``probe_rows.median_ms``)."""
+    from lzma_rs_tpu_torch.tools import probe_rows
+
+    call, fn, args = onehot_write_library(device=device)
+    equal = torch.equal(call(), fn(*args))
+    return {"name": LIBRARY_ROW, "equal": equal,
+            "ms": probe_rows.median_ms(call)}
+
+
 i32, u8 = torch.int32, torch.uint8
 ROWS_OF_TOOL = [
     *((f"A gather-minor [{L},{W}] {t}",
@@ -148,4 +179,9 @@ ROWS_OF_TOOL = [
 
 
 if __name__ == "__main__":
-    main(ROWS_OF_TOOL, prog="probe_mosaic")
+    ran = main(ROWS_OF_TOOL, prog="probe_mosaic")
+    if any(r["name"] == LIBRARY_ROW and r["device"] != "cpu" for r in ran):
+        lib = library_row(torch.device(ran[0]["device"]))
+        print(f"{LIBRARY_ROW} library call (clone, scatter_add_; the index "
+              f"built outside): {lib['ms'] * 1e3:.2f} us, equal to the "
+              f"kernel's output: {lib['equal']}", flush=True)

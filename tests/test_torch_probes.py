@@ -382,13 +382,83 @@ def test_host_build_bitdecode(placement, state, host_lib):
     for i, (lo, hi) in enumerate((INT32, (0, 4096))):
         tab = table(lo, hi, 20 + i)
         for init in (probes.BITDECODE_INIT, probes.Y_INIT,
-                     tuple(lane_words(4, 25 + i))):
+                     tuple(lane_words(4, 25 + i)), (647, 1, -1, 12345)):
             assert_same(
                 probes.launch_bitdecode(host_lib, tab, init=init, iters=120,
                                         placement=placement, state=state,
                                         full=True),
                 probes.bitdecode_reference(tab, init=init, iters=120,
                                            full=True))
+
+
+# bitdecode starts at the pipelined lane's edges (idx, acc per lane):
+# idx at the last row with acc 1 (both candidates the row just stored, so
+# every iteration forwards), idx near INT32_MAX (the climb wraps negative
+# and clips to 0), acc <= 0 (a climb of 0: the row stays put), acc past
+# 0x100 and at the int32 ends; rng and cod seeded
+EDGE_IDX = (647, 646, 2**31 - 1, 2**31 - 5, -2**31, -1, 0, 640)
+EDGE_ACC = (1, 0, -1, 10, 11, -2**31, 2**31 - 1, 0x100, 0x80)
+
+
+def bitdecode_edge_start(seed: int, lanes=(2, 50)) -> tuple:
+    n = int(np.prod(lanes))
+    words = [np.resize(np.array(v, dtype=np.int64), n)
+             for v in (EDGE_IDX, EDGE_ACC)]
+    idx, acc = (torch.from_numpy(w.astype(np.int32)).reshape(lanes)
+                for w in words)
+    rng, cod = lane_words(2, seed, lanes)
+    return idx, acc, rng, cod
+
+
+@pytest.mark.parametrize("state", probes.STATES)
+@pytest.mark.parametrize("placement", probes.PLACEMENTS)
+def test_host_build_bitdecode_edges(placement, state, host_lib):
+    """The pipelined lane's forwarding and candidates: from idx 647 and
+    acc 1 every iteration reads the row the last one stored; the edge
+    starts (EDGE_IDX x EDGE_ACC over 100 lanes) wrap the climb, climb 0
+    and put both candidates on one row; at 0, 1, 2 and 120 iterations."""
+    starts = ((647, 1, -1, 12345), (2**31 - 3, 10, 0, -1),
+              (5, 0, 2**31 - 1, 0), (0, -7, -1, 2**31 - 1),
+              bitdecode_edge_start(26), bitdecode_edge_start(27))
+    for i, (lo, hi) in enumerate((INT32, (0, 4096))):
+        tab = table(lo, hi, 28 + i)
+        for init in starts:
+            for iters in (0, 1, 2, 120):
+                assert_same(
+                    probes.launch_bitdecode(host_lib, tab, init=init,
+                                            iters=iters, placement=placement,
+                                            state=state, full=True),
+                    probes.bitdecode_reference(tab, init=init, iters=iters,
+                                               full=True))
+
+
+@pytest.mark.parametrize("state", ("registers", "slots"))
+def test_bitdecode_scalar_starts_are_copied(state, host_lib):
+    """Scalar starts are written into a state made anew for each call: the
+    kernel's writes to it do not carry over, even at one lane, so a second
+    call starts where the first did."""
+    tab = table(0, 4096, 29, lanes=(1,))
+    init = (3, 1, -1, 777)
+    kw = {"init": init, "iters": 30, "state": state, "full": True}
+    first = probes.launch_bitdecode(host_lib, tab, **kw)
+    assert_same(probes.launch_bitdecode(host_lib, tab, **kw), first)
+    assert_same(first, probes.bitdecode_reference(tab, init=init, iters=30,
+                                                  full=True))
+
+
+def test_bitdecode_edges_reach_the_forward():
+    """The edge starts do what EDGE_IDX and EDGE_ACC say: from (647, 1)
+    every row is 647 and the table's word there changes each iteration;
+    from idx near INT32_MAX the first row is 0."""
+    tab = table(0, 4096, 28)
+    _, end = probes.bitdecode_reference(tab, init=(647, 1, -1, 12345),
+                                        iters=5, full=True)
+    assert end["state"][0].eq(647).all()
+    assert not torch.equal(end["table"][647], tab[647])
+    assert torch.equal(end["table"][:647], tab[:647])
+    _, end = probes.bitdecode_reference(tab, init=(2**31 - 3, 10, 0, -1),
+                                        iters=1, full=True)
+    assert end["state"][0].eq(0).all()
 
 
 @pytest.mark.parametrize("rounds", (0, 1, 7, 8, 9, 10, 83, 166))
@@ -422,6 +492,19 @@ def test_host_build_refuses_bad_arguments(host_lib):
     x = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(RuntimeError, match="bad argument"):
         probes.launch_tinyops(host_lib, x, iters=-1)
+    tab = table(0, 2048, 47, lanes=(4,))
+    with pytest.raises(RuntimeError, match="bad argument"):
+        probes.launch_bitdecode(host_lib, tab, iters=-1)
+    words = [torch.zeros(4, dtype=torch.int32) for _ in range(4)]
+    assert host_lib.lzp_bitdecode(
+        len(probes.PLACEMENTS), 0, tab.data_ptr(),
+        *(w.data_ptr() for w in words), 4, 1, None) == -1
+    # more lanes than 32-bit offsets reach: refused before any access
+    assert host_lib.lzp_bitdecode_max_lanes() == probes.BITDECODE_MAX_LANES
+    for place in range(len(probes.PLACEMENTS)):
+        assert host_lib.lzp_bitdecode(
+            place, 0, tab.data_ptr(), *(w.data_ptr() for w in words),
+            probes.BITDECODE_MAX_LANES + 1, 1, None) == -1
 
 
 def test_wrappers_on_the_cpu_take_the_plain_version():
@@ -448,12 +531,16 @@ def test_wrappers_on_the_cpu_take_the_plain_version():
 
 
 @pytest.mark.parametrize("bad", ("dtype", "rows", "placement", "state",
-                                 "iters", "device", "init"))
+                                 "iters", "device", "init", "lanes"))
 def test_wrappers_reject_what_the_kernel_does_not_take(bad):
     tab = table(0, 2048, 41, lanes=(4,))
     kw = {"placement": "minor", "state": "registers", "iters": 5}
     err = ValueError
-    if bad == "dtype":
+    if bad == "lanes":  # one lane more than the kernel's 32-bit offsets
+        n = probes.BITDECODE_MAX_LANES
+        assert n * probes.ROWS < 2**31 <= (n + 1) * probes.ROWS
+        tab = tab[:, :1].expand(probes.ROWS, n + 1)
+    elif bad == "dtype":
         tab = tab.long()
     elif bad == "rows":
         tab = tab[:-1]
@@ -515,11 +602,12 @@ def test_the_tools_list_the_tpu_probes_rows():
     ("probes_bisect.cu", "bisect"), ("probe_bisect.cuh", "bisect"),
     ("step_cost.cu", "stepcost"), ("decode_lanes.cu", "lanedec"),
     ("lane_engine.cuh", "lanedec"), ("crc_blocks.cu", "crc"),
-    ("crc_kernel.cuh", "crc")))
+    ("crc_kernel.cuh", "crc"), ("kernel_attributes.cuh", "probes")))
 def test_an_edit_rebuilds_only_its_library(edited, changed, tmp_path):
     """An edit rebuilds the libraries whose sources hold the file, and no
     other: ``changed``, and ``mosaic3``, ``mosaic4`` and ``round4`` too for
-    ``probe_mosaic.cuh``, which their headers include, and ``bisect`` for
+    ``probe_mosaic.cuh``, which their headers include, ``mosaic`` and
+    ``round4`` too for ``kernel_attributes.cuh``, and ``bisect`` for
     ``probe_lane.cuh``, which its header includes; ``segvar`` and
     ``stepcost`` too for the decoder's two headers, which its variants and
     its step-cost builds instantiate, and ``lanedec`` for ``lzma_lane.cuh``,
@@ -533,6 +621,7 @@ def test_an_edit_rebuilds_only_its_library(edited, changed, tmp_path):
     after = {lib.name: build.source_hash(lib, str(csrc)) for lib in libs}
     also = {"probe_mosaic.cuh": {"mosaic3", "mosaic4", "round4"},
             "probe_lane.cuh": {"bisect"},
+            "kernel_attributes.cuh": {"mosaic", "round4"},
             "lzma_lane.cuh": {"segvar", "stepcost", "lanedec"},
             "segment_kernel.cuh": {"segvar", "stepcost"}}.get(edited, set())
     assert {n for n in before if before[n] != after[n]} == {changed} | also
@@ -622,3 +711,36 @@ def test_realweight_kernel_edges_on_card(cuda_device):
             runs += 1
     assert probes.realweight_step.launches == before + runs
     assert probes.realweight_attributes()["local_bytes"] == 0
+
+
+@pytest.mark.cuda
+def test_bitdecode_kernel_edges_on_card(cuda_device):
+    """The host tests' bitdecode edges on the card, every placement and
+    state: every iteration forwarding the stored word, the climb wrapped,
+    a climb of 0, both candidates on one row; at 100 lanes (a part-filled
+    block); no build spills."""
+    before, runs = probes.bitdecode_chain.launches, 0
+    starts = ((647, 1, -1, 12345), (2**31 - 3, 10, 0, -1),
+              bitdecode_edge_start(26), bitdecode_edge_start(27))
+    for lo, hi in (INT32, (0, 4096)):
+        tab = table(lo, hi, 28).cuda()
+        for init in starts:
+            init = tuple(v.cuda() if torch.is_tensor(v) else v
+                         for v in init)
+            want = {n: probes.bitdecode_reference(tab, init=init, iters=n,
+                                                  full=True)
+                    for n in (0, 1, 2, 120)}
+            for placement in probes.PLACEMENTS:
+                for state in probes.STATES:
+                    for n, w in want.items():
+                        got = probes.bitdecode_chain(
+                            tab, init=init, iters=n, placement=placement,
+                            state=state, full=True)
+                        torch.cuda.synchronize()
+                        assert_same(tuple(got), tuple(w))
+                        runs += 1
+    assert probes.bitdecode_chain.launches == before + runs
+    for placement in probes.PLACEMENTS:
+        for state in probes.STATES:
+            a = probes.bitdecode_attributes(placement, state)
+            assert a["local_bytes"] == 0, (placement, state)

@@ -348,6 +348,126 @@ def test_host_build_rw_chain(mode, host_lib):
             assert not torch.equal(got[1]["table"], x)
 
 
+# D's widths below and at a warp, where one step's 32 adds hit a word
+# more than once; E's widths where a load issued ahead hits a pending
+# store (37 d = 1 mod W: W = 36 at d = 1, 73 at d = 2, 110 at d = 3; every
+# load at W = 1 and 2), and the widest row E's kernel takes
+RW_ROWS_W = (1, 5, 31, 32)
+RW_SCALAR_W = (1, 2, 36, 73, 110, pm.RW_MAX_COLS)
+
+
+def rw_rows_cases(W: int):
+    """D's edge cases at width W: (x, start, iters) on 9 and 33 rows (not
+    a multiple of 32), starts within 1,024 of +-2^31 and over the full
+    range, iters 0, W - 1, W, 3 W + 1 and 700."""
+    for rows in (9, 33):
+        x = ints((rows, W), 90 + W + rows)
+        for j, lo_hi in enumerate((NEAR_LIMIT, INT32)):
+            start = ints((rows,), 95 + W + rows + j, lo_hi)
+            for iters in sorted({0, max(W - 1, 0), W, 3 * W + 1, 700}):
+                yield x, start, iters
+
+
+@pytest.mark.parametrize("W", RW_ROWS_W)
+def test_host_build_rw_rows_edges(W, host_lib):
+    for x, start, iters in rw_rows_cases(W):
+        kw = {"mode": "rows", "iters": iters, "full": True}
+        assert_same(pm.launch_rw_chain(host_lib, x, start, **kw),
+                    pm.rw_chain_reference(x, start, **kw))
+
+
+SCALAR_ITERS = (0, 1, 2, 3, 4, 5, 7, 8, 9, 700)  # the look-ahead's ends
+
+
+@pytest.mark.parametrize("W", RW_SCALAR_W)
+def test_host_build_rw_scalar_edges(W, host_lib):
+    x = ints((1, W), 100 + W % 97)
+    for iters in SCALAR_ITERS:
+        kw = {"mode": "scalar", "iters": iters, "full": True}
+        got = pm.launch_rw_chain(host_lib, x, **kw)
+        assert_same(got, pm.rw_chain_reference(x, **kw))
+    if W in (36, 73, 110):  # iteration i + d reads what i stored
+        assert [d for d in (1, 2, 3) if 37 * d % W == 1]
+
+
+def wrap32(v: int) -> int:
+    return (v + 2**31) % 2**32 - 2**31
+
+
+def rw_scalar_model(row, v0: int, iters: int):
+    """E with its walk from v0 (the probe's is 0), in Python integers: j =
+    wrap(v0 + 37 i) floor-mod W; v = x[j]; x[(j + 1) % W] = v + carry;
+    carry += v. Returns the row and carry."""
+    x, carry = [int(v) for v in row], 0
+    for i in range(iters):
+        j = wrap32(v0 + 37 * i) % len(x)
+        v = x[j]
+        x[(j + 1) % len(x)] = wrap32(v + carry)
+        carry = wrap32(carry + v)
+    return x, carry
+
+
+# walks that wrap int32 at their first few steps, in every place of a
+# pass of four (and of the first loads): 37 n reaches INT32_MAX - e + 37 d
+WRAP_STARTS = tuple(2**31 - 1 - 37 * d - e for d in range(10)
+                    for e in (0, 1, 17, 36)) + (-5, 2**31 - 1, -2**31)
+WRAP_ITERS = (1, 3, 4, 5, 8, 13, 61)
+
+
+@pytest.mark.parametrize("W", (1, 2, 5, 36, 37, 73, 110))
+def test_host_build_rw_scalar_across_the_wrap(W, host_lib):
+    """E's walk wraps int32 only after ~58 M iterations from the probe's
+    start, so the host build runs it from starts near INT32_MAX
+    (lzm_rw_scalar_from): the step that handles a wrap (ScalarWalk::next
+    with the check), the pass that may wrap and the straight-line pass
+    against the model, with forwards where 37 d = 1 mod W."""
+    fn = host_lib.lzm_rw_scalar_from
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int32,
+                   ctypes.c_void_p, ctypes.c_int]
+    row = np.random.default_rng(300 + W).integers(
+        *INT32, size=W, dtype=np.int64).astype(np.int32)
+    for v0 in WRAP_STARTS:
+        for iters in WRAP_ITERS:
+            x, out = row.copy(), np.zeros(1, dtype=np.int32)
+            assert fn(x.ctypes.data, W, v0, out.ctypes.data, iters) == 0
+            want, carry = rw_scalar_model(row, v0, iters)
+            assert (x.tolist(), int(out[0])) == (want, carry), (v0, iters)
+    assert fn(row.ctypes.data, pm.RW_MAX_COLS + 1, 0,
+              np.zeros(1, dtype=np.int32).ctypes.data, 1) == -1
+
+
+@pytest.mark.parametrize("W", (1, 3, 36, 37, 4096))
+def test_scalar_walk_steps_across_the_wrap(W, host_lib):
+    """ScalarWalk's step (an add and a conditional subtract, the floor
+    mod again where 37 n wraps) gives floor_mod(wrap(v0 + 37 i), W)."""
+    fn = host_lib.lzm_scalar_walk
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int32, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int]
+    n = 64
+    for v0 in WRAP_STARTS:
+        js = np.zeros(n, dtype=np.int32)
+        assert fn(v0, W, js.ctypes.data, n) == 0
+        assert js.tolist() == [wrap32(v0 + 37 * i) % W for i in range(n)]
+
+
+def test_rw_launch_is_the_kernels(host_lib):
+    """The Python copy of rw_chain's launch against the header's
+    (``lzm_rw_launch``): D a warp a row, a warp a block below 1,024 rows
+    (the tool's 128 rows on 128 SMs); E one block of 256 threads."""
+    for mode in pm.RW_MODES:
+        for rows in (0, 1, 9, 33, 128, 1023, 1024, 1025, 65536):
+            out = (ctypes.c_int * 3)()
+            assert host_lib.lzm_rw_launch(pm.RW_MODES.index(mode), rows,
+                                          out) == 0
+            assert tuple(out) == pm.rw_launch(mode, rows), (mode, rows)
+    assert host_lib.lzm_rw_launch(2, 1, (ctypes.c_int * 3)()) != 0
+    assert pm.rw_launch("rows", 128) == (32, 32, 128)
+    assert pm.rw_launch("scalar", 1) == (1, 256, 1)
+    assert host_lib.lzm_rw_max_cols() == pm.RW_MAX_COLS == 58112
+
+
 @pytest.mark.parametrize("mode", pm.ROW_MODES)
 def test_host_build_row_chain(mode, host_lib):
     for i, (W, lo_hi) in enumerate(((64, INT32), (100, NEAR_LIMIT),
@@ -403,6 +523,15 @@ def test_host_build_refuses_bad_arguments(host_lib):
         pm.launch_row_chain(host_lib, x, mode="clamp", iters=-1)
     with pytest.raises(RuntimeError, match="bad argument"):
         pm.launch_gather_sum(host_lib, x, x, axis="minor", mod=5, iters=1)
+    # E's row one word past a block's shared memory: refused by the host
+    # build and by the wrapper on the CPU, so both devices take the same
+    over = torch.zeros((1, pm.RW_MAX_COLS + 1), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="bad argument"):
+        pm.launch_rw_chain(host_lib, over, mode="scalar", iters=1)
+    with pytest.raises(ValueError, match="shared memory"):
+        pm.rw_chain(over, mode="scalar", iters=1)
+    with pytest.raises(RuntimeError, match="bad argument"):
+        pm.launch_rw_chain(host_lib, x, x[:, 0], mode="rows", iters=-1)
 
 
 # -- the wrappers and the tools ------------------------------------------
@@ -448,6 +577,9 @@ BAD = {
                                              mod=4, iters=1),
     "rw start": lambda x, s: pm.rw_chain(x, s[:4, 0], mode="rows", iters=1),
     "scalar rows": lambda x, s: pm.rw_chain(x, mode="scalar", iters=1),
+    "scalar cols": lambda x, s: pm.rw_chain(
+        torch.zeros((1, pm.RW_MAX_COLS + 1), dtype=torch.int32),
+        mode="scalar", iters=1),
     "segment rows": lambda x, s: pm.segment_chain(x[:6], mode="segments",
                                                   iters=1),
 }
@@ -476,6 +608,16 @@ def test_tool_entry_points_run_on_the_card_unless_asked(tool, which):
     name = [n for n, _ in tool.ROWS_OF_TOOL if n.startswith(which)][0]
     assert [(r["name"], r["input"]) for r in rows] == [
         (name, "tool"), (name, "seeded")]
+
+
+@pytest.mark.parametrize("W", (768, 2048))
+def test_d_library_call_is_the_function(W):
+    """D's library call (``clone`` and ``scatter_add_`` over the walk's
+    column index built outside the call) is D's function: its plain
+    version on the tool's input, at both of the tool's widths."""
+    call, fn, args = probe_mosaic.onehot_write_library(W, device="cpu")
+    assert torch.equal(call(), fn.plain(*args))
+    assert probe_mosaic.LIBRARY_ROW in dict(probe_mosaic.ROWS_OF_TOOL)
 
 
 def test_p6_counts_the_rows_its_walk_reads():
@@ -548,6 +690,36 @@ def test_gather_kernel_edges_on_card(cuda_device):
                 assert_same(got, pm.gather_sum_reference(x, start, **kw))
                 runs += 1
     assert pm.gather_sum.launches == before + runs
+
+
+@pytest.mark.cuda
+def test_rw_kernel_edges_on_card(cuda_device):
+    """The host tests' rw_chain edges on the card: D at widths below and
+    at a warp (adds of one step that hit a word more than once), rows not
+    a multiple of 32, starts within 1,024 of +-2^31; E where a load issued
+    ahead hits a pending store and at the widest row; neither kernel
+    spills."""
+    before, runs = pm.rw_chain.launches, 0
+    for W in RW_ROWS_W:
+        for x, start, iters in rw_rows_cases(W):
+            x, start = x.to(cuda_device), start.to(cuda_device)
+            kw = {"mode": "rows", "iters": iters, "full": True}
+            got = pm.rw_chain(x, start, **kw)
+            torch.cuda.synchronize()
+            assert_same(got, pm.rw_chain_reference(x, start, **kw))
+            runs += 1
+    for W in RW_SCALAR_W:
+        x = ints((1, W), 100 + W % 97).to(cuda_device)
+        for iters in SCALAR_ITERS:
+            kw = {"mode": "scalar", "iters": iters, "full": True}
+            got = pm.rw_chain(x, **kw)
+            torch.cuda.synchronize()
+            assert_same(got, pm.rw_chain_reference(x, **kw))
+            runs += 1
+    assert pm.rw_chain.launches == before + runs
+    for mode in pm.RW_MODES:
+        assert pm.rw_attributes(mode)["local_bytes"] == 0
+    assert pm.rw_attributes("scalar")["max_dynamic_shared"] == pm.MAX_SHARED
 
 
 @pytest.mark.cuda
