@@ -95,7 +95,9 @@ the port's native host library into
     some, ``k`` over the full int32 range, ``it`` from [0, 56)), timed at
     the tool's limit of 64 steps, 8,192 and 0 (per step run); each row's
     kernel against its plain version on both inputs, bit for bit (output,
-    final table and tile, carry);
+    final table and tile, carry); each kernel's lanes a block, threads a
+    block, blocks, SMs, registers, spills (none allowed) and shared memory
+    a block;
 11. the round4 probe kernels (``csrc/probes_round4.cu``): the 20 rows of
     ``lzma_rs_tpu_torch/tools/probe_round4.py`` on the tool's input and on
     a seeded one (tables over their type's full range, all four state
@@ -115,8 +117,11 @@ the port's native host library into
     table and starts over the full int32 range), timed at the tool's 32
     iterations, 8,192 and 0; each row's kernel against its plain version
     on both inputs, bit for bit (output, final table, final state); the
-    stage costs (differences between rows) and whether nvcc kept w1's and
-    w2's loop-invariant loads inside the loop (``cuobjdump -sass``);
+    stage costs (differences between rows) beside the first design's,
+    and whether nvcc kept w1's and w2's loop-invariant loads (global and
+    shared) inside the loop (``cuobjdump -sass``); each kernel's lanes a
+    block, threads a block, blocks, SMs, registers, spills (none allowed)
+    and shared memory a block;
 13. lane batching: (a) through ``xz_decompress`` with
     ``LZMA_RS_TPU_VMEM_L=256``, 8 launches on one card (bit-exact, engine
     ``cuda``, no fallbacks, ``stats.devices == 1``), its slabs' summed
@@ -429,11 +434,18 @@ ROUND4_MAIN_ROW = {"select_chain": "sel1", "blend_chain": "blend_par3"}
 BISECT_REPLACES = {"bisect_chain": ["tools/probe_lane2d_bisect.py:33"]}
 BISECT_MAIN_ROW = {"bisect_chain": "v4 +masked-write"}
 # stage costs: (what, row, the row it adds to)
-BISECT_STAGES = (("the load", "v2 +onehot-read", "v1 idx-only"),
+BISECT_STAGES = (("the climb over the step", "v1 idx-only", "w3 mask-reduce"),
+                 ("the load", "v2 +onehot-read", "v1 idx-only"),
                  ("the range coder", "v3 +uint-arith", "v2 +onehot-read"),
                  ("the store", "v4 +masked-write", "v3 +uint-arith"),
                  ("a load without the climb", "w5 sel-tab-reduce",
                   "w3 mask-reduce"))
+# cycles an iteration of the rows behind the stage costs in the first
+# design (a thread a lane, the table in device memory), on the tool's
+# input (PERF.md §6; H100 80GB HBM3 at 700.00 W)
+BISECT_FIRST_CYCLES = {"v1 idx-only": 107.0, "v2 +onehot-read": 156.8,
+                       "v3 +uint-arith": 176.8, "v4 +masked-write": 184.9,
+                       "w3 mask-reduce": 38.0, "w5 sel-tab-reduce": 98.9}
 # rows that are one function on the card, timed apart
 BISECT_CONTROLS = (("v2 +onehot-read", "v2m mult-mask", "v2bt broadcast_to"),
                    ("w5 sel-tab-reduce", "w6 mult-tab-reduce",
@@ -449,6 +461,29 @@ def slope_text(r: dict) -> str:
     return (f"{r['ns_per_iter']:.2f} ns/iteration ({r['cycles_per_iter']:.1f}"
             f" cycles at the max SM clock, {r['cycles_per_op']:.2f} per "
             "counted op)")
+
+
+def block_lines(phase: str, kernels: dict, lanes: int, entries: list,
+                main: str, peaks) -> None:
+    """Each kernel's launch and attributes (``kernels``: a label and its
+    ``kernel_attributes`` dict): lanes and threads a block, blocks and SMs
+    at the tool's ``lanes``, registers, spills (a spill fails the phase)
+    and shared memory a block. The entry of ``entries`` named ``main``
+    gets its kernel's registers and spills."""
+    for label, a in kernels.items():
+        check(a["local_bytes"] == 0, f"phase {phase}: {label}'s kernel "
+              f"spills ({a['local_bytes']} B local a thread)")
+        blocks = -(-lanes // a["lanes"])
+        say(f"{phase} probes", f"{label}: {a['lanes']} lanes and "
+            f"{a['threads']} threads a block, {blocks} blocks on "
+            f"{min(blocks, peaks.sms)} SMs at "
+            f"{lanes} lanes; {a['registers']} registers, {a['local_bytes']} B"
+            f" local a thread (spills), {a['shared_bytes']} B of dynamic "
+            f"shared memory a block (opted in to {a['max_dynamic_shared']} B)")
+    for e in entries:
+        if e["name"] == main:
+            a = kernels[e["row"]]
+            e["registers"], e["local_bytes"] = a["registers"], a["local_bytes"]
 
 
 def probes_phase(torch, dev, phase: str, rows, wrappers, source: str,
@@ -917,24 +952,27 @@ def opcode(ins: str) -> str:
 
 
 def loads_in_loops(listing) -> tuple:
-    """(global loads inside a loop, global loads) of one kernel's SASS: a
-    loop spans a backward branch's target to the branch."""
+    """(loads inside a loop, loads) of one kernel's SASS, global (LDG,
+    LDGSTS) and shared (LDS) alike: a loop spans a backward branch's
+    target to the branch."""
     from lzma_rs_tpu_torch.tools import sass_chain
 
     spans = sass_chain.loops(listing)
-    loads = [a for a, ins in listing if opcode(ins).startswith("LDG")]
+    loads = [a for a, ins in listing
+             if opcode(ins).startswith(("LDG", "LDS"))]
     return sum(any(lo <= a <= hi for lo, hi in spans) for a in loads), \
         len(loads)
 
 
 def bisect_sass_text(path: str) -> str:
     """Whether nvcc kept w1's column loads and w2's row-5 load (reads of
-    an input nobody writes) inside the iteration loop."""
+    a table nobody writes: w1's in shared memory, w2's in the table
+    itself, which it reads unstaged) inside the iteration loop."""
     sass = sass_listing(path)
     out = []
     for row, mode in (("w1", 5), ("w2", 6)):
-        kern = [v for k, v in sass.items()
-                if f"bisect_chain_kernelILi{mode}E" in k]
+        key = f"bisect_chain_kernelILi{mode}EE"
+        kern = [v for k, v in sass.items() if key in k]
         if len(kern) != 1:
             return f"not measured (cuobjdump found {len(kern)} {row} kernels)"
         inside, total = loads_in_loops(kern[0])
@@ -2299,10 +2337,14 @@ def main() -> None:
     from lzma_rs_tpu_torch.ops import probes_mosaic4, probes_round4
     from lzma_rs_tpu_torch.tools import probe_mosaic4, probe_round4
 
-    probe_entries += probes_phase(
+    entries = probes_phase(
         torch, dev, "10", probe_mosaic4.ROWS_OF_TOOL, probes_mosaic4.WRAPPERS,
         "lzma_rs_tpu_torch/csrc/probes_mosaic4.cu", MOSAIC4_REPLACES,
         MOSAIC4_MAIN_ROW)[0]
+    pm4 = probes_mosaic4
+    block_lines("10", {v: pm4.kernel_attributes(v) for v in pm4.VARIANTS},
+                probe_mosaic4.L, entries, "table_chain", peaks)
+    probe_entries += entries
 
     # -- 11. the round4 probe kernels --------------------------------
     entries, by = probes_phase(
@@ -2321,13 +2363,19 @@ def main() -> None:
         torch, dev, "12", probe_lane2d_bisect.ROWS_OF_TOOL,
         probes_bisect.WRAPPERS, "lzma_rs_tpu_torch/csrc/probes_bisect.cu",
         BISECT_REPLACES, BISECT_MAIN_ROW)
+    pb = probes_bisect
+    block_lines("12", {n: pb.kernel_attributes(n.split()[0])
+                       for n, _ in probe_lane2d_bisect.ROWS_OF_TOOL},
+                probe_lane2d_bisect.S * 128, entries, "bisect_chain", peaks)
     probe_entries += entries
     cyc = {k: r["cycles_per_iter"] for k, r in by.items()}
+    first = BISECT_FIRST_CYCLES
     say("12 probes", "stage costs, cycles per iteration (tool's / seeded "
-        "input): " + "; ".join(
+        "input; the first design's on the tool's input): " + "; ".join(
             f"{what} ({row.split()[0]} - {base.split()[0]}) "
             f"{cyc[row, 'tool'] - cyc[base, 'tool']:.1f} / "
-            f"{cyc[row, 'seeded'] - cyc[base, 'seeded']:.1f}"
+            f"{cyc[row, 'seeded'] - cyc[base, 'seeded']:.1f} (first "
+            f"{first[row] - first[base]:.1f})"
             for what, row, base in BISECT_STAGES))
     say("12 probes", "one function, timed apart (largest spread over the "
         "smallest, tool's / seeded): " + "; ".join(

@@ -13,9 +13,10 @@
 // the next, and every register stays what the probe computes; y4 runs
 // the same rounds. bitdecode_chain's lane likewise loads the next
 // iteration's table word for both outcomes of the bit before it resolves
-// (bitdecode_lane); bisect keeps the one-chain step (bitdecode_iter). y4's lane unrolls its rounds as the TPU traced
-// them and overlaps each iteration's loads with the next one's rounds
-// (realweight_lane), the same code on the host.
+// (bitdecode_lane); probe_bisect.cuh's bodies keep the whole step on one
+// chain (climb_clip, decode_bit, shift_in). y4's lane unrolls its rounds
+// as the TPU traced them and overlaps each iteration's loads with the next
+// one's rounds (realweight_lane), the same code on the host.
 //
 // Integer semantics are the probes': wrapping int32 and uint32. Signed
 // overflow is undefined in C++ and the compilers optimise on it, so every
@@ -193,31 +194,19 @@ LZP_FN int32_t shift_in(int32_t acc, uint32_t bit) {
   return v > 0x100 ? 1 : v;
 }
 
-// bitdecode_1d / _2d and y1 / y2: one iteration of the bit-decode step.
-template <class Tab, class State>
-LZP_FN void bitdecode_iter(const Tab& tab, State& st) {
-  BitState s = st.load();
-#if defined(__CUDACC__)
-#pragma unroll
-#endif
-  for (int k = 0; k < 10; ++k)
-    s.idx = wrap(uint32_t(s.idx) + (s.acc > k ? 1u : 0u));
-  s.idx = s.idx < 0 ? 0 : (s.idx > kRows - 1 ? kRows - 1 : s.idx);
-  s.acc = shift_in(s.acc, decode_bit(tab, s));
-  st.store(s);
-}
-
-// The climb and the clip of bitdecode_iter in closed form: the count of k
-// < 10 with acc > k is acc clamped to [0, 10], added to idx with the ten
-// adds' int32 wrap, then clipped to the table's rows.
+// The bit decode's climb and clip (bitdecode_1d / _2d and y1 / y2: idx
+// += #{k < 10 : acc > k}, ten wrapping adds, then the clip to the table's
+// rows) in closed form: the count is acc clamped to [0, 10], added to idx
+// with the same int32 wrap, then clipped.
 LZP_FN int32_t climb_clip(int32_t idx, int32_t acc) {
   const int32_t n = acc < 0 ? 0 : (acc > 10 ? 10 : acc);
   const int32_t c = wrap(uint32_t(idx) + uint32_t(n));
   return c < 0 ? 0 : (c > kRows - 1 ? kRows - 1 : c);
 }
 
-// bitdecode_chain's lane: `iters` iterations of bitdecode_iter, the next
-// iteration's table word loaded before this one's bit resolves. Its row
+// bitdecode_chain's lane: `iters` iterations of the bit-decode step (the
+// climb and clip, decode_bit, shift_in), the next iteration's table word
+// loaded before this one's bit resolves. Its row
 // depends only on idx and acc, and acc takes one of two values after the
 // bit, so both candidate rows (c0 for a 0, c1 for a 1) are formed and
 // loaded first; the bit then picks one. Those loads precede this
@@ -231,9 +220,8 @@ LZP_FN int32_t climb_clip(int32_t idx, int32_t acc) {
 // (unrolled by 1, nvcc gave both one register and the loads waited behind
 // the pick). The chain an iteration is the range coder on the picked word
 // and the bit's selects; the climb (climb_clip), the clip and the loads
-// run beside it. The state is loaded and stored every iteration as
-// bitdecode_iter does it: in memory (MemState) that round trip stays on
-// the chain, in registers (RegState) it is free. decode_bit's arithmetic
+// run beside it. The state is loaded and stored every iteration, as the
+// probes do: in memory (MemState) that round trip stays on the chain, in registers (RegState) it is free. decode_bit's arithmetic
 // on the picked word is inline: its new word is forwarded.
 template <class Tab, class State>
 LZP_FN void bitdecode_lane(const Tab& tab, State& st, int iters) {

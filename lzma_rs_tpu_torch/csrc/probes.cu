@@ -52,7 +52,7 @@
 //     2,592 B apart), or shared memory (a block's 64 lanes' tables, 648 x
 //     64 x 4 = 165,888 B, lane-minor, so any idx pattern is free of bank
 //     conflicts; filled at the start, written back at the end). bisect's
-//     rows keep bitdecode_iter, the whole step on one chain.
+//     rows keep the whole step on one chain (probe_bisect.cuh).
 //   - State in registers, or (y1, y2) in device memory through volatile
 //     pointers, loaded and stored every iteration: that round trip stays
 //     on y1's and y2's chain, the candidate loads beside it.

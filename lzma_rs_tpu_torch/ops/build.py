@@ -18,12 +18,14 @@ library alone and an unchanged one loads at once. Eleven libraries:
   ``probe_mosaic3.cuh``, which includes ``probe_mosaic.cuh``),
   :func:`load_mosaic3`;
 - ``mosaic4``: the mosaic4 probe kernel (``probes_mosaic4.cu`` +
-  ``probe_mosaic4.cuh`` + ``probe_mosaic.cuh``), :func:`load_mosaic4`;
+  ``probe_mosaic4.cuh`` + ``probe_mosaic.cuh`` +
+  ``kernel_attributes.cuh``), :func:`load_mosaic4`;
 - ``round4``: the round4 probe kernels (``probes_round4.cu`` +
   ``probe_round4.cuh`` + ``probe_mosaic.cuh`` +
   ``kernel_attributes.cuh``), :func:`load_round4`;
 - ``bisect``: the bisect probe kernel (``probes_bisect.cu`` +
-  ``probe_bisect.cuh`` + ``probe_lane.cuh``), :func:`load_bisect`;
+  ``probe_bisect.cuh`` + ``probe_lane.cuh`` + ``kernel_attributes.cuh``),
+  :func:`load_bisect`;
 - ``stepcost``: the decoder's step-cost builds (``step_cost.cu`` over
   ``segment_kernel.cuh`` + ``lzma_lane.cuh``), :func:`load_step_cost`;
 - ``lanedec``: the lane engine (``decode_lanes.cu`` + ``lane_engine.cuh`` +
@@ -80,11 +82,11 @@ MOSAIC = Library("mosaic", ("probes_mosaic.cu", "probe_mosaic.cuh",
 MOSAIC3 = Library("mosaic3", ("probes_mosaic3.cu", "probe_mosaic3.cuh",
                               "probe_mosaic.cuh"))
 MOSAIC4 = Library("mosaic4", ("probes_mosaic4.cu", "probe_mosaic4.cuh",
-                              "probe_mosaic.cuh"))
+                              "probe_mosaic.cuh", "kernel_attributes.cuh"))
 ROUND4 = Library("round4", ("probes_round4.cu", "probe_round4.cuh",
                             "probe_mosaic.cuh", "kernel_attributes.cuh"))
 BISECT = Library("bisect", ("probes_bisect.cu", "probe_bisect.cuh",
-                            "probe_lane.cuh"))
+                            "probe_lane.cuh", "kernel_attributes.cuh"))
 STEPCOST = Library("stepcost", ("step_cost.cu", "segment_kernel.cuh",
                                 "lzma_lane.cuh"))
 LANEDEC = Library("lanedec", ("decode_lanes.cu", "lane_engine.cuh",
@@ -396,7 +398,7 @@ def bind_mosaic4(lib: ctypes.CDLL) -> ctypes.CDLL:
     ``-DLZP_HOST_ENTRY``."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.lzm4_table_chain.restype = ci
-    lib.lzm4_table_chain.argtypes = [ci, vp, ci] + [vp] * 5 + [ci, vp]
+    lib.lzm4_table_chain.argtypes = [ci, vp, ci] + [vp] * 6 + [ci, vp]
     lib.lzm4_error_string.restype = ctypes.c_char_p
     lib.lzm4_error_string.argtypes = [ci]
     return lib
@@ -404,9 +406,12 @@ def bind_mosaic4(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=1)
 def load_mosaic4() -> ctypes.CDLL:
-    """Build (if needed) and bind the mosaic4 probe kernel; one handle per
-    process."""
-    return bind_mosaic4(ctypes.CDLL(build_library(MOSAIC4).path))
+    """Build (if needed) and bind the mosaic4 probe kernel (and the card
+    build's ``lzm4_kernel_attributes``); one handle per process."""
+    lib = bind_mosaic4(ctypes.CDLL(build_library(MOSAIC4).path))
+    lib.lzm4_kernel_attributes.restype = ctypes.c_int
+    lib.lzm4_kernel_attributes.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    return lib
 
 
 def bind_round4(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -446,7 +451,7 @@ def bind_bisect(lib: ctypes.CDLL) -> ctypes.CDLL:
     ``-DLZP_HOST_ENTRY``."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.lzb_bisect.restype = ci
-    lib.lzb_bisect.argtypes = [ci] + [vp] * 4 + [ci, ci, vp]
+    lib.lzb_bisect.argtypes = [ci] + [vp] * 5 + [ci, ci, vp]
     lib.lzb_error_string.restype = ctypes.c_char_p
     lib.lzb_error_string.argtypes = [ci]
     return lib
@@ -454,9 +459,12 @@ def bind_bisect(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=1)
 def load_bisect() -> ctypes.CDLL:
-    """Build (if needed) and bind the bisect probe kernel; one handle per
-    process."""
-    return bind_bisect(ctypes.CDLL(build_library(BISECT).path))
+    """Build (if needed) and bind the bisect probe kernel (and the card
+    build's ``lzb_kernel_attributes``); one handle per process."""
+    lib = bind_bisect(ctypes.CDLL(build_library(BISECT).path))
+    lib.lzb_kernel_attributes.restype = ctypes.c_int
+    lib.lzb_kernel_attributes.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    return lib
 
 
 @functools.lru_cache(maxsize=1)

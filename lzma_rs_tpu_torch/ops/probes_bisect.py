@@ -37,11 +37,18 @@ counts kernel launches, ``bisect_chain.reference`` is the plain version.
 Inputs are not changed. ``full=True`` also returns ``{"table": the final
 table, "state": [4, *lanes]}`` (idx, acc, rng, cod).
 
+A call is one launch: blocks of 32 lanes, each staging its lanes' ``[648,
+32]`` slice of the table in shared memory (the probe's VMEM scratch) where
+the body reads rows; the bodies that read no row or only row 5 run on the
+table itself, which was faster. The kernel writes the final table only for
+``full=True``.
+
 Integer semantics are wrapping int32 and uint32, as in ``ops/probes.py``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -54,8 +61,8 @@ from lzma_rs_tpu_torch.ops.probes_mosaic import (_check, _check_int,
 
 __all__ = [
     "ITERS", "ROWS", "INIT", "CONST_ROW", "BODIES", "STAGES", "WRAPPERS",
-    "body_ops", "body_words", "rows_read", "bisect_chain", "bisect_reference",
-    "launch_bisect",
+    "body_ops", "body_words", "rows_read",
+    "bisect_chain", "bisect_reference", "launch_bisect", "kernel_attributes",
 ]
 
 ITERS = 32         # the probe's ITERS
@@ -200,27 +207,45 @@ def _cuda_lib():
 def launch_bisect(lib, table, start, *, body: str, iters: int = ITERS,
                   full: bool = False):
     """Run ``lib``'s ``lzb_bisect``: the nvcc build on a CUDA tensor, the
-    g++ build of ``probe_bisect.cuh`` on a CPU one."""
+    g++ build of ``probe_bisect.cuh`` on a CPU one. One launch."""
     lanes = table.shape[1:]
     L = math.prod(lanes)
     x = table.reshape(ROWS, L).contiguous()
-    writes = STAGES[body][3]
-    tab = torch.empty_like(x) if writes else None
-    state = start.reshape(4, L).clone(memory_format=torch.contiguous_format)
+    st0 = start.reshape(4, L).contiguous()
+    tab = torch.empty_like(x) if full else None
+    state = torch.empty_like(st0)
     out = torch.empty(L, dtype=torch.int32, device=table.device)
     rc = lib.lzb_bisect(_MODE[body], x.data_ptr(),
                         None if tab is None else tab.data_ptr(),
-                        state.data_ptr(), out.data_ptr(), L, iters,
-                        _stream(table))
+                        st0.data_ptr(), state.data_ptr(), out.data_ptr(), L,
+                        iters, _stream(table))
     if rc != 0:
         raise RuntimeError("bisect_chain launch failed: "
                            + lib.lzb_error_string(rc).decode())
     out = out.reshape(lanes)
     if not full:
         return out
-    final = tab if writes else x.clone()
-    return out, {"table": final.reshape(table.shape),
+    return out, {"table": tab.reshape(table.shape),
                  "state": state.reshape(4, *lanes)}
+
+
+def kernel_attributes(body: str) -> dict:
+    """The card build's attributes of ``body``'s kernel: ``registers`` and
+    ``local_bytes`` a thread
+    (spills), ``static_shared`` and ``max_dynamic_shared`` bytes
+    (``cudaFuncGetAttributes`` after the opt-in), ``threads`` and
+    ``lanes`` a block and ``shared_bytes``, the dynamic shared memory of a
+    block. Needs the card."""
+    _check_mode("body", body, BODIES)
+    out = (ctypes.c_int * 7)()
+    lib = _cuda_lib()
+    rc = lib.lzb_kernel_attributes(_MODE[body], out)
+    if rc != 0:
+        raise RuntimeError("bisect kernel_attributes failed: "
+                           + lib.lzb_error_string(rc).decode())
+    return dict(zip(("registers", "local_bytes", "static_shared",
+                     "max_dynamic_shared", "threads", "lanes",
+                     "shared_bytes"), out))
 
 
 # -- the wrapper ---------------------------------------------------------

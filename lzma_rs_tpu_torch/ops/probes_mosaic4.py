@@ -22,12 +22,18 @@ lockstep). ``table_chain.launches`` counts kernel launches,
 ``tile`` [64, L] (``build``'s variants), the carried ``state`` [2, L]
 (idx, acc) and ``it`` [1].
 
+A call is one launch: blocks of 8 lanes, each holding its lanes' table and
+tile in shared memory (the probe's VMEM scratch), and one warp that runs
+the lanes' chains and shares a round's refill and a step's resets. The
+kernel writes table and tile out only for ``full=True``.
+
 Integer semantics are the probe's: wrapping int32, and ``%`` and ``//``
 are jnp's floor mod and floor division of a wrapped int32.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -40,7 +46,7 @@ from lzma_rs_tpu_torch.ops.probes_mosaic import (_check, _check_int,
 __all__ = [
     "VARIANTS", "BUILD_VARIANTS", "SCHED_VARIANTS", "WRAPPERS",
     "W", "TILE", "ROUND", "SCHED", "step_ops", "steps_run", "table_chain",
-    "table_chain_reference", "launch_table_chain",
+    "table_chain_reference", "launch_table_chain", "kernel_attributes",
 ]
 
 W = 512          # table rows
@@ -165,21 +171,22 @@ def _cuda_lib():
 def launch_table_chain(lib, x, start, it0, *, variant: str, iters: int,
                        full: bool = False):
     """Run ``lib``'s ``lzm4_table_chain``: the nvcc build on a CUDA tensor,
-    the g++ build of ``probe_mosaic4.cuh`` on a CPU one."""
+    the g++ build of ``probe_mosaic4.cuh`` on a CPU one. One launch."""
     L = x.shape[1]
     dev = x.device
     build = variant in BUILD_VARIANTS
     k = None if build else x.contiguous()
-    tab = torch.empty((W, L), dtype=torch.int32, device=dev)
+    st0, i0 = start.contiguous(), it0.contiguous()
+    tab = torch.empty((W, L), dtype=torch.int32, device=dev) if full else None
     tile = (torch.empty((TILE, L), dtype=torch.int32, device=dev)
-            if build else None)
-    state = start.clone(memory_format=torch.contiguous_format)
-    i0 = it0.contiguous()
+            if full and build else None)
+    state = torch.empty_like(st0)
     it = torch.empty(1, dtype=torch.int32, device=dev)
     rc = lib.lzm4_table_chain(
         _MODE[variant], None if k is None else k.data_ptr(), L,
-        tab.data_ptr(), None if tile is None else tile.data_ptr(),
-        state.data_ptr(), i0.data_ptr(), it.data_ptr(), iters, _stream(x))
+        st0.data_ptr(), None if tab is None else tab.data_ptr(),
+        None if tile is None else tile.data_ptr(), state.data_ptr(),
+        i0.data_ptr(), it.data_ptr(), iters, _stream(x))
     _raise_on(lib, rc, "table_chain")
     out = state[0:1]
     if not full:
@@ -188,6 +195,23 @@ def launch_table_chain(lib, x, start, it0, *, variant: str, iters: int,
     if build:
         res["tile"] = tile
     return out, res
+
+
+def kernel_attributes(variant: str) -> dict:
+    """The card build's attributes of ``variant``'s kernel: ``registers``
+    and ``local_bytes`` a thread (spills),
+    ``static_shared`` and ``max_dynamic_shared`` bytes
+    (``cudaFuncGetAttributes`` after the opt-in), ``threads`` and ``lanes``
+    a block and ``shared_bytes``, the dynamic shared memory of a block.
+    Needs the card."""
+    _check_mode("variant", variant, VARIANTS)
+    out = (ctypes.c_int * 7)()
+    lib = _cuda_lib()
+    _raise_on(lib, lib.lzm4_kernel_attributes(_MODE[variant], out),
+              "kernel_attributes")
+    return dict(zip(("registers", "local_bytes", "static_shared",
+                     "max_dynamic_shared", "threads", "lanes",
+                     "shared_bytes"), out))
 
 
 # -- the wrapper ---------------------------------------------------------

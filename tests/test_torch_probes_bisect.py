@@ -224,16 +224,96 @@ def test_host_build_bisect(body, host_lib):
 
 
 def test_host_build_refuses_bad_arguments(host_lib):
+    """A mode out of range, no lane, negative iterations."""
     table, start = (torch.from_numpy(a) for a in inputs("tool", 0))
     with pytest.raises(RuntimeError, match="bad argument"):
         pb.launch_bisect(host_lib, table, start, body="v2", iters=-1)
     buf = torch.zeros(pb.ROWS * 128, dtype=torch.int32)
     st = torch.zeros((4, 128), dtype=torch.int32)
+    end = torch.zeros((4, 128), dtype=torch.int32)
     out = torch.zeros(128, dtype=torch.int32)
-    for mode, tab in ((11, buf), (-1, buf), (4, None)):  # v4 needs a table
+    for mode, L, iters in ((11, 128, 4), (-1, 128, 4), (1, 0, 4),
+                           (1, 128, -1)):
         assert host_lib.lzb_bisect(
-            mode, buf.data_ptr(), None if tab is None else tab.data_ptr(),
-            st.data_ptr(), out.data_ptr(), 128, 4, None) == -1
+            mode, buf.data_ptr(), None, st.data_ptr(), end.data_ptr(),
+            out.data_ptr(), L, iters, None) == -1, mode
+    # v4 without a table to write back is the timed call: accepted
+    assert host_lib.lzb_bisect(4, buf.data_ptr(), None, st.data_ptr(),
+                               end.data_ptr(), out.data_ptr(), 128, 4,
+                               None) == 0
+
+
+def edge_inputs(kind: str, lanes: int, seed: int) -> tuple:
+    """(table [648, lanes], start [4, lanes]) tensors: the tool's, a
+    full-range table, full-range starts (idx within 10 of 2^31 - 1 on
+    every eighth lane: the climb and the step wrap before the clip), or
+    "wraps": a table whose every column sums past 2^32 (w1's sum wraps)
+    under seeded starts."""
+    table, start = inputs("starts" if kind == "wraps" else kind, seed, s=2)
+    table = table.reshape(pb.ROWS, -1)[:, :lanes]
+    start = start.reshape(4, -1)[:, :lanes]
+    if kind == "wraps":
+        rng = np.random.default_rng(seed)
+        table = rng.integers(2**30, 2**31, size=table.shape,
+                             dtype=np.int64).astype(np.int32)
+    return (torch.from_numpy(np.ascontiguousarray(table)),
+            torch.from_numpy(np.ascontiguousarray(start)))
+
+
+@pytest.mark.parametrize("body", pb.BODIES)
+def test_host_build_block_edges(body, host_lib):
+    """The per-rank code (staging, w1's split sum, the write-back) at 130
+    lanes (a part-filled last block: 4 whole blocks and 2 lanes) and at 1
+    lane; full=True and full=False; 0, 1 and 37 iterations; on the seeded
+    starts, whose walks wrap idx before the clip, and a table whose column
+    sums wrap uint32."""
+    for lanes in (130, 1):
+        for i, kind in enumerate(("starts", "wraps")):
+            table, start = edge_inputs(kind, lanes, 40 + i)
+            kept = (table.clone(), start.clone())
+            for iters in (0, 1, 37):
+                kw = {"body": body, "iters": iters}
+                want = pb.bisect_reference(table, start, full=True, **kw)
+                assert_same(pb.launch_bisect(host_lib, table, start,
+                                             full=True, **kw), want)
+                assert torch.equal(pb.launch_bisect(
+                    host_lib, table, start, **kw), want[0])
+            assert torch.equal(table, kept[0]) and torch.equal(start, kept[1])
+
+
+def test_w1_sums_wrap_uint32():
+    """The "wraps" table's columns sum past 2^32, so w1's read is the
+    wrapped sum; its low bit differs from lane to lane."""
+    table, start = edge_inputs("wraps", 130, 41)
+    sums = table.long().sum(0)
+    assert (sums >= 2**32).all()
+    bits = (sums & 1).unique()
+    assert bits.tolist() == [0, 1]
+
+
+def test_a_call_is_one_launch(host_lib):
+    """The timed call (full=False) makes no copy of its inputs before the
+    kernel: outputs are ``torch.empty`` and the inputs go in as views, so
+    on the card the kernel's launch is the call's only one."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    table, start = (torch.from_numpy(a) for a in inputs("starts", 7, s=2))
+    for body in pb.BODIES:
+        with Ops() as ops:
+            pb.launch_bisect(host_lib, table, start, body=body, iters=3)
+        assert ops.seen and all(
+            op.startswith("empty") or op in ("view", "_unsafe_view",
+                                             "_reshape_alias")
+            for op in ops.seen), (body, ops.seen)
 
 
 # -- the wrapper, the tool, the bound, the library -----------------------
@@ -380,6 +460,28 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", pb.BODIES)
+def test_kernel_block_edges_on_card(body, cuda_device):
+    """The host build's edge cases on the card: 130 lanes (a part-filled
+    block) and 1 lane, full=True and full=False, 0, 1 and 37 iterations,
+    starts that wrap idx before the clip and columns whose sums wrap
+    uint32."""
+    lib = pb._cuda_lib()
+    for lanes in (130, 1):
+        for i, kind in enumerate(("starts", "wraps")):
+            table, start = (t.to(cuda_device)
+                            for t in edge_inputs(kind, lanes, 40 + i))
+            for iters in (0, 1, 37):
+                kw = {"body": body, "iters": iters}
+                want = pb.bisect_reference(table, start, full=True, **kw)
+                got = pb.launch_bisect(lib, table, start, full=True, **kw)
+                out = pb.launch_bisect(lib, table, start, **kw)
+                torch.cuda.synchronize()
+                assert_same(got, want)
+                assert torch.equal(out, want[0])
 
 
 @pytest.mark.cuda

@@ -199,16 +199,113 @@ def test_host_build_table_chain(variant, host_lib):
 
 
 def test_host_build_refuses_bad_arguments(host_lib):
+    """A mode out of range, no lane, a negative limit; build2 without k or
+    with a tile; build with a table and no tile, or the reverse."""
     x = torch.zeros((4, 8), dtype=torch.int32)
     st, it0 = torch.zeros((2, 8), dtype=torch.int32), torch.zeros(
         1, dtype=torch.int32)
     with pytest.raises(RuntimeError, match="bad argument"):
         pm4.launch_table_chain(host_lib, x, st, it0, variant="base",
                                iters=-1)
-    buf = torch.zeros(4096, dtype=torch.int32)
+    buf = torch.zeros(pm4.W * 8, dtype=torch.int32)
+    end, it = torch.zeros((2, 8), dtype=torch.int32), torch.zeros(
+        1, dtype=torch.int32)
+    b, n = buf.data_ptr(), None
+    for mode, k, L, tab, tile, limit in (
+            (6, n, 8, b, b, 64), (-1, n, 8, b, b, 64), (0, n, 0, b, b, 64),
+            (0, n, 8, b, b, -1), (0, n, 8, b, n, 64), (1, n, 8, n, b, 64),
+            (3, n, 8, b, n, 64), (4, b, 8, b, b, 64)):
+        assert host_lib.lzm4_table_chain(
+            mode, k, L, st.data_ptr(), tab, tile, end.data_ptr(),
+            it0.data_ptr(), it.data_ptr(), limit, None) == -1, mode
+    # no table and no tile is the timed call: accepted
     assert host_lib.lzm4_table_chain(
-        6, None, 8, buf.data_ptr(), buf.data_ptr(), st.data_ptr(),
-        it0.data_ptr(), it0.data_ptr(), 64, None) == -1
+        1, n, 8, st.data_ptr(), n, n, end.data_ptr(), it0.data_ptr(),
+        it.data_ptr(), 64, None) == 0
+
+
+def edge_start(kind: str, lanes: int, seed: int) -> tuple:
+    """(k [8, lanes], start [2, lanes], it0 [1]) as numpy: "all" (the
+    tool's zeros: every lane resets at the same steps), "apart" (the
+    seeded start: lanes reset at different steps), "one" (acc 0 on every
+    lane but one, at 8: that lane resets alone at its 9th step, and every
+    17 steps after), "near" (idx and acc within 1,024 of +-2^31: idx + v
+    and acc + 1 wrap, idx before the and)."""
+    rng = np.random.default_rng(seed)
+    base = {"all": "tool", "apart": "wide", "one": "tool", "near": "near"}
+    k, st, it0 = start(base[kind], seed)
+    k = np.resize(k, (pm4.SCHED, lanes))
+    st = np.resize(st, (2, lanes)).copy()
+    if kind == "one":
+        st[1, rng.integers(0, lanes)] = 8
+    if kind == "apart":
+        it0 = np.array([5], dtype=np.int32)
+    return k, st, it0
+
+
+@pytest.mark.parametrize("variant", pm4.VARIANTS)
+def test_host_build_block_edges(variant, host_lib):
+    """The per-rank code (the fill, the warp's resets from the ballot's
+    mask, the write-back) at 130 lanes (a part-filled last block) and at 1
+    lane, with both row strides; full=True and full=False; limits that end
+    mid-round (100: 7 rounds from 0) and at 0; every lane resetting at the
+    same step, lanes resetting apart, one lane resetting alone, and walks
+    that wrap idx."""
+    for lanes in (130, 1):
+        for i, kind in enumerate(("all", "apart", "one", "near")):
+            k, st, it0 = edge_start(kind, lanes, 60 + i)
+            args = tuple(torch.from_numpy(a) for a in (
+                tool_x(variant, "wide", k), st, it0))
+            kept = [a.clone() for a in args]
+            for limit in (0, 100):
+                kw = {"variant": variant, "iters": limit}
+                want = pm4.table_chain_reference(*args, full=True, **kw)
+                assert_same(pm4.launch_table_chain(
+                    host_lib, *args, full=True, **kw), want)
+                assert torch.equal(pm4.launch_table_chain(
+                    host_lib, *args, **kw), want[0])
+            assert all(torch.equal(a, b) for a, b in zip(args, kept))
+
+
+def test_the_edge_starts_reset_as_named():
+    """"all": every lane flags at the same steps; "one": some step flags
+    exactly one lane; "apart": steps flag different lanes."""
+    def flags(kind):
+        _, st, it0 = edge_start(kind, 130, 61)
+        acc = st[1].astype(np.int64)
+        steps = pm4.steps_run(int(it0[0]), 100)
+        return [set(np.flatnonzero((acc + j) % pm4.RESET_EVERY == 0))
+                for j in range(1, steps + 1)]
+
+    assert all(f in (set(), set(range(130))) for f in flags("all"))
+    assert any(len(f) == 1 for f in flags("one"))
+    apart = [f for f in flags("apart") if f]
+    assert len(apart) > 17 and len({frozenset(f) for f in apart}) > 1
+
+
+def test_a_call_is_one_launch(host_lib):
+    """The timed call (full=False) makes no copy of its inputs before the
+    kernel: outputs are ``torch.empty`` and the inputs go in as they are,
+    so on the card the kernel's launch is the call's only one."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    for variant in pm4.VARIANTS:
+        args = inputs(variant)
+        with Ops() as ops:
+            pm4.launch_table_chain(host_lib, *args, variant=variant,
+                                   iters=40)
+        assert ops.seen and all(
+            op.startswith("empty") or op in ("slice", "view")
+            for op in ops.seen), (variant, ops.seen)
 
 
 # -- the wrapper and the tool --------------------------------------------
@@ -303,6 +400,29 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", pm4.VARIANTS)
+def test_kernel_block_edges_on_card(variant, cuda_device):
+    """The host build's edge cases on the card: 130 lanes (a part-filled
+    block) and 1 lane, both row strides, full=True and full=False, limits
+    100 and 0, every lane resetting at the same step, lanes apart, one
+    lane alone, and walks that wrap idx."""
+    lib = pm4._cuda_lib()
+    for lanes in (130, 1):
+        for i, kind in enumerate(("all", "apart", "one", "near")):
+            k, st, it0 = edge_start(kind, lanes, 60 + i)
+            args = tuple(torch.from_numpy(a).to(cuda_device) for a in (
+                tool_x(variant, "wide", k), st, it0))
+            for limit in (0, 100):
+                kw = {"variant": variant, "iters": limit}
+                want = pm4.table_chain_reference(*args, full=True, **kw)
+                got = pm4.launch_table_chain(lib, *args, full=True, **kw)
+                out = pm4.launch_table_chain(lib, *args, **kw)
+                torch.cuda.synchronize()
+                assert_same(got, want)
+                assert torch.equal(out, want[0])
 
 
 @pytest.mark.cuda
