@@ -86,8 +86,11 @@ the port's native host library into
    and 0 (per iteration run: from the tool's zeros P7-P9 leave after 10
    at both counts, and have no slope); each row's kernel against its
    plain version on both inputs, bit for bit (output, carried state,
-   P16's scratch); and whether nvcc made one SASS of P11a's variable
-   shift and P11b's select (``cuobjdump -sass``);
+   P16's scratch); the kernel of each one-hot and window row (P10,
+   P12s-P16) with its lanes and threads a block, blocks, SMs, registers,
+   spills (none allowed) and shared memory a block; and whether nvcc made
+   one SASS of P11a's variable shift and P11b's select
+   (``cuobjdump -sass``);
 10. the mosaic4 probe kernel (``csrc/probes_mosaic4.cu``): the 7 rows of
     ``lzma_rs_tpu_torch/tools/probe_mosaic4.py`` (``build``'s four
     variants, ``build2``'s three) on the tool's input (zeros) and on a
@@ -464,12 +467,14 @@ def slope_text(r: dict) -> str:
 
 
 def block_lines(phase: str, kernels: dict, lanes: int, entries: list,
-                main: str, peaks) -> None:
+                main, peaks) -> None:
     """Each kernel's launch and attributes (``kernels``: a label and its
     ``kernel_attributes`` dict): lanes and threads a block, blocks and SMs
     at the tool's ``lanes``, registers, spills (a spill fails the phase)
-    and shared memory a block. The entry of ``entries`` named ``main``
-    gets its kernel's registers and spills."""
+    and shared memory a block. The entry of ``entries`` named ``main`` (or
+    each named in a tuple ``main``) gets its kernel's registers and
+    spills."""
+    mains = (main,) if isinstance(main, str) else main
     for label, a in kernels.items():
         check(a["local_bytes"] == 0, f"phase {phase}: {label}'s kernel "
               f"spills ({a['local_bytes']} B local a thread)")
@@ -481,9 +486,26 @@ def block_lines(phase: str, kernels: dict, lanes: int, entries: list,
             f" local a thread (spills), {a['shared_bytes']} B of dynamic "
             f"shared memory a block (opted in to {a['max_dynamic_shared']} B)")
     for e in entries:
-        if e["name"] == main:
+        if e["name"] in mains:
             a = kernels[e["row"]]
             e["registers"], e["local_bytes"] = a["registers"], a["local_bytes"]
+
+
+def mosaic3_attributes(dev) -> dict:
+    """The attributes of the kernel each onehot_chain and window_chain row
+    of the mosaic3 tool launches, by row."""
+    from lzma_rs_tpu_torch.ops import probes_mosaic3 as pm3
+    from lzma_rs_tpu_torch.tools import probe_mosaic3
+
+    out = {}
+    for name, make in probe_mosaic3.ROWS_OF_TOOL:
+        fn, args, _ = make(dev)
+        rows = fn.view(*args)[0].shape[0]
+        if fn.wrapper is pm3.onehot_chain:
+            out[name] = pm3.onehot_attributes(rows, **fn.kwargs)
+        elif fn.wrapper is pm3.window_chain:
+            out[name] = pm3.window_attributes(rows, **fn.kwargs)
+    return out
 
 
 def probes_phase(torch, dev, phase: str, rows, wrappers, source: str,
@@ -2326,10 +2348,13 @@ def main() -> None:
     from lzma_rs_tpu_torch.ops import probes_mosaic3
     from lzma_rs_tpu_torch.tools import probe_mosaic3
 
-    probe_entries += probes_phase(
+    entries = probes_phase(
         torch, dev, "9", probe_mosaic3.ROWS_OF_TOOL, probes_mosaic3.WRAPPERS,
         "lzma_rs_tpu_torch/csrc/probes_mosaic3.cu", MOSAIC3_REPLACES,
         MOSAIC3_MAIN_ROW)[0]
+    block_lines("9", mosaic3_attributes(dev), probe_mosaic3.L, entries,
+                ("onehot_chain", "window_chain"), peaks)
+    probe_entries += entries
     say("9 probes", "byte_chain (P11a shift, P11b select): "
         + byte_sass_text(build.build_library(build.MOSAIC3).path))
 

@@ -1,36 +1,64 @@
-// One thread of each mosaic3 probe kernel: the per-lane functions of the
-// JAX package's Pallas probes tools/probe_mosaic3.py, in scalar code.
+// One thread, lane or rank of each mosaic3 probe kernel: the per-lane
+// functions of the JAX package's Pallas probes tools/probe_mosaic3.py, in
+// scalar code, and the per-rank pieces of a block's shared work (the
+// staging of its lanes' table, a warp's reads of a window step).
 //
 // Compiled for the card by probes_mosaic3.cu and, as a test aid, for the
 // host by g++ (-x c++ -DLZP_HOST_ENTRY), which then also defines the C
-// interface of probes_mosaic3.cu as host loops over threads, so the logic
-// is checked on the CPU against the plain PyTorch versions
-// (ops/probes_mosaic3.py). The block-wide vote of vote_chain is the one
-// part that is not per thread: the card's kernel votes with its block, the
-// host loop steps every lane one iteration at a time and votes over all.
+// interface of probes_mosaic3.cu as host loops, so the logic is checked on
+// the CPU against the plain PyTorch versions (ops/probes_mosaic3.py). The
+// loops run in an order the card's barriers allow: vote_chain steps every
+// lane one iteration at a time and votes over all (the card's block
+// votes); onehot_chain and window_chain stage each block's slice by all
+// its ranks before any lane runs, and a window step takes the max of the
+// warp's 32 ranks (the card's __reduce_max_sync) before the lane goes on.
 //
 // Integer semantics are the probes': wrapping int32 (every add that can
 // wrap is done in uint32_t and converted back), an arithmetic >> of int32,
 // and an index is jnp's `%` of a wrapped int32 (lzm::floor_mod of
-// lzm::wrap, shared with probe_mosaic.cuh).
+// lzm::wrap, shared with probe_mosaic.cuh); by a power of two it is an
+// and.
 #ifndef LZMA_RS_TPU_TORCH_PROBE_MOSAIC3_CUH_
 #define LZMA_RS_TPU_TORCH_PROBE_MOSAIC3_CUH_
 
 #include "probe_mosaic.cuh"
+
+#if !defined(__CUDA_ARCH__)
+#include <string.h>
+#endif
 
 namespace lzm3 {
 
 using lzm::floor_mod;
 using lzm::wrap;
 
-constexpr int kBlock = 128;        // threads per block (all but vote)
+constexpr int kBlock = 128;        // byte_chain's threads a block
 constexpr int kMaxLanes = 1024;    // vote_chain: all lanes in one block
 constexpr int kVoteBelow = 5;      // P7-P9: run while a lane is below 5
 constexpr int kWindowRows = 64;    // P10's rows; P16's scratch rows
 constexpr int kChunk = 32;         // P16: rows per chunk
 constexpr int kBaseRow = 128;      // P16: row0 = base // 128
+constexpr int kBaseShift = 7;      // log2(kBaseRow)
 constexpr int kBaseStep = 129;     // P16: base = (base + v + 129) % 16 W
 constexpr int ERR_ARGS = -1;       // a bad argument: nothing was launched
+
+// onehot_chain and window_chain: kThreads threads a block, all of which
+// stage; window_chain runs a warp a lane (kWindowLanes lanes a block at
+// most), onehot_chain a thread a lane of the first warp (kOnehotLanes at
+// most). A block's lanes: the most, halved while their slice of the table
+// exceeds kSliceBytes (so onehot_chain's 128 lanes of a 2,048-row table
+// are 16 blocks on 16 SMs), at least one. One lane's column must fit the
+// block's shared memory: at most kMaxOnehotRows rows, and kMaxRefillRows
+// for P16, whose column has a chunk of zeros after it.
+constexpr int kWarp = 32;
+constexpr int kThreads = 256;
+constexpr int kWindowLanes = kThreads / kWarp;  // 8
+constexpr int kOnehotLanes = kWarp;             // 32
+constexpr int kSliceBytes = 65536;
+constexpr int kMaxOnehotRows = lzm::kMaxShared / 4;             // 58,112
+constexpr int kMaxRefillRows = lzm::kMaxShared / 4 - kChunk;    // 58,080
+constexpr int kCopy = 16;          // bytes a staging copy in whole chunks
+constexpr uint32_t kAll = 0xFFFFFFFFu;  // a warp's threads
 
 enum { VOTE_ANY = 0, VOTE_MAX = 1, VOTE_FLAG = 2 };  // P7, P8, P9
 enum { BYTE_SHIFT = 0, BYTE_SELECT = 1 };            // P11a, P11b
@@ -66,98 +94,273 @@ LZM_FN int32_t byte_chain_lane(int32_t v, int iters) {
   return v;
 }
 
-// P12s, P12m, P13, P14, P15 on a lane-minor table x ([R, L]), one lane:
-// v = x[idx] (REDUCE_SUM: the one-hot sum is the element) or
-// max(x[idx], 0) (REDUCE_MAX: the one-hot's zeros take part in the max,
-// R >= 2); acc += v; idx = (idx + v + 1) % R. `iters` dependent reads in
-// iters / kUnroll loop passes of kUnroll reads each. state: [2, L], acc
-// then idx (floor-reduced into [0, R) at the start; the probes start at
-// 0), the start in, the end out.
-template <int kReduce, int kUnroll>
-LZM_FN void onehot_chain_lane(const int32_t* x, int R, int L, int lane,
-                              int32_t* state, int iters) {
-  uint32_t acc = uint32_t(state[lane]);
-  int32_t idx = floor_mod(state[size_t(L) + lane], R);
+LZM_FN bool pow2(int32_t m) { return m > 0 && (m & (m - 1)) == 0; }
+
+// jnp's s % m of a wrapped int32 s (m > 0): an and where m is a power of
+// two (kPow2), else the floor mod, an integer division.
+template <bool kPow2>
+LZM_FN int32_t index_mod(int32_t s, int32_t m) {
+  return kPow2 ? s & (m - 1) : floor_mod(s, m);
+}
+
+// The lanes a block of a table of `rows` rows holds (see kSliceBytes).
+LZM_FN int lanes_per_block(int rows, int most) {
+  int lb = most;
+  while (lb > 1 && size_t(lb) * size_t(rows) * 4 > size_t(kSliceBytes))
+    lb >>= 1;
+  return lb;
+}
+
+LZM_FN int onehot_lanes(int R) { return lanes_per_block(R, kOnehotLanes); }
+// P16's slice lands twice (lane-minor, then in columns: stage_major_in),
+// so its lanes are those of a table of 2 W rows: 4 at 2,048 rows, 32
+// blocks on 32 SMs for the tool's 128 lanes.
+LZM_FN int window_lanes(int mode, int W) {
+  return mode == WINDOW_CONCAT ? kWindowLanes
+                               : lanes_per_block(2 * W, kWindowLanes);
+}
+
+// A lane's P16 column in shared memory: W rows, then a chunk of zeros.
+LZM_FN int refill_column(int W) { return W + kChunk; }
+
+// Dynamic shared memory of a block: onehot_chain's [R, lb] slice; P16's
+// lb columns and, for lb a multiple of 4, its [W, lb] slice as it lands
+// (stage_major_in); P10 none.
+LZM_FN int onehot_bytes(int R) { return R * onehot_lanes(R) * 4; }
+LZM_FN int window_bytes(int mode, int W) {
+  if (mode == WINDOW_CONCAT) return 0;
+  const int lb = window_lanes(mode, W);
+  return (refill_column(W) * lb + (lb % 4 == 0 ? W * lb : 0)) * 4;
+}
+
+// The block's shared memory as the chains reach it: byte offsets from its
+// base. On the card the base is a shared-space address held in a register
+// and the loads are ld.shared (as C loads through the extern array,
+// ptxas rebuilt the array's address in every step of mosaic4's chain);
+// volatile and after the staging's barrier. On the host, a pointer.
+struct Shared {
+  uintptr_t base;  // the card: a shared-space address; the host: a pointer
+#if defined(__CUDA_ARCH__)
+  LZM_FN int32_t ld(uint32_t off) const {
+    int32_t v;
+    asm volatile("ld.shared.b32 %0, [%1];"
+                 : "=r"(v)
+                 : "r"(uint32_t(base) + off)
+                 : "memory");
+    return v;
+  }
+#else
+  LZM_FN int32_t ld(uint32_t off) const {
+    return *reinterpret_cast<const int32_t*>(base + off);
+  }
+#endif
+};
+
+// -- staging: a block's lanes' table into shared memory ------------------
+
+// A block's lanes: nl of lb columns from lane0, of a table of L lanes.
+struct Slice {
+  int rows, lb, L, lane0, nl;
+};
+
+LZM_FN Slice block_slice(int rows, int lb, int L, int b) {
+  const int lane0 = b * lb;
+  return {rows, lb, L, lane0, L - lane0 < lb ? L - lane0 : lb};
+}
+
+// One word (4 bytes) or chunk (16) from the table into shared memory:
+// cp.async on the card (the rank waits for its own in copies_landed()), a
+// copy on the host.
+LZM_FN void copy_word(int32_t* dst, const int32_t* src) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+#else
+  *dst = *src;
+#endif
+}
+
+LZM_FN void copy_chunk(int32_t* dst, const int32_t* src) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+#else
+  memcpy(dst, src, kCopy);
+#endif
+}
+
+LZM_FN void copies_landed() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+LZM_FN int log2_of(int v) {
+  int k = 0;
+  while ((1 << k) < v) ++k;
+  return k;
+}
+
+// Whether the block's rows move in 16-byte chunks: a full block of whole
+// chunks (lb a multiple of 4) at 16-byte aligned addresses.
+LZM_FN bool chunked(const int32_t* from, const Slice& s) {
+  return s.nl == s.lb && s.lb % 4 == 0 && s.L % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(from) % kCopy == 0;
+}
+
+// Rank `tid` of `nt` copies its share of onehot_chain's slice into sm,
+// lane-minor ([rows, lb]: row r of lane f at word r lb + f, so the chain
+// threads' one word each lies in lb distinct banks): in 16-byte chunks,
+// neighbouring ranks on neighbouring chunks of a row, where chunked();
+// else word by word. Lanes past nl are not copied (nothing reads them).
+// The block then meets at a barrier.
+LZM_FN void stage_minor(int32_t* sm, const int32_t* x, const Slice& s,
+                        int tid, int nt) {
+  const int32_t* const from = x + s.lane0;
+  if (chunked(from, s)) {
+    const int per_row = s.lb / 4, sh = log2_of(per_row);
+    for (int i = tid; i < s.rows * per_row; i += nt) {
+      const int r = i >> sh, c = i & (per_row - 1);
+      copy_chunk(sm + r * s.lb + c * 4, from + size_t(r) * s.L + c * 4);
+    }
+  } else {
+    const int sh = log2_of(s.lb);
+    for (int i = tid; i < s.rows * s.lb; i += nt) {
+      const int r = i >> sh, f = i & (s.lb - 1);
+      if (f < s.nl) copy_word(sm + i, from + size_t(r) * s.L + f);
+    }
+  }
+  copies_landed();
+}
+
+// P16's column layout: lane f's rows are refill_column(W) words from
+// word f refill_column(W), row r at word r ^ swizzle(f, lb) of them (the
+// xor stays inside the row's 32-row chunk). A warp's 32 stores of 32 / lb
+// rows of lb lanes lie in 32 banks, and a chain warp's 32 loads of one
+// chunk are 32 rows of one lane in 32 banks.
+LZM_FN int swizzle(int f, int lb) { return (f * (kWarp / lb)) & (kWarp - 1); }
+
+// P16's staging, in two passes where chunked() (a full block of whole
+// chunks): pass 1 copies the block's [W, lb] slice lane-minor into the
+// words after the columns by 16-byte cp.async (stage_minor), and zeroes
+// the chunk after each column; after a barrier, pass 2 moves each word
+// into its column, a warp's 32 words being 32 / lb rows of lb lanes, which
+// the xor puts in 32 banks. Else pass 1 alone, word by word by 4-byte
+// cp.async (neighbouring ranks on neighbouring lanes of a row; lanes past
+// nl not copied). Returns whether pass 2 is to follow; the block meets at
+// a barrier after each pass. (P16's set-up on the H100, 2,048 rows: 12.9
+// us by 4-byte cp.async alone and 9.2 by 16-byte loads into registers and
+// transposing stores, 8 lanes a block; 7.6 in two passes, 4 lanes a block,
+// which beat 8 there: PERF.md.)
+LZM_FN bool stage_major_in(int32_t* sm, const int32_t* x, const Slice& s,
+                           int tid, int nt) {
+  const int col = refill_column(s.rows);
+  for (int i = tid; i < s.lb * kChunk; i += nt)
+    sm[(i / kChunk) * col + s.rows + i % kChunk] = 0;
+  const int32_t* const from = x + s.lane0;
+  if (chunked(from, s)) {
+    stage_minor(sm + s.lb * col, x, s, tid, nt);
+    return true;
+  }
+  const int sh = log2_of(s.lb);
+  for (int i = tid; i < s.rows * s.lb; i += nt) {
+    const int r = i >> sh, f = i & (s.lb - 1);
+    if (f < s.nl)
+      copy_word(sm + f * col + (r ^ swizzle(f, s.lb)),
+                from + size_t(r) * s.L + f);
+  }
+  copies_landed();
+  return false;
+}
+
+LZM_FN void stage_major_out(int32_t* sm, const Slice& s, int tid, int nt) {
+  const int col = refill_column(s.rows), sh = log2_of(s.lb);
+  const int32_t* const minor = sm + s.lb * col;
+  for (int i = tid; i < s.rows * s.lb; i += nt) {
+    const int r = i >> sh, f = i & (s.lb - 1);
+    sm[f * col + (r ^ swizzle(f, s.lb))] = minor[i];
+  }
+}
+
+// -- the chains ----------------------------------------------------------
+
+// P12s, P12m, P13, P14, P15, one lane, its [R] column in shared memory
+// from byte `col`, its rows `sb` bytes apart: from acc = idx = 0, v =
+// x[idx] (REDUCE_SUM: the one-hot sum is the element) or max(x[idx], 0)
+// (REDUCE_MAX: the one-hot's zeros take part in the max, R >= 2); acc +=
+// v; idx = (idx + v + 1) % R. `iters` dependent reads in iters / kUnroll
+// loop passes of kUnroll reads each. A step is a shared load, the clamp,
+// the adds and the mod (an and where R is a power of two).
+template <int kReduce, int kUnroll, bool kPow2>
+LZM_FN void onehot_chain_lane(const Shared& sm, uint32_t col, uint32_t sb,
+                              int32_t R, int iters, uint32_t& acc_out,
+                              int32_t& idx_out) {
+  uint32_t acc = 0;
+  int32_t idx = 0;
   LZM_UNROLL(unroll 1)
   for (int p = 0; p < iters / kUnroll; ++p) {
     LZM_UNROLL(unroll)
     for (int u = 0; u < kUnroll; ++u) {
-      const int32_t w = x[size_t(idx) * L + lane];
+      const int32_t w = sm.ld(col + uint32_t(idx) * sb);
       const int32_t v = kReduce == REDUCE_MAX && w < 0 ? 0 : w;
       acc += uint32_t(v);
-      idx = floor_mod(wrap(uint32_t(idx) + uint32_t(v) + 1u), R);
+      idx = index_mod<kPow2>(wrap(uint32_t(idx) + uint32_t(v) + 1u), R);
     }
   }
-  state[lane] = wrap(acc);
-  state[size_t(L) + lane] = idx;
+  acc_out = acc;
+  idx_out = idx;
 }
 
-// The max over one P16 chunk (32 rows from row 32 c of lane `lane`), or 0
-// where the chunk lies outside x's W / 32 chunks (the probe's zeros).
-LZM_FN int32_t chunk_max(const int32_t* x, int chunks, int L, int lane,
-                         int32_t c, int32_t m) {
-  if (c < 0 || c >= chunks) return m > 0 ? m : 0;
-  const int32_t* p = x + size_t(c) * kChunk * L + lane;
-  LZM_UNROLL(unroll 8)
-  for (int r = 0; r < kChunk; ++r) {
-    const int32_t v = p[size_t(r) * L];
-    m = v > m ? v : m;
-  }
-  return m;
+// P10, rank t of lane `lane`'s warp: its rows t and t + 32 of x ([W, L]),
+// loaded once (the rows do not change between steps).
+LZM_FN void concat_rows(const int32_t* x, size_t L, int lane, int t,
+                        int32_t& r0, int32_t& r1) {
+  r0 = x[t * L + lane];
+  r1 = x[(t + kWarp) * L + lane];
 }
 
-// P10 and P16 on a lane-minor table x ([W, L]), one lane; state: [2, L],
-// acc then base (P16; floor-reduced into [0, 16 W) at the start), the
-// start in, the end out.
-//   WINDOW_CONCAT (P10): acc += max over rows r < 64 of (x[r] + i), the
-//                  add wrapping per element before the max.
-//   WINDOW_REFILL (P16): row0 = base // 128; v = the max over chunks row0
-//                  and row0 + 1 (32 rows each; a chunk >= W / 32 is
-//                  zeros); base = (base + v + 129) % 16 W; acc += v.
-//                  `scratch` ([64, L]) or null: the last step's two
-//                  chunks (zeros when iters is 0).
-template <int kMode>
-LZM_FN void window_chain_lane(const int32_t* x, int W, int L, int lane,
-                              int32_t* state, int32_t* scratch, int iters) {
-  const size_t sL = size_t(L);
-  uint32_t acc = uint32_t(state[lane]);
-  if (kMode == WINDOW_CONCAT) {
-    LZM_UNROLL(unroll 1)
-    for (int i = 0; i < iters; ++i) {
-      int32_t m = INT32_MIN;
-      LZM_UNROLL(unroll 8)
-      for (int r = 0; r < kWindowRows; ++r) {
-        const int32_t v = wrap(uint32_t(x[r * sL + lane]) + uint32_t(i));
-        m = v > m ? v : m;
-      }
-      acc += uint32_t(m);
-    }
-    state[lane] = wrap(acc);
-    return;
-  }
-  const int chunks = W / kChunk;
-  const int32_t mod = 16 * W;
-  int32_t base = floor_mod(state[sL + lane], mod);
-  int32_t row0 = -2;  // no chunk: the scratch is zeros
-  LZM_UNROLL(unroll 1)
-  for (int i = 0; i < iters; ++i) {
-    row0 = base / kBaseRow;
-    const int32_t v = chunk_max(x, chunks, L, lane, row0 + 1,
-                                chunk_max(x, chunks, L, lane, row0,
-                                          INT32_MIN));
-    acc += uint32_t(v);
-    base = floor_mod(wrap(uint32_t(base) + uint32_t(v) + kBaseStep), mod);
-  }
-  state[lane] = wrap(acc);
-  state[sL + lane] = base;
-  if (scratch == nullptr) return;
-  for (int h = 0; h < 2; ++h) {
-    const int32_t c = row0 + h;
-    const bool in = c >= 0 && c < chunks;
-    for (int r = 0; r < kChunk; ++r)
-      scratch[(h * kChunk + r) * sL + lane] =
-          in ? x[(size_t(c) * kChunk + r) * sL + lane] : 0;
-  }
+// P10, rank t of the lane's warp: rows t and t + 32 (r0, r1) plus i, each
+// add wrapping before the max; the warp's max over its 32 ranks is the
+// step's max over rows 0-63.
+LZM_FN int32_t concat_rank(int32_t r0, int32_t r1, int i) {
+  const int32_t a = wrap(uint32_t(r0) + uint32_t(i));
+  const int32_t b = wrap(uint32_t(r1) + uint32_t(i));
+  return a > b ? a : b;
+}
+
+// P16: the byte offset of lane f's row t of chunk 0 in the block's
+// columns (refill_column(W) words each), its swizzle applied.
+LZM_FN uint32_t rank_at(int f, int t, int lb, int col) {
+  return uint32_t(f * col + (t ^ swizzle(f, lb))) * 4;
+}
+
+// P16, one rank of the lane's warp: row t of chunks row0 and row0 + 1 of
+// the lane's column (`at`: the byte offset of its row t of chunk 0, its
+// swizzle applied), as v0 and v1, a chunk from the table's end on being
+// the zeros after the column (chunk `chunks`: row0 >= 0 always, as base
+// is reduced into [0, 16 W)); returns their max. The warp's max over its
+// ranks is the step's v.
+LZM_FN int32_t refill_rank(const Shared& sm, uint32_t at, int32_t row0,
+                           int32_t chunks, int32_t& v0, int32_t& v1) {
+  const int32_t c0 = row0 < chunks ? row0 : chunks;
+  const int32_t c1 = row0 < chunks ? row0 + 1 : chunks;
+  v0 = sm.ld(at + uint32_t(c0) * (kChunk * 4));
+  v1 = sm.ld(at + uint32_t(c1) * (kChunk * 4));
+  return v0 > v1 ? v0 : v1;
+}
+
+// P16's carried state of one lane after its step's max v: acc += v; base
+// = (base + v + 129) % 16 W.
+template <bool kPow2>
+LZM_FN void refill_carry(uint32_t& acc, int32_t& base, int32_t v,
+                         int32_t mod) {
+  acc += uint32_t(v);
+  base = index_mod<kPow2>(
+      wrap(uint32_t(base) + uint32_t(v) + uint32_t(kBaseStep)), mod);
 }
 
 // Argument checks shared by the card's and the host's C interface.
@@ -170,26 +373,122 @@ LZM_FN bool bad_byte(int mode, int L, int iters) {
   return (mode != BYTE_SHIFT && mode != BYTE_SELECT) || L < 0 || iters < 0;
 }
 
+// One lane's column must fit a block's shared memory: R <= 58,112.
 LZM_FN bool bad_onehot(int reduce, int unroll, int R, int L, int iters) {
   return (reduce != REDUCE_SUM && reduce != REDUCE_MAX) ||
-         (unroll != 1 && unroll != 8) || R < 1 ||
+         (unroll != 1 && unroll != 8) || R < 1 || R > kMaxOnehotRows ||
          (reduce == REDUCE_MAX && R < 2) || L < 0 || iters < 0 ||
          iters % unroll;
 }
 
+// P10 reads rows 0-63 of any W >= 64; P16 stages a lane's column and a
+// chunk of zeros: W a multiple of 32, at most 58,080.
 LZM_FN bool bad_window(int mode, int W, int L, int iters) {
   if ((mode != WINDOW_CONCAT && mode != WINDOW_REFILL) || L < 0 ||
       iters < 0)
     return true;
   if (mode == WINDOW_CONCAT) return W < kWindowRows;
-  return W < kChunk || W % kChunk || W > (1 << 26);
+  return W < kChunk || W % kChunk || W > kMaxRefillRows;
 }
 
 }  // namespace lzm3
 
 #if defined(LZP_HOST_ENTRY) && !defined(__CUDACC__)
-// probes_mosaic3.cu's C interface as host loops over threads (tests
-// only). The stream argument is ignored.
+// probes_mosaic3.cu's C interface as host loops (tests only). The stream
+// argument is ignored.
+#include <vector>
+
+namespace lzm3 {
+
+// onehot_chain, block by block: every rank stages the block's slice, then
+// each of its lanes runs its chain.
+template <int kReduce, int kUnroll, bool kPow2>
+void host_onehot(const int32_t* x, int R, int L, int32_t* state,
+                 int iters) {
+  const int lb = onehot_lanes(R);
+  std::vector<int32_t> sm(size_t(R) * lb);
+  const Shared m{reinterpret_cast<uintptr_t>(sm.data())};
+  for (int b = 0; b * lb < L; ++b) {
+    const Slice s = block_slice(R, lb, L, b);
+    for (int t = 0; t < kThreads; ++t)
+      stage_minor(sm.data(), x, s, t, kThreads);
+    for (int f = 0; f < s.nl; ++f) {
+      uint32_t acc;
+      int32_t idx;
+      onehot_chain_lane<kReduce, kUnroll, kPow2>(
+          m, uint32_t(f) * 4, uint32_t(lb) * 4, R, iters, acc, idx);
+      state[s.lane0 + f] = wrap(acc);
+      state[size_t(L) + s.lane0 + f] = idx;
+    }
+  }
+}
+
+// P10, lane by lane: each rank's two rows, then each step's max over the
+// warp's ranks.
+inline void host_concat(const int32_t* x, int L, int32_t* state,
+                        int iters) {
+  for (int lane = 0; lane < L; ++lane) {
+    int32_t r0[kWarp], r1[kWarp];
+    for (int t = 0; t < kWarp; ++t)
+      concat_rows(x, size_t(L), lane, t, r0[t], r1[t]);
+    uint32_t acc = 0;
+    for (int i = 0; i < iters; ++i) {
+      int32_t v = INT32_MIN;
+      for (int t = 0; t < kWarp; ++t) {
+        const int32_t m = concat_rank(r0[t], r1[t], i);
+        v = m > v ? m : v;
+      }
+      acc += uint32_t(v);
+    }
+    state[lane] = wrap(acc);
+  }
+}
+
+// P16, block by block: every rank stages the block's columns, then each
+// of its lanes runs, a step's max over the warp's ranks; the scratch is
+// the ranks' last two words.
+template <bool kPow2>
+void host_refill(const int32_t* x, int W, int L, int32_t* state,
+                 int32_t* scratch, int iters) {
+  const int lb = window_lanes(WINDOW_REFILL, W), col = refill_column(W);
+  const int32_t chunks = W / kChunk, mod = 16 * W;
+  std::vector<int32_t> sm(size_t(window_bytes(WINDOW_REFILL, W)) / 4);
+  const Shared m{reinterpret_cast<uintptr_t>(sm.data())};
+  for (int b = 0; b * lb < L; ++b) {
+    const Slice s = block_slice(W, lb, L, b);
+    bool two = false;
+    for (int t = 0; t < kThreads; ++t)
+      two = stage_major_in(sm.data(), x, s, t, kThreads);
+    if (two)
+      for (int t = 0; t < kThreads; ++t)
+        stage_major_out(sm.data(), s, t, kThreads);
+    for (int f = 0; f < s.nl; ++f) {
+      const size_t lane = size_t(s.lane0 + f);
+      uint32_t acc = 0;
+      int32_t base = 0, v0[kWarp] = {}, v1[kWarp] = {};
+      for (int i = 0; i < iters; ++i) {
+        int32_t v = INT32_MIN;
+        for (int t = 0; t < kWarp; ++t) {
+          const int32_t mt = refill_rank(m, rank_at(f, t, lb, col),
+                                         base >> kBaseShift, chunks, v0[t],
+                                         v1[t]);
+          v = mt > v ? mt : v;
+        }
+        refill_carry<kPow2>(acc, base, v, mod);
+      }
+      state[lane] = wrap(acc);
+      state[size_t(L) + lane] = base;
+      if (scratch != nullptr)
+        for (int t = 0; t < kWarp; ++t) {
+          scratch[t * size_t(L) + lane] = v0[t];
+          scratch[(kChunk + t) * size_t(L) + lane] = v1[t];
+        }
+    }
+  }
+}
+
+}  // namespace lzm3
+
 extern "C" {
 
 // All lanes step together; the vote is over every lane (lzm3 comment).
@@ -227,34 +526,31 @@ int lzm3_byte_chain(int mode, const int32_t* v0, int L, int32_t* v,
 
 int lzm3_onehot_chain(int reduce, int unroll, const int32_t* x, int R, int L,
                       int32_t* state, int iters, void* /*stream*/) {
-  if (lzm3::bad_onehot(reduce, unroll, R, L, iters)) return lzm3::ERR_ARGS;
-  using lzm3::REDUCE_MAX;
-  using lzm3::REDUCE_SUM;
-  for (int l = 0; l < L; ++l) {
-    if (reduce == REDUCE_SUM && unroll == 1)
-      lzm3::onehot_chain_lane<REDUCE_SUM, 1>(x, R, L, l, state, iters);
-    else if (reduce == REDUCE_SUM)
-      lzm3::onehot_chain_lane<REDUCE_SUM, 8>(x, R, L, l, state, iters);
-    else if (unroll == 1)
-      lzm3::onehot_chain_lane<REDUCE_MAX, 1>(x, R, L, l, state, iters);
-    else
-      lzm3::onehot_chain_lane<REDUCE_MAX, 8>(x, R, L, l, state, iters);
-  }
+  using namespace lzm3;
+  if (bad_onehot(reduce, unroll, R, L, iters)) return ERR_ARGS;
+  using Fn = void (*)(const int32_t*, int, int, int32_t*, int);
+  // [reduce][unroll == 8][R a power of two]
+  static const Fn fns[2][2][2] = {
+      {{host_onehot<REDUCE_SUM, 1, false>, host_onehot<REDUCE_SUM, 1, true>},
+       {host_onehot<REDUCE_SUM, 8, false>, host_onehot<REDUCE_SUM, 8, true>}},
+      {{host_onehot<REDUCE_MAX, 1, false>, host_onehot<REDUCE_MAX, 1, true>},
+       {host_onehot<REDUCE_MAX, 8, false>,
+        host_onehot<REDUCE_MAX, 8, true>}}};
+  fns[reduce][unroll == 8][pow2(R)](x, R, L, state, iters);
   return 0;
 }
 
 int lzm3_window_chain(int mode, const int32_t* x, int W, int L,
                       int32_t* state, int32_t* scratch, int iters,
                       void* /*stream*/) {
-  if (lzm3::bad_window(mode, W, L, iters)) return lzm3::ERR_ARGS;
-  for (int l = 0; l < L; ++l) {
-    if (mode == lzm3::WINDOW_CONCAT)
-      lzm3::window_chain_lane<lzm3::WINDOW_CONCAT>(x, W, L, l, state,
-                                                   scratch, iters);
-    else
-      lzm3::window_chain_lane<lzm3::WINDOW_REFILL>(x, W, L, l, state,
-                                                   scratch, iters);
-  }
+  using namespace lzm3;
+  if (bad_window(mode, W, L, iters)) return ERR_ARGS;
+  if (mode == WINDOW_CONCAT)
+    host_concat(x, L, state, iters);
+  else if (pow2(W))
+    host_refill<true>(x, W, L, state, scratch, iters);
+  else
+    host_refill<false>(x, W, L, state, scratch, iters);
   return 0;
 }
 

@@ -29,24 +29,46 @@
 //     operations; P11a's shift by 8 (v & 3) and P11b's select of four
 //     constant shifts are written as the probe writes them, so the SASS
 //     shows whether nvcc makes them one code.
-//   - onehot_chain: one thread per lane walks a lane-minor [R, L] table by
-//     direct load (the one-hot read of the TPU is an indexed load here):
-//     each next address waits on the loaded value and a floor mod by R (an
-//     integer division). Latency-bound: the table's size picks the level
-//     of the cache that serves the load (R = 8 and 64 rows of 512 B: 4 and
-//     32 KiB, L1; 2,048 rows: 1 MiB, L2). kUnroll = 8 puts eight dependent
-//     reads in one loop pass (P13).
-//   - window_chain: one thread per lane takes a max over 64 rows of its
-//     column each step: P10 over rows 0-63 plus i (the loads do not depend
-//     on the step, so they stay in registers or L1 and the step is 64 adds
-//     and maxes), P16 over the two 32-row chunks that base // 128 picks
-//     (zeros past the table), each step's chunks waiting on the last max.
-// Each launcher checks its arguments, launches on `stream` and returns
-// cudaGetLastError() (0 = launched) or lzm3::ERR_ARGS.
+//   - onehot_chain and window_chain: the TPU probes hold the whole table
+//     in VMEM, the TPU core's on-chip memory (P16 also its two chunks in a
+//     (64, L) VMEM scratch); a Hopper block's shared memory plays VMEM's
+//     part. A block of kThreads = 256 threads stages its lanes' slice of
+//     the table by cp.async and meets at a barrier; lanes a block are a
+//     function of the table's rows (probe_mosaic3.cuh: lanes_per_block: a
+//     2,048-row table's 128 lanes are 16 blocks of 8 on 16 SMs for the
+//     one-hots, 32 blocks of 4 for P16). Each step's read waits on the
+//     value the step before it read: latency-bound, no load goes ahead
+//     across steps.
+//   - onehot_chain: the slice lane-minor ([R, lb], lb <= 32: the chain
+//     threads' loads lie in lb distinct banks whatever their rows), one
+//     thread of the first warp a lane; a step is a shared load, the clamp
+//     (max), the adds and idx's mod, an and where R is a power of two
+//     (every R the tools use), else the floor mod. kUnroll = 8 puts eight
+//     dependent reads in one loop pass (P13).
+//   - window_chain: a warp a lane, its step's max over 64 rows split over
+//     the warp's 32 ranks (two rows a rank) and reduced by
+//     __reduce_max_sync. P10 keeps its rows 0-63 in registers (the rows do
+//     not change between steps; nothing is staged); P16 holds each lane's
+//     whole column lane-major in shared memory with a chunk of zeros after
+//     it (every chunk is reachable: row0 < W / 8), staged lane-minor by
+//     16-byte cp.async and moved into the columns by the block, its rows
+//     XOR-swizzled so the moving stores and a chunk's 32 reads are
+//     conflict-free,
+//     and a rank reads its row of chunks row0 and row0 + 1 (clamped to
+//     the zeros past the table) with two independent loads; base's mod is
+//     an and where 16 W is a power of two. Its scratch is the ranks' last
+//     two words, written only where asked for (full=True).
+// Both start from the probes' zeros and write their state: a call is one
+// launch. Threads of lanes past L in the last block stage and meet the
+// barrier, then run no chain and store nothing.
+// Each launcher checks its arguments, opts its kernel in to the block's
+// dynamic shared memory (where it has any), launches on `stream` and
+// returns cudaGetLastError() (0 = launched) or lzm3::ERR_ARGS.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernel_attributes.cuh"
 #include "probe_mosaic3.cuh"
 
 namespace {
@@ -104,32 +126,153 @@ __global__ void __launch_bounds__(kBlock)
   v[lane] = lzm3::byte_chain_lane<kMode>(v0[lane], iters);
 }
 
-template <int kReduce, int kUnroll>
-__global__ void __launch_bounds__(kBlock)
-    onehot_chain_kernel(const int32_t* __restrict__ x, int R, int L,
-                        int32_t* __restrict__ state, int iters) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= L) return;
-  lzm3::onehot_chain_lane<kReduce, kUnroll>(x, R, L, lane, state, iters);
+// The block's shared memory as the chains read it: its shared-space
+// address, held in a register.
+__device__ __forceinline__ lzm3::Shared shared_of(const int32_t* sm) {
+  uint32_t at = static_cast<uint32_t>(__cvta_generic_to_shared(sm));
+  asm("" : "+r"(at));
+  return lzm3::Shared{at};
 }
 
-template <int kMode>
-__global__ void __launch_bounds__(kBlock)
-    window_chain_kernel(const int32_t* __restrict__ x, int W, int L,
-                        int32_t* __restrict__ state,
-                        int32_t* __restrict__ scratch, int iters) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= L) return;
-  lzm3::window_chain_lane<kMode>(x, W, L, lane, state, scratch, iters);
+template <int kReduce, int kUnroll, bool kPow2>
+__global__ void __launch_bounds__(lzm3::kThreads)
+    onehot_chain_kernel(const int32_t* __restrict__ x, int R, int L, int lb,
+                        int32_t* __restrict__ state, int iters) {
+  extern __shared__ uint4 smem[];
+  int32_t* const sm = reinterpret_cast<int32_t*>(smem);
+  const int tid = threadIdx.x;
+  const lzm3::Slice s = lzm3::block_slice(R, lb, L, blockIdx.x);
+  lzm3::stage_minor(sm, x, s, tid, lzm3::kThreads);
+  __syncthreads();
+  if (tid >= s.nl) return;
+  uint32_t acc;
+  int32_t idx;
+  lzm3::onehot_chain_lane<kReduce, kUnroll, kPow2>(
+      shared_of(sm), uint32_t(tid) * 4, uint32_t(lb) * 4, R, iters, acc, idx);
+  const int lane = s.lane0 + tid;
+  state[lane] = lzm::wrap(acc);
+  state[size_t(L) + lane] = idx;
+}
+
+// P10: warp f of the block runs lane 8 b + f; no staging, no barrier.
+__global__ void __launch_bounds__(lzm3::kThreads)
+    concat_kernel(const int32_t* __restrict__ x, int L,
+                  int32_t* __restrict__ state, int iters) {
+  const int t = threadIdx.x & 31;
+  const int lane = blockIdx.x * lzm3::kWindowLanes + (threadIdx.x >> 5);
+  if (lane >= L) return;  // the whole warp
+  int32_t r0, r1;
+  lzm3::concat_rows(x, size_t(L), lane, t, r0, r1);
+  uint32_t acc = 0;
+#pragma unroll 1
+  for (int i = 0; i < iters; ++i)
+    acc += uint32_t(
+        __reduce_max_sync(lzm3::kAll, lzm3::concat_rank(r0, r1, i)));
+  if (t == 0) state[lane] = lzm::wrap(acc);
+}
+
+// P16: warp f of the block runs lane f of its slice.
+template <bool kPow2>
+__global__ void __launch_bounds__(lzm3::kThreads)
+    refill_kernel(const int32_t* __restrict__ x, int W, int L, int lb,
+                  int32_t* __restrict__ state,
+                  int32_t* __restrict__ scratch, int iters) {
+  extern __shared__ uint4 smem[];
+  int32_t* const sm = reinterpret_cast<int32_t*>(smem);
+  const int tid = threadIdx.x, f = tid >> 5, t = tid & 31;
+  const lzm3::Slice s = lzm3::block_slice(W, lb, L, blockIdx.x);
+  if (lzm3::stage_major_in(sm, x, s, tid, lzm3::kThreads)) {
+    __syncthreads();
+    lzm3::stage_major_out(sm, s, tid, lzm3::kThreads);
+  }
+  __syncthreads();
+  if (f >= s.nl) return;  // the whole warp
+  const lzm3::Shared m = shared_of(sm);
+  const uint32_t at = lzm3::rank_at(f, t, lb, lzm3::refill_column(W));
+  const int32_t chunks = W / lzm3::kChunk, mod = 16 * W;
+  uint32_t acc = 0;
+  int32_t base = 0, v0 = 0, v1 = 0;  // no step: the scratch is zeros
+#pragma unroll 1
+  for (int i = 0; i < iters; ++i) {
+    const int32_t v = __reduce_max_sync(
+        lzm3::kAll, lzm3::refill_rank(m, at, base >> lzm3::kBaseShift, chunks,
+                                      v0, v1));
+    lzm3::refill_carry<kPow2>(acc, base, v, mod);
+  }
+  const size_t lane = size_t(s.lane0 + f), sL = size_t(L);
+  if (t == 0) {
+    state[lane] = lzm::wrap(acc);
+    state[sL + lane] = base;
+  }
+  if (scratch != nullptr) {
+    scratch[t * sL + lane] = v0;
+    scratch[(lzm3::kChunk + t) * sL + lane] = v1;
+  }
 }
 
 int blocks(int n) { return (n + kBlock - 1) / kBlock; }
 
-template <int kReduce, int kUnroll>
-void launch_onehot(const int32_t* x, int R, int L, int32_t* state, int iters,
-                   cudaStream_t s) {
-  onehot_chain_kernel<kReduce, kUnroll><<<blocks(L), kBlock, 0, s>>>(
-      x, R, L, state, iters);
+// The kernel of a onehot_chain or window_chain call, its lanes a block and
+// its dynamic shared memory a block.
+struct Kernel {
+  const void* fn;
+  int lb, smem;
+};
+
+Kernel onehot_kernel(int reduce, int unroll, int R) {
+  using lzm3::REDUCE_MAX;
+  using lzm3::REDUCE_SUM;
+  // [reduce][unroll == 8][R a power of two]
+  static const void* const fns[2][2][2] = {
+      {{(const void*)onehot_chain_kernel<REDUCE_SUM, 1, false>,
+        (const void*)onehot_chain_kernel<REDUCE_SUM, 1, true>},
+       {(const void*)onehot_chain_kernel<REDUCE_SUM, 8, false>,
+        (const void*)onehot_chain_kernel<REDUCE_SUM, 8, true>}},
+      {{(const void*)onehot_chain_kernel<REDUCE_MAX, 1, false>,
+        (const void*)onehot_chain_kernel<REDUCE_MAX, 1, true>},
+       {(const void*)onehot_chain_kernel<REDUCE_MAX, 8, false>,
+        (const void*)onehot_chain_kernel<REDUCE_MAX, 8, true>}}};
+  return {fns[reduce][unroll == 8][lzm3::pow2(R)], lzm3::onehot_lanes(R),
+          lzm3::onehot_bytes(R)};
+}
+
+Kernel window_kernel(int mode, int W) {
+  const void* fn =
+      mode == lzm3::WINDOW_CONCAT ? (const void*)concat_kernel
+      : lzm3::pow2(W)             ? (const void*)refill_kernel<true>
+                                  : (const void*)refill_kernel<false>;
+  return {fn, lzm3::window_lanes(mode, W), lzm3::window_bytes(mode, W)};
+}
+
+// The kernel's opt-in to its block's dynamic shared memory (above 48 KB;
+// set before every launch, as probes.cu does).
+cudaError_t opt_in(const Kernel& k) {
+  return k.smem == 0 ? cudaSuccess
+                     : cudaFuncSetAttribute(
+                           k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           k.smem);
+}
+
+int launch(const Kernel& k, int L, void** args, void* stream) {
+  if (L == 0) return static_cast<int>(cudaGetLastError());
+  cudaError_t e = opt_in(k);
+  if (e == cudaSuccess)
+    e = cudaLaunchKernel(k.fn, dim3(unsigned((L - 1) / k.lb + 1)),
+                         dim3(lzm3::kThreads), args, size_t(k.smem),
+                         static_cast<cudaStream_t>(stream));
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// out[0..3] as lzk::kernel_attributes gives them (after the opt-in),
+// out[4] threads a block, out[5] lanes a block, out[6] dynamic shared
+// memory a block.
+int attributes(const Kernel& k, int* out) {
+  const cudaError_t e = opt_in(k);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[4] = lzm3::kThreads;
+  out[5] = k.lb;
+  out[6] = k.smem;
+  return lzk::kernel_attributes(k.fn, out);
 }
 
 }  // namespace
@@ -171,41 +314,44 @@ int lzm3_byte_chain(int mode, const int32_t* v0, int L, int32_t* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x: [R, L] int32, not changed; state: [2, L] (acc, idx), the start in,
-// the end out.
+// x: [R, L] int32, not changed; state: [2, L] (acc, idx), written (the
+// chain starts from zeros). R <= 58,112 (one lane's column in a block).
 int lzm3_onehot_chain(int reduce, int unroll, const int32_t* x, int R, int L,
                       int32_t* state, int iters, void* stream) {
   if (lzm3::bad_onehot(reduce, unroll, R, L, iters)) return lzm3::ERR_ARGS;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (L > 0) {
-    if (reduce == lzm3::REDUCE_SUM && unroll == 1)
-      launch_onehot<lzm3::REDUCE_SUM, 1>(x, R, L, state, iters, s);
-    else if (reduce == lzm3::REDUCE_SUM)
-      launch_onehot<lzm3::REDUCE_SUM, 8>(x, R, L, state, iters, s);
-    else if (unroll == 1)
-      launch_onehot<lzm3::REDUCE_MAX, 1>(x, R, L, state, iters, s);
-    else
-      launch_onehot<lzm3::REDUCE_MAX, 8>(x, R, L, state, iters, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const Kernel k = onehot_kernel(reduce, unroll, R);
+  int lb = k.lb;
+  void* args[] = {&x, &R, &L, &lb, &state, &iters};
+  return launch(k, L, args, stream);
 }
 
-// x: [W, L] int32, not changed; state: [2, L] (acc, base), the start in,
-// the end out; scratch: [64, L] int32 or null (WINDOW_REFILL only).
+// x: [W, L] int32, not changed; state: written, [1, L] (acc: P10) or
+// [2, L] (acc, base: P16; the chain starts from zeros); scratch: [64, L]
+// int32 or null (P16 only), written. P16: W a multiple of 32, at most
+// 58,080 (one lane's column and a chunk of zeros in a block).
 int lzm3_window_chain(int mode, const int32_t* x, int W, int L,
                       int32_t* state, int32_t* scratch, int iters,
                       void* stream) {
   if (lzm3::bad_window(mode, W, L, iters)) return lzm3::ERR_ARGS;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (L > 0) {
-    if (mode == lzm3::WINDOW_CONCAT)
-      window_chain_kernel<lzm3::WINDOW_CONCAT><<<blocks(L), kBlock, 0, s>>>(
-          x, W, L, state, scratch, iters);
-    else
-      window_chain_kernel<lzm3::WINDOW_REFILL><<<blocks(L), kBlock, 0, s>>>(
-          x, W, L, state, scratch, iters);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const Kernel k = window_kernel(mode, W);
+  int lb = k.lb;
+  void* concat_args[] = {&x, &L, &state, &iters};
+  void* refill_args[] = {&x, &W, &L, &lb, &state, &scratch, &iters};
+  return launch(k, L, mode == lzm3::WINDOW_CONCAT ? concat_args : refill_args,
+                stream);
+}
+
+// The attributes of the kernel a call with these arguments launches (at
+// least one lane, one iteration): see attributes(). Returns 0, ERR_ARGS or
+// a CUDA error.
+int lzm3_onehot_attributes(int reduce, int unroll, int R, int* out) {
+  if (lzm3::bad_onehot(reduce, unroll, R, 1, unroll)) return lzm3::ERR_ARGS;
+  return attributes(onehot_kernel(reduce, unroll, R), out);
+}
+
+int lzm3_window_attributes(int mode, int W, int* out) {
+  if (lzm3::bad_window(mode, W, 1, 1)) return lzm3::ERR_ARGS;
+  return attributes(window_kernel(mode, W), out);
 }
 
 const char* lzm3_error_string(int code) {

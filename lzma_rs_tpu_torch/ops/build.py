@@ -15,8 +15,8 @@ library alone and an unchanged one loads at once. Eleven libraries:
 - ``mosaic``: the mosaic probe kernels (``probes_mosaic.cu`` +
   ``probe_mosaic.cuh`` + ``kernel_attributes.cuh``), :func:`load_mosaic`;
 - ``mosaic3``: the mosaic3 probe kernels (``probes_mosaic3.cu`` +
-  ``probe_mosaic3.cuh``, which includes ``probe_mosaic.cuh``),
-  :func:`load_mosaic3`;
+  ``probe_mosaic3.cuh``, which includes ``probe_mosaic.cuh``, +
+  ``kernel_attributes.cuh``), :func:`load_mosaic3`;
 - ``mosaic4``: the mosaic4 probe kernel (``probes_mosaic4.cu`` +
   ``probe_mosaic4.cuh`` + ``probe_mosaic.cuh`` +
   ``kernel_attributes.cuh``), :func:`load_mosaic4`;
@@ -80,7 +80,7 @@ PROBES = Library("probes", ("probes.cu", "probe_lane.cuh",
 MOSAIC = Library("mosaic", ("probes_mosaic.cu", "probe_mosaic.cuh",
                             "kernel_attributes.cuh"))
 MOSAIC3 = Library("mosaic3", ("probes_mosaic3.cu", "probe_mosaic3.cuh",
-                              "probe_mosaic.cuh"))
+                              "probe_mosaic.cuh", "kernel_attributes.cuh"))
 MOSAIC4 = Library("mosaic4", ("probes_mosaic4.cu", "probe_mosaic4.cuh",
                               "probe_mosaic.cuh", "kernel_attributes.cuh"))
 ROUND4 = Library("round4", ("probes_round4.cu", "probe_round4.cuh",
@@ -387,9 +387,16 @@ def bind_mosaic3(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=1)
 def load_mosaic3() -> ctypes.CDLL:
-    """Build (if needed) and bind the mosaic3 probe kernels; one handle per
-    process."""
-    return bind_mosaic3(ctypes.CDLL(build_library(MOSAIC3).path))
+    """Build (if needed) and bind the mosaic3 probe kernels (and the card
+    build's ``lzm3_onehot_attributes`` and ``lzm3_window_attributes``); one
+    handle per process."""
+    lib = bind_mosaic3(ctypes.CDLL(build_library(MOSAIC3).path))
+    ci, vp = ctypes.c_int, ctypes.c_void_p
+    lib.lzm3_onehot_attributes.restype = ci
+    lib.lzm3_onehot_attributes.argtypes = [ci, ci, ci, vp]
+    lib.lzm3_window_attributes.restype = ci
+    lib.lzm3_window_attributes.argtypes = [ci, ci, vp]
+    return lib
 
 
 def bind_mosaic4(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -1,8 +1,8 @@
-"""Mosaic3 probe kernels: four per-thread functions, asked on the card.
+"""Mosaic3 probe kernels: four functions, asked on the card.
 
 The port of the Pallas probes in ``tools/probe_mosaic3.py`` (twelve
-functions, four functions on a thread-per-lane card; the one-hot reads of
-the TPU probes are direct indexed loads here, with the same results):
+functions, four functions on the card; the one-hot reads of the TPU probes
+are direct indexed loads here, with the same results):
 
 - :func:`vote_chain` (``p7`` P7, ``p8`` P8, ``p9`` P9): ``node += i & 1``
   while any lane has ``node < 5``, the exit voted by the whole block (an
@@ -20,10 +20,14 @@ Each wrapper launches its hand-written kernel (``csrc/probes_mosaic3.cu``)
 on a CUDA tensor, or raises; on a CPU tensor it runs its plain PyTorch
 version (``*_reference``: direct indexing, every lane in lockstep).
 ``<wrapper>.launches`` counts kernel launches, ``<wrapper>.reference`` is
-the plain version. Inputs are not changed. ``full=True`` also returns a
-dict: the carried state (vote_chain: ``[2]``, the iterations run and the
-last vote; onehot_chain: ``[2, L]``, acc and idx; window_chain's P16:
-``[2, L]``, acc and base, and its final ``[64, L]`` scratch).
+the plain version. Inputs are not changed. onehot_chain and window_chain
+start from zeros, as the probes do, and a call is one launch: the kernel
+writes its state, which ``full=True`` returns (onehot_chain: ``[2, L]``,
+acc and idx; window_chain's P16: ``[2, L]``, acc and base, and its final
+``[64, L]`` scratch; vote_chain: ``[2]``, the iterations run and the last
+vote). Their kernels hold each block's lanes' table in shared memory, so
+one lane's column must fit a block's: ``R <= 58,112`` and, for P16, ``W
+<= 58,080`` (:data:`MAX_ONEHOT_ROWS`, :data:`MAX_REFILL_ROWS`).
 
 Integer semantics are the probes': wrapping int32, an arithmetic ``>>``,
 and an index is jnp's ``%`` of a wrapped int32 (the floor mod).
@@ -31,6 +35,7 @@ and an index is jnp's ``%`` of a wrapped int32 (the floor mod).
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -43,6 +48,8 @@ __all__ = [
     "VOTE_MODES", "BYTE_MODES", "REDUCES", "UNROLLS", "WINDOW_MODES",
     "WRAPPERS", "BYTE_OPS", "ONEHOT_OPS", "WINDOW_OPS", "vote_ops",
     "vote_iterations", "onehot_rows_read", "refill_rows_read",
+    "MAX_ONEHOT_ROWS", "MAX_REFILL_ROWS", "onehot_attributes",
+    "window_attributes",
     "vote_chain", "vote_chain_reference", "byte_chain",
     "byte_chain_reference", "onehot_chain", "onehot_chain_reference",
     "window_chain", "window_chain_reference",
@@ -59,6 +66,10 @@ WINDOW_ROWS = 64                        # P10's rows, P16's scratch
 CHUNK = 32                              # P16: rows per chunk
 BASE_ROW = 128                          # P16: row0 = base // 128
 BASE_STEP = 129                         # P16: base += v + 129
+# one lane's column in a block's 232,448 bytes of shared memory (P16's
+# with a chunk of zeros after it)
+MAX_ONEHOT_ROWS = 232448 // 4
+MAX_REFILL_ROWS = 232448 // 4 - CHUNK
 
 # Integer operations per thread and step, counted from the probes' code
 # (for the bound). byte_chain: shift v & 3, * 8, the shift, & 0xFF, + i,
@@ -273,9 +284,10 @@ def launch_byte_chain(lib, v0, *, mode: str, iters: int, full: bool = False):
 
 def launch_onehot_chain(lib, x, *, reduce: str, unroll: int = 1, iters: int,
                         full: bool = False):
-    """Run ``lib``'s ``lzm3_onehot_chain``."""
+    """Run ``lib``'s ``lzm3_onehot_chain``: one launch, which writes the
+    state."""
     t = x.contiguous()
-    state = torch.zeros((2, x.shape[1]), dtype=torch.int32, device=x.device)
+    state = torch.empty((2, x.shape[1]), dtype=torch.int32, device=x.device)
     rc = lib.lzm3_onehot_chain(REDUCES.index(reduce), unroll, t.data_ptr(),
                                t.shape[0], t.shape[1], state.data_ptr(),
                                iters, _stream(x))
@@ -286,11 +298,13 @@ def launch_onehot_chain(lib, x, *, reduce: str, unroll: int = 1, iters: int,
 
 def launch_window_chain(lib, x, *, mode: str, iters: int,
                         full: bool = False):
-    """Run ``lib``'s ``lzm3_window_chain``."""
+    """Run ``lib``'s ``lzm3_window_chain``: one launch, which writes the
+    state (P10: acc alone) and, where asked, P16's scratch."""
     t = x.contiguous()
     L = x.shape[1]
-    state = torch.zeros((2, L), dtype=torch.int32, device=x.device)
     refill = mode == "refill"
+    state = torch.empty((2 if refill else 1, L), dtype=torch.int32,
+                        device=x.device)
     scratch = (torch.empty((WINDOW_ROWS, L), dtype=torch.int32,
                            device=x.device) if full and refill else None)
     rc = lib.lzm3_window_chain(
@@ -302,6 +316,37 @@ def launch_window_chain(lib, x, *, mode: str, iters: int,
     if not full:
         return out
     return out, ({"scratch": scratch, "state": state} if refill else {})
+
+
+_ATTRIBUTES = ("registers", "local_bytes", "static_shared",
+               "max_dynamic_shared", "threads", "lanes", "shared_bytes")
+
+
+def _attributes(fn, what: str, *args) -> dict:
+    out = (ctypes.c_int * len(_ATTRIBUTES))()
+    lib = _cuda_lib()
+    _raise_on(lib, getattr(lib, fn)(*args, out), what)
+    return dict(zip(_ATTRIBUTES, out))
+
+
+def onehot_attributes(R: int, *, reduce: str, unroll: int = 1) -> dict:
+    """The card build's attributes of the kernel that :func:`onehot_chain`
+    launches on an ``[R, L]`` table: ``registers`` and ``local_bytes`` a
+    thread (spills), ``static_shared`` and ``max_dynamic_shared`` bytes
+    (``cudaFuncGetAttributes`` after the opt-in), ``threads`` and ``lanes``
+    a block and ``shared_bytes``, the dynamic shared memory of a block.
+    Needs the card."""
+    _check_mode("reduce", reduce, REDUCES)
+    _check_mode("unroll", unroll, UNROLLS)
+    return _attributes("lzm3_onehot_attributes", "onehot_attributes",
+                       REDUCES.index(reduce), unroll, R)
+
+
+def window_attributes(W: int, *, mode: str) -> dict:
+    """The same for :func:`window_chain`'s kernel on a ``[W, L]`` table."""
+    _check_mode("mode", mode, WINDOW_MODES)
+    return _attributes("lzm3_window_attributes", "window_attributes",
+                       WINDOW_MODES.index(mode), W)
 
 
 # -- wrappers ------------------------------------------------------------
@@ -350,8 +395,9 @@ def onehot_chain(x, *, reduce: str, unroll: int = 1, iters: int,
     int32), one lane per column: ``v = x[idx]`` (``"sum"``, P12s) or
     ``max(x[idx], 0)`` (``"max"``: the one-hot's zeros take part, R >= 2);
     ``acc += v; idx = (idx + v + 1) % R``, ``unroll`` reads per loop pass
-    (1, or 8 as P13; ``iters`` a multiple of it). The output is ``acc``
-    [1, L]; ``full`` adds ``state`` [2, L]: acc and idx."""
+    (1, or 8 as P13; ``iters`` a multiple of it). At most
+    :data:`MAX_ONEHOT_ROWS` rows. The output is ``acc`` [1, L]; ``full``
+    adds ``state`` [2, L]: acc and idx."""
     _check("x", x)
     _check_mode("reduce", reduce, REDUCES)
     _check_mode("unroll", unroll, UNROLLS)
@@ -362,6 +408,10 @@ def onehot_chain(x, *, reduce: str, unroll: int = 1, iters: int,
     if reduce == "max" and x.shape[0] < 2:
         raise ValueError(f"x {tuple(x.shape)}: a max over the one-hot wants "
                          "at least 2 rows")
+    if x.shape[0] > MAX_ONEHOT_ROWS:
+        raise ValueError(f"x {tuple(x.shape)}: at most {MAX_ONEHOT_ROWS} "
+                         "rows (one lane's column in a block's shared "
+                         "memory)")
     kw = {"reduce": reduce, "unroll": unroll, "iters": iters, "full": full}
     if x.device.type == "cpu":
         return onehot_chain_reference(x, **kw)
@@ -373,21 +423,23 @@ def onehot_chain(x, *, reduce: str, unroll: int = 1, iters: int,
 def window_chain(x, *, mode: str, iters: int, full: bool = False):
     """Over ``x`` ([W, L] int32), one lane per column. ``"concat"`` (P10,
     W >= 64): ``acc += max over r < 64 of (x[r] + i)``, the add wrapping per
-    element before the max. ``"refill"`` (P16, W a multiple of 32): ``row0
-    = base // 128``; ``v`` = the max over chunks ``row0`` and ``row0 + 1``
-    of 32 rows (zeros for a chunk past the table); ``acc += v; base =
-    (base + v + 129) % 16 W``; ``full`` adds the last step's ``scratch``
-    [64, L] and ``state`` [2, L]: acc and base. The output is ``acc``
-    [1, L]."""
+    element before the max. ``"refill"`` (P16, W a multiple of 32, at most
+    :data:`MAX_REFILL_ROWS`): ``row0 = base // 128``; ``v`` = the max over
+    chunks ``row0`` and ``row0 + 1`` of 32 rows (zeros for a chunk past the
+    table); ``acc += v; base = (base + v + 129) % 16 W``; ``full`` adds
+    the last step's ``scratch`` [64, L] and ``state`` [2, L]: acc and base.
+    The output is ``acc`` [1, L]."""
     _check("x", x)
     _check_mode("mode", mode, WINDOW_MODES)
     _check_int("iters", iters, 0)
     W = x.shape[0]
     if mode == "concat" and W < WINDOW_ROWS:
         raise ValueError(f"x {tuple(x.shape)}: want {WINDOW_ROWS} rows")
-    if mode == "refill" and (W % CHUNK or W > 2**26):
+    if mode == "refill" and (W % CHUNK or W > MAX_REFILL_ROWS):
         raise ValueError(f"x {tuple(x.shape)}: want a multiple of {CHUNK} "
-                         "rows, at most 2^26")
+                         f"rows, at most {MAX_REFILL_ROWS} (one lane's "
+                         "column and a chunk of zeros in a block's shared "
+                         "memory)")
     if x.device.type == "cpu":
         return window_chain_reference(x, mode=mode, iters=iters, full=full)
     res = launch_window_chain(_cuda_lib(), x, mode=mode, iters=iters,

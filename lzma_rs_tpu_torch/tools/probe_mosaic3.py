@@ -4,12 +4,15 @@ The port of the JAX package's ``tools/probe_mosaic3.py``, with its
 function names, input (``ones[W, L]``) and rows. On the TPU the probe
 looked for the construct behind a Mosaic relayout failure (a vector
 reduced to a scalar in a while loop's condition) and priced a few
-per-lane operations. On the card the questions are what a block-wide
-vote costs per iteration (P7-P9), whether a variable shift and a 4-way
-select are one code (P11a/b), what a dependent load costs by the size of
-the table it reads (P14: 4 KiB, P15: 32 KiB, P12: 1 MiB) and what an 8x
-unrolled chain saves (P13 against P12m), and what a max over 64 rows a
-step costs (P10, P16). The one-hot reads are direct indexed loads here.
+per-lane operations on a table held in VMEM, the core's on-chip memory.
+On the card the questions are what a block-wide vote costs per iteration
+(P7-P9), whether a variable shift and a 4-way select are one code
+(P11a/b), what a dependent one-hot read of an on-chip table costs (the
+block's shared memory plays VMEM's part) by sum or by max (P12s, P12m),
+unrolled 8x (P13) and at small heights (P14: 8 rows, P15: 64), and what
+a max over 64 rows a step costs, split over a warp a lane (P10 over
+fixed rows, P16 over two chunks its last max picks). The one-hot reads
+are direct indexed loads here.
 
 P7-P9 and P11 do not read ``x``: their row's input is the loop's start
 (``node0``, ``v0``: zeros, as the probe's), and their seeded input a start

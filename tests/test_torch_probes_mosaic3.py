@@ -14,11 +14,15 @@
   mid-loop, every lane already >= 5, one lane at -2^30, ``v0`` over the
   full int32 range).
 - A g++ build of ``csrc/probe_mosaic3.cuh`` (``-DLZP_HOST_ENTRY``, the C
-  interface of ``csrc/probes_mosaic3.cu`` as host loops) against the plain
-  versions, for every mode.
+  interface of ``csrc/probes_mosaic3.cu`` as host loops over blocks,
+  ranks and lanes) against the plain versions, for every mode, and for
+  the shared-memory kernels at the blocks' edges (1, 70 and 130 lanes,
+  tables of 8 to 20,000 rows, walks that straddle the table's end, drift
+  apart and wrap), with the column limits; a call is one launch.
 - The wrappers' checks, the tool's command line, the counts behind the
   bound, and (marked ``cuda``) each kernel against its plain version on
-  the card.
+  the card, the edge cases there, a call's one launch and the kernels'
+  attributes.
 
 JAX is imported only by the tests that run the Pallas probes, so the
 ``cuda`` tests run on a machine without it.
@@ -261,6 +265,9 @@ def test_host_build_window_chain(mode, host_lib):
 
 
 def test_host_build_refuses_bad_arguments(host_lib):
+    """Bad modes and counts, and a column that does not fit a block's
+    shared memory: R past 58,112 rows, P16's W past 58,080 (each limit
+    itself runs)."""
     x = torch.zeros((64, 4), dtype=torch.int32)
     with pytest.raises(RuntimeError, match="bad argument"):
         pm3.launch_onehot_chain(host_lib, x, reduce="max", unroll=8,
@@ -270,6 +277,158 @@ def test_host_build_refuses_bad_arguments(host_lib):
                               mode="any", iters=1)
     with pytest.raises(RuntimeError, match="bad argument"):
         pm3.launch_window_chain(host_lib, x[:40], mode="refill", iters=1)
+    assert pm3.MAX_ONEHOT_ROWS == 58_112 and pm3.MAX_REFILL_ROWS == 58_080
+    for reduce in pm3.REDUCES:
+        tall = ints((pm3.MAX_ONEHOT_ROWS + 1, 1), 45, (-5, 9))
+        with pytest.raises(RuntimeError, match="bad argument"):
+            pm3.launch_onehot_chain(host_lib, tall, reduce=reduce, iters=8)
+        kw = {"reduce": reduce, "iters": 8, "full": True}
+        assert_same(pm3.launch_onehot_chain(host_lib, tall[:-1], **kw),
+                    pm3.onehot_chain_reference(tall[:-1], **kw))
+    tall = ints((pm3.MAX_REFILL_ROWS + pm3.CHUNK, 1), 46, (0, 5000))
+    with pytest.raises(RuntimeError, match="bad argument"):
+        pm3.launch_window_chain(host_lib, tall, mode="refill", iters=8)
+    kw = {"mode": "refill", "iters": 8, "full": True}
+    assert_same(pm3.launch_window_chain(host_lib, tall[:-pm3.CHUNK], **kw),
+                pm3.window_chain_reference(tall[:-pm3.CHUNK], **kw))
+
+
+# Edge tables of the shared-memory kernels: "climb" (small values, so
+# P16's base climbs through every chunk to the table's end and the lanes
+# drift apart), "wide" (the full int32 range) and "edge" (within 1,024 of
+# +-2^31: idx + v + 1, x + i and base + v + 129 wrap).
+EDGE_TABLES = {"climb": (-3, 50), "wide": INT32, "edge": NEAR_LIMIT}
+# R: powers of two and not, from a block of 32 lanes (R = 8, 100) down to
+# 4 (4,096, 3,000) and 1 (20,000)
+ONEHOT_ROWS = (8, 100, 2048, 3000, 4096, 20_000)
+# W: P10 reads rows 0-63 of any W >= 64; P16 takes multiples of 32
+# (powers of two and not; 8 lanes a block at 64 and 96 rows, 4 at 2,048,
+# 2 at 4,096, where it stages word by word)
+WINDOW_ROWS_OF = {"concat": (64, 100, 2048), "refill": (64, 96, 2048, 4096)}
+# one lane, part-filled last blocks of 8 and 32 lanes (staged word by
+# word), and 136 lanes: whole blocks of 4 and 8 staged in 16-byte chunks
+EDGE_LANES = (1, 70, 130, 136)
+
+
+def edge_cases(kernel):
+    """(table kind, x, iterations) of every edge case of ``kernel``: each
+    table kind, row count and lane count, at 0 and 64 iterations."""
+    rows = (ONEHOT_ROWS if kernel == "onehot" else
+            WINDOW_ROWS_OF[kernel])
+    for i, (kind, lo_hi) in enumerate(EDGE_TABLES.items()):
+        for j, R in enumerate(rows):
+            for lanes in EDGE_LANES:
+                x = ints((R, lanes), 100 * i + 10 * j + lanes, lo_hi)
+                for iters in (0, 64):
+                    yield kind, x, iters
+
+
+def launches_of(kernel):
+    """(launch, plain, mode kwargs) of ``kernel``'s rows."""
+    if kernel == "onehot":
+        return [(pm3.launch_onehot_chain, pm3.onehot_chain_reference,
+                 {"reduce": r, "unroll": u})
+                for r in pm3.REDUCES for u in pm3.UNROLLS]
+    return [(pm3.launch_window_chain, pm3.window_chain_reference,
+             {"mode": kernel})]
+
+
+def check_edges(lib, kernel, device):
+    for _, x, iters in edge_cases(kernel):
+        x = x.to(device)
+        for launch, plain, mode in launches_of(kernel):
+            kw = {**mode, "iters": iters}
+            want = plain(x, full=True, **kw)
+            got = launch(lib, x, full=True, **kw)
+            out = launch(lib, x, **kw)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            assert_same(got, want)
+            assert torch.equal(out, want[0])
+
+
+@pytest.mark.parametrize("kernel", ("onehot", "concat", "refill"))
+def test_host_build_block_edges(kernel, host_lib):
+    """The per-rank code (the staging, P16's and P10's ranks and their
+    max) at 1, 70, 130 and 136 lanes (part-filled last blocks; whole
+    blocks staged in 16-byte chunks), full=True and
+    full=False, 0 and 64 iterations, row counts that are and are not
+    powers of two, blocks of 32 lanes down to 1, on tables whose walks
+    straddle the table's end, drift apart and wrap (the names of
+    EDGE_TABLES hold: test_the_edge_tables_walk_as_named)."""
+    check_edges(host_lib, kernel, torch.device("cpu"))
+
+
+def refill_walk(x, iters: int):
+    """P16's walk over ``x`` by the plain version's arithmetic: each step's
+    row0 ([iters, L]) and whether any base + v + 129 left int32."""
+    W, L = x.shape
+    base = torch.zeros(L, dtype=torch.int64)
+    rows, wrapped = [], False
+    for _ in range(iters):
+        row0 = base // pm3.BASE_ROW
+        rows.append(row0)
+        s = base + pm3._chunks(x, row0).max(dim=0).values.long() + \
+            pm3.BASE_STEP
+        wrapped |= bool(((s >= 2**31) | (s < -2**31)).any())
+        base = torch.remainder(pm3._wrap(s), 16 * W)
+    return torch.stack(rows), wrapped
+
+
+def test_the_edge_tables_walk_as_named():
+    """"climb": P16's walk reaches a step with one chunk in the table and
+    one past it (row0 = W / 32 - 1), and lanes of one block in different
+    chunks at one step; "edge": base + v + 129 wraps, P10's x + i wraps
+    before the max, and the one-hot's idx + v + 1 wraps (by sum)."""
+    for kind, x, iters in edge_cases("refill"):
+        if iters == 0 or x.shape[1] == 1:
+            continue
+        rows, wrapped = refill_walk(x, iters)
+        if kind == "climb":
+            # lanes 0-3: one block at every W here
+            assert any(len(set(r[:4].tolist())) > 1 for r in rows)
+            if x.shape[0] <= 2048:  # 64 steps reach the end
+                assert bool((rows == x.shape[0] // pm3.CHUNK - 1).any())
+        assert wrapped == (kind == "edge")
+    for kind, x, _ in edge_cases("concat"):
+        if kind == "edge":  # x + i wraps within 64 steps
+            assert int(x[:pm3.WINDOW_ROWS].max()) + 63 >= 2**31
+    wraps = []
+    for kind, x, iters in edge_cases("onehot"):
+        if kind == "edge" and iters:  # idx + v + 1 wraps
+            lanes, idx = torch.arange(x.shape[1]), torch.zeros(
+                x.shape[1], dtype=torch.int64)
+            for _ in range(iters):
+                s = idx + x[idx, lanes].long() + 1
+                wraps.append(bool((s >= 2**31).any()))
+                idx = torch.remainder(pm3._wrap(s), x.shape[0])
+    assert any(wraps)
+
+
+def test_a_call_is_one_launch(host_lib):
+    """A call makes no copy of its input and no zeroed state before the
+    kernel: outputs are ``torch.empty`` and the table goes in as it is,
+    so on the card the kernel's launch is the call's only one."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    x = ints((2048, 130), 47, (-3, 50))
+    for kernel in ("onehot", "concat", "refill"):
+        for launch, _, mode in launches_of(kernel):
+            for full in (False, True):
+                with Ops() as ops:
+                    launch(host_lib, x, iters=64, full=full, **mode)
+                assert ops.seen and all(
+                    op.startswith("empty") or op in ("slice", "view")
+                    for op in ops.seen), (kernel, ops.seen)
 
 
 # -- the wrappers and the tool -------------------------------------------
@@ -317,6 +476,12 @@ BAD = {
                                                  iters=1),
     "refill rows": lambda x, n: pm3.window_chain(x[:40], mode="refill",
                                                  iters=1),
+    "onehot rows limit": lambda x, n: pm3.onehot_chain(
+        torch.zeros((pm3.MAX_ONEHOT_ROWS + 1, 1), dtype=torch.int32),
+        reduce="sum", iters=1),
+    "refill rows limit": lambda x, n: pm3.window_chain(
+        torch.zeros((pm3.MAX_REFILL_ROWS + pm3.CHUNK, 1), dtype=torch.int32),
+        mode="refill", iters=1),
 }
 
 
@@ -398,3 +563,70 @@ def test_kernel_equals_plain_version_on_card(kernel, cuda_device):
             assert_same(got, fn.plain(*xs, full=True, **kw))
             runs += 1
     assert runs and wrapper.launches == before + runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ("onehot", "concat", "refill"))
+def test_kernel_block_edges_on_card(kernel, cuda_device):
+    """The host build's edge cases on the card (test_host_build_block_edges):
+    1, 70, 130 and 136 lanes, full=True and full=False, 0 and 64 iterations,
+    row counts that are and are not powers of two, blocks of 32 lanes
+    down to 1, walks that straddle the table's end, drift apart and
+    wrap."""
+    check_edges(pm3._cuda_lib(), kernel, cuda_device)
+
+
+@pytest.mark.cuda
+def test_a_call_is_one_launch_on_card(cuda_device):
+    """On the card a wrapper call dispatches no PyTorch op but its outputs'
+    ``torch.empty`` (and views), and counts one launch."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    x = ints((2048, 130), 47, (-3, 50)).to(cuda_device)
+    calls = [(pm3.onehot_chain, {"reduce": r, "unroll": u})
+             for r in pm3.REDUCES for u in pm3.UNROLLS]
+    calls += [(pm3.window_chain, {"mode": m}) for m in pm3.WINDOW_MODES]
+    for wrapper, kw in calls:
+        for full in (False, True):
+            before = wrapper.launches
+            with Ops() as ops:
+                wrapper(x, iters=64, full=full, **kw)
+            torch.cuda.synchronize()
+            assert wrapper.launches == before + 1
+            assert ops.seen and all(
+                op.startswith("empty") or op in ("slice", "view")
+                for op in ops.seen), (kw, ops.seen)
+
+
+@pytest.mark.cuda
+def test_kernel_attributes_on_card(cuda_device):
+    """Lanes a block from the table's rows (32 for R = 8 and 100, down to 1
+    at 20,000; P16 8 down to 2 at W = 4,096; P10 8), 256 threads, the
+    block's shared memory, and no spills."""
+    for reduce in pm3.REDUCES:
+        for unroll in pm3.UNROLLS:
+            attrs = [pm3.onehot_attributes(R, reduce=reduce, unroll=unroll)
+                     for R in ONEHOT_ROWS]
+            assert [a["lanes"] for a in attrs] == [32, 32, 8, 4, 4, 1]
+            for R, a in zip(ONEHOT_ROWS, attrs):
+                assert (a["shared_bytes"], a["threads"], a["local_bytes"]) \
+                    == (4 * R * a["lanes"], 256, 0)
+    for W, lb in ((64, 8), (96, 8), (2048, 4), (4096, 2)):
+        a = pm3.window_attributes(W, mode="refill")
+        # the columns and, for lb a multiple of 4, the slice as it lands
+        words = (W + pm3.CHUNK) * lb + (W * lb if lb % 4 == 0 else 0)
+        assert (a["lanes"], a["shared_bytes"], a["local_bytes"]) == (
+            lb, 4 * words, 0)
+    a = pm3.window_attributes(2048, mode="concat")
+    assert (a["lanes"], a["shared_bytes"], a["local_bytes"]) == (8, 0, 0)
+    assert pm3.onehot_attributes(pm3.MAX_ONEHOT_ROWS, reduce="sum")[
+        "shared_bytes"] == 232448
