@@ -77,7 +77,13 @@ the port's native host library into
    memory) with their threads a row, threads a block, blocks, SMs,
    registers and spills (none allowed), and D's library call on its main
    row (D [128, 2048]: ``clone`` and ``scatter_add_``, the index built
-   outside, held equal to the kernel's output; ``library_ms``);
+   outside, held equal to the kernel's output; ``library_ms``); each
+   row_chain row's kernel (lanes and threads a block, blocks, SMs,
+   registers, spills, none allowed, shared memory a block), and P1's
+   library call (``clamp`` and ``sum`` over the rows the walk visits,
+   held equal to the kernel's output; beside P1's kernel time under the
+   kernel line's ``library_of``: no PyTorch call computes P6, the main
+   row, so its ``library_ms`` is null);
 9. the mosaic3 probe kernels (``csrc/probes_mosaic3.cu``): the 12 rows of
    ``lzma_rs_tpu_torch/tools/probe_mosaic3.py`` on the tool's input and
    on a seeded one (tables over the full int32 range; P7-P9 from a start
@@ -86,9 +92,10 @@ the port's native host library into
    and 0 (per iteration run: from the tool's zeros P7-P9 leave after 10
    at both counts, and have no slope); each row's kernel against its
    plain version on both inputs, bit for bit (output, carried state,
-   P16's scratch); the kernel of each one-hot and window row (P10,
-   P12s-P16) with its lanes and threads a block, blocks, SMs, registers,
-   spills (none allowed) and shared memory a block; and whether nvcc made
+   P16's scratch); the kernel of each vote, one-hot and window row (P7-P9
+   one warp for all lanes, P10, P12s-P16) with its lanes and threads a
+   block, blocks, SMs, registers, spills (none allowed) and shared memory
+   a block; and whether nvcc made
    one SASS of P11a's variable shift and P11b's select
    (``cuobjdump -sass``);
 10. the mosaic4 probe kernel (``csrc/probes_mosaic4.cu``): the 7 rows of
@@ -174,7 +181,8 @@ the port's native host library into
     each archive's route and the model's device and native ms, held to
     the bytes, to ``stats.engine`` and to the JAX router's record, beside
     the measured ms of ``engine="cuda"`` and ``engine="native"`` (best of
-    3 after a warm call); where those differ by more than 2x, the route
+    3 after a warm call, the two in alternating turns, so the host's load
+    falls on both alike); where those differ by more than 2x, the route
     must be the faster engine. Phase 4's ``auto`` check runs before it,
     with no calibration file: the port's defaults route there;
 17. multi-process decode: two ranks (``chip_smoke.py --multihost-rank``,
@@ -492,8 +500,8 @@ def block_lines(phase: str, kernels: dict, lanes: int, entries: list,
 
 
 def mosaic3_attributes(dev) -> dict:
-    """The attributes of the kernel each onehot_chain and window_chain row
-    of the mosaic3 tool launches, by row."""
+    """The attributes of the kernel each vote_chain, onehot_chain and
+    window_chain row of the mosaic3 tool launches, by row."""
     from lzma_rs_tpu_torch.ops import probes_mosaic3 as pm3
     from lzma_rs_tpu_torch.tools import probe_mosaic3
 
@@ -505,6 +513,8 @@ def mosaic3_attributes(dev) -> dict:
             out[name] = pm3.onehot_attributes(rows, **fn.kwargs)
         elif fn.wrapper is pm3.window_chain:
             out[name] = pm3.window_attributes(rows, **fn.kwargs)
+        elif fn.wrapper is pm3.vote_chain:
+            out[name] = pm3.vote_attributes(rows, **fn.kwargs)
     return out
 
 
@@ -811,6 +821,45 @@ def rw_lines(torch, dev, by: dict, entries: list, peaks) -> None:
     kernel_ms = by[probe_mosaic.LIBRARY_ROW, "tool"]["ms"]
     say("8 probes", f"rw_chain [{probe_mosaic.LIBRARY_ROW}], the library "
         f"call (clone and scatter_add_, the index built outside): "
+        f"{lib['ms'] * 1e3:.1f} us against the kernel's "
+        f"{kernel_ms * 1e3:.1f} us")
+
+
+def row_lines(torch, dev, by: dict, entries: list, peaks) -> None:
+    """Phase 8's lines for row_chain: each row's kernel (lanes and threads
+    a block, blocks, SMs, registers, spills, shared memory;
+    ``probes_mosaic.row_attributes``; a spill fails), and P1's library call
+    (``x[:iters].clamp(min=0).sum(0, dtype=torch.int32)``,
+    ``tools/probe_mosaic2.py::library_row``), held equal to the kernel's
+    output. The kernel line's ``library_ms`` stays null (its times are the
+    main row's, P6, which no PyTorch call computes); P1's kernel and
+    library times go under ``library_of``."""
+    from lzma_rs_tpu_torch.ops import probes_mosaic as pm
+    from lzma_rs_tpu_torch.tools import probe_mosaic2
+
+    attrs = {}
+    for name, make in probe_mosaic2.ROWS_OF_TOOL:
+        fn, args, _ = make("cpu")
+        if fn.wrapper is pm.row_chain:
+            mode, W = fn.kwargs["mode"], args[0].shape[0]
+            attrs[name] = pm.row_attributes(mode, W)
+            if mode == "clamp_write":
+                y = pm.row_copy_blocks(mode, W, fn.iters)
+                say("8 probes", f"{name}: {y} blocks a lane group at "
+                    f"{fn.iters} iterations (the first sums, each copies "
+                    f"its range of the unvisited rows), {y} x the lane "
+                    "groups' blocks in all")
+    block_lines("8", attrs, probe_mosaic2.L, entries, "row_chain", peaks)
+    lib = probe_mosaic2.library_row(dev)
+    check(lib["equal"], "phase 8: clamp and sum differ from row_chain on "
+          "P1")
+    kernel_ms = by[probe_mosaic2.LIBRARY_ROW, "tool"]["ms"]
+    for e in entries:
+        if e["name"] == "row_chain":
+            e["library_of"] = {"row": lib["name"], "ms": kernel_ms,
+                               "library_ms": lib["ms"]}
+    say("8 probes", f"row_chain [{probe_mosaic2.LIBRARY_ROW}], the library "
+        f"call (clamp and sum of the rows the walk visits): "
         f"{lib['ms'] * 1e3:.1f} us against the kernel's "
         f"{kernel_ms * 1e3:.1f} us")
 
@@ -1233,8 +1282,8 @@ def router_phase(torch, dev, corpus: bytes, archives: dict, runtime,
 def route_rung(dev, what: str, x: bytes, want: bytes, runtime, stats,
                package) -> None:
     """One archive of phase 16's ladder: its route under ``auto`` and the
-    model's two times, against both engines' best of 3 after a warm
-    call."""
+    model's two times, against both engines' best of 3 after a warm call,
+    the engines measured in alternating turns."""
     plans = runtime.plan_xz(x)[0]
     cfg = runtime.choose_config(plans)
     device_s, native_s = runtime._estimate_engine_seconds(
@@ -1252,16 +1301,21 @@ def route_rung(dev, what: str, x: bytes, want: bytes, runtime, stats,
               f"phase 16 ({what}): fallbacks {routed}")
     else:
         check(routed == [], f"phase 16 ({what}): fallbacks {routed}")
-    measured = {}
-    for engine in ("cuda", "native"):
+    engines = ("native", "cuda")
+    for engine in engines:  # each engine's warm call, checked
         with stats.collect() as st:
             out = runtime.xz_decode(x, engine=engine)
         check(out == want and st.engine == ran_on[engine]
               and st.fallbacks == [],
               f"phase 16 ({what}): engine {engine} gave engine "
               f"{st.engine!r}, fallbacks {st.fallbacks}")
-        measured[engine] = best_seconds(
-            lambda: runtime.xz_decode(x, engine=engine)) * 1e3
+    # best of 3 each, in turns (native, cuda, native, ...), so that the
+    # host's load falls on both engines alike
+    measured = dict.fromkeys(engines, float("inf"))
+    for _ in range(3):
+        for engine in engines:
+            measured[engine] = min(measured[engine], best_seconds(
+                lambda: runtime.xz_decode(x, engine=engine), reps=1) * 1e3)
     faster = min(measured, key=measured.get)
     ratio = max(measured.values()) / min(measured.values())
     if ratio > 2:
@@ -2342,6 +2396,7 @@ def main() -> None:
     segments_lines(by, entries, peaks)
     gather_lines(torch, dev, by, entries, peaks)
     rw_lines(torch, dev, by, entries, peaks)
+    row_lines(torch, dev, by, entries, peaks)
     probe_entries += entries
 
     # -- 9. the mosaic3 probe kernels --------------------------------
@@ -2353,7 +2408,7 @@ def main() -> None:
         "lzma_rs_tpu_torch/csrc/probes_mosaic3.cu", MOSAIC3_REPLACES,
         MOSAIC3_MAIN_ROW)[0]
     block_lines("9", mosaic3_attributes(dev), probe_mosaic3.L, entries,
-                ("onehot_chain", "window_chain"), peaks)
+                ("vote_chain", "onehot_chain", "window_chain"), peaks)
     probe_entries += entries
     say("9 probes", "byte_chain (P11a shift, P11b select): "
         + byte_sass_text(build.build_library(build.MOSAIC3).path))

@@ -8,8 +8,9 @@
 // interface of probes_mosaic.cu as host loops over threads (gather_sum:
 // over each output's ranks, their partial sums added in rank order; D:
 // over each row's 32 ranks in turn; p5: over blocks, warps and their 32
-// ranks, with the same staging, step and combine code), so the logic is
-// checked on the CPU against the plain PyTorch versions
+// ranks, with the same staging, step and combine code; row_chain: p6's
+// staging then its lanes, p1-p3's ranks then their block's sum), so the
+// logic is checked on the CPU against the plain PyTorch versions
 // (ops/probes_mosaic.py).
 //
 // Integer semantics are the probes': wrapping int32 (and uint8 for the
@@ -25,13 +26,7 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#if defined(__CUDACC__)
-#define LZM_FN __host__ __device__ inline
-#define LZM_UNROLL(n) _Pragma(#n)
-#else
-#define LZM_FN inline
-#define LZM_UNROLL(n)
-#endif
+#include "probe_stage.cuh"  // LZM_FN, LZM_UNROLL; P6's staging
 
 namespace lzm {
 
@@ -59,6 +54,15 @@ LZM_FN int32_t wrap(uint32_t v) { return static_cast<int32_t>(v); }
 LZM_FN int32_t floor_mod(int32_t a, int32_t m) {
   const int32_t r = a % m;
   return r < 0 ? r + m : r;
+}
+
+LZM_FN bool pow2(int32_t m) { return m > 0 && (m & (m - 1)) == 0; }
+
+// jnp's s % m of a wrapped int32 s (m > 0): an and where m is a power of
+// two (kPow2), else the floor mod, an integer division.
+template <bool kPow2>
+LZM_FN int32_t index_mod(int32_t s, int32_t m) {
+  return kPow2 ? s & (m - 1) : floor_mod(s, m);
 }
 
 // walk(start, stride, i, mod) below names the i-th index of a walk from
@@ -342,36 +346,205 @@ LZM_FN int32_t rw_scalar(int32_t* x, int cols, int iters, int32_t v0 = 0) {
   return wrap(carry);
 }
 
-// p1/p2, p3, p6 on a lane-minor table x ([W, L]), one lane: a carried idx
-// (floor-reduced into [0, W) at the start; the probes start at 0) and acc.
-// state: [2, L], acc then idx, the start in, the end out.
+// row_chain: p1/p2, p3, p6 on a lane-minor table x ([W, L]), each lane
+// from the probes' idx = acc = 0; state: [2, L], acc then idx, written.
 //   ROW_CLAMP:       v = max(x[idx], 0); acc += v; idx = (idx + 1) % W
-//   ROW_CLAMP_WRITE: the same, and x[idx] = v + 1 where v is odd
+//   ROW_CLAMP_WRITE: the same, and x[idx] = v + 1 where v is odd (into the
+//                    output table: x is not changed)
 //   ROW_BYTE:        word = x[idx >> 2]; byte = word >> 8 (idx & 3) & 0xFF;
 //                    acc += byte; idx = (idx + byte + 1) % W
-template <int kMode>
-LZM_FN void row_chain_lane(int32_t* x, int W, int L, int lane,
-                           int32_t* state, int iters) {
-  uint32_t acc = uint32_t(state[lane]);
-  int32_t idx = floor_mod(state[size_t(L) + lane], W);
-  LZM_UNROLL(unroll 1)
+//
+// p6 (ROW_BYTE): each load's row waits on the byte before it, so a lane's
+// steps stay one serial chain, a thread a lane. idx < W, so the walk
+// reaches rows [0, byte_rows(W)) only: a block of kRowThreads stages that
+// quarter of its lanes' columns into shared memory (probe_stage.cuh:
+// stage_minor, lane-minor, 16-byte cp.async), meets once at a barrier,
+// and its first threads run the chains there. A step is a dependent
+// ld.shared through a base in a register, the shift, the and, acc's add,
+// idx + byte + 1 and the mod (an and where W is a power of two, else the
+// floor mod); idx + byte + 1 < W + 256 does not wrap, since a lane's
+// rows must fit a block's shared memory (W <= kByteMaxW). Lanes a block:
+// kByteLanes (16: 8, 16 and 32 took the same time within 0.2 us on the
+// H100), halved while the slice exceeds lzs::kSliceBytes (byte_lanes).
+//
+// p1-p3: the probes start at idx = 0, so step i reads row i % W: the
+// addresses do not depend on the data. A block of kRowThreads takes
+// kRowLanes lanes (a row's 8 lanes fill a 32-byte sector), thread t rank
+// t / kRowLanes of kRowRanks of lane t % kRowLanes. Rank r owns rows r,
+// r + kRowRanks, ... of the rows [0, min(W, iters)) the walk visits, and
+// walks each owned row's visits i = j, j + W, ... < iters in step order
+// (row_rank), so p3's write and its later reads of a row stay in one
+// thread, in registers; the split is by row, not by step, and p3 stays
+// exact when iters > W. The ranks' partial sums meet by shuffles inside a
+// warp, then through shared memory (a wrapping add: the order is free);
+// idx ends at iters % W. p3 writes its table into the output: each owned
+// visited row after its visits, and the unvisited rows [min(W, iters), W)
+// copied in ranges of about kCopyRows rows, one a block of the lane
+// group's copy_blocks (the grid's y; block 0 also sums: a 1 MiB table on
+// 16 blocks took 3.7 us more than p1 on the H100), by row_copy: 16-byte
+// chunks where the group is whole and aligned, else word by word.
+constexpr int kRowThreads = 256;
+constexpr int kRowLanes = 8;
+constexpr int kRowRanks = kRowThreads / kRowLanes;  // 32
+constexpr int kRowWarps = kRowThreads / 32;
+constexpr int kByteLanes = 16;
+constexpr int kByteMaxRows = kMaxShared / 4;        // 58,112
+constexpr int kByteMaxW = 4 * kByteMaxRows;         // 232,448
+constexpr int kCopyRun = 8;                         // chunks in flight
+constexpr int kCopyRows = 256;                      // p3: rows a copy block
+constexpr int kMaxCopyBlocks = 65535;               // the grid's y at most
+static_assert(32 % kRowLanes == 0 && kRowLanes % 4 == 0,
+              "whole groups in a warp, whole chunks in a row");
+
+// The rows p6's walk can reach, and its lanes a block.
+LZM_FN int byte_rows(int W) { return (W + 3) / 4; }
+LZM_FN int byte_lanes(int W) {
+  return lzs::lanes_per_block(byte_rows(W), kByteLanes);
+}
+
+// p6, one lane: its column's rows [0, byte_rows(W)) in shared memory from
+// byte `col`, rows `sb` bytes apart.
+template <bool kPow2>
+LZM_FN void byte_chain_lane(const lzs::Shared& sm, uint32_t col, uint32_t sb,
+                            int32_t W, int iters, uint32_t& acc_out,
+                            int32_t& idx_out) {
+  uint32_t acc = 0;
+  int32_t idx = 0;
+  LZM_UNROLL(unroll 4)
   for (int i = 0; i < iters; ++i) {
-    if (kMode == ROW_BYTE) {
-      const int32_t word = x[size_t(idx >> 2) * L + lane];
-      const int32_t byte = (word >> ((idx & 3) * 8)) & 0xFF;
-      acc += uint32_t(byte);
-      idx = floor_mod(wrap(uint32_t(idx) + uint32_t(byte) + 1u), W);
-    } else {
-      int32_t* p = x + size_t(idx) * L + lane;
-      const int32_t w = *p;
-      const int32_t v = w > 0 ? w : 0;
-      if (kMode == ROW_CLAMP_WRITE && (v & 1)) *p = wrap(uint32_t(v) + 1u);
-      acc += uint32_t(v);
-      idx = floor_mod(idx + 1, W);
+    const int32_t word = sm.ld(col + uint32_t(idx >> 2) * sb);
+    const int32_t byte = (word >> ((idx & 3) * 8)) & 0xFF;
+    acc += uint32_t(byte);
+    idx = index_mod<kPow2>(idx + byte + 1, W);
+  }
+  acc_out = acc;
+  idx_out = idx;
+}
+
+// p1-p3: `visits` visits of one row whose word is w: v = max(w, 0) added
+// each time; p3 writes v + 1 back where v is odd. Returns their sum.
+template <int kMode>
+LZM_FN uint32_t row_visits(int32_t& w, int visits) {
+  uint32_t acc = 0;
+  LZM_UNROLL(unroll 1)
+  for (int k = 0; k < visits; ++k) {
+    const int32_t v = w > 0 ? w : 0;
+    if (kMode == ROW_CLAMP_WRITE && (v & 1)) w = wrap(uint32_t(v) + 1u);
+    acc += uint32_t(v);
+  }
+  return acc;
+}
+
+// p1-p3, rank r of lane `lane`: its rows' visits, in step order; p3 also
+// stores each of its visited rows into `table`. Returns its partial sum.
+template <int kMode>
+LZM_FN uint32_t row_rank(const int32_t* __restrict__ x,
+                         int32_t* __restrict__ table, int W, int L, int lane,
+                         int r, int iters) {
+  const int V = iters < W ? iters : W;
+  uint32_t acc = 0;
+  LZM_UNROLL(unroll 4)
+  for (int j = r; j < V; j += kRowRanks) {
+    const size_t at = size_t(j) * L + lane;
+    int32_t w = x[at];
+    // visits i = j, j + W, ... < iters
+    acc += row_visits<kMode>(
+        w, int((uint32_t(iters) - 1u - uint32_t(j)) / uint32_t(W)) + 1);
+    if (kMode == ROW_CLAMP_WRITE) table[at] = w;
+  }
+  return acc;
+}
+
+// 16 bytes of the table: one 128-bit load or store on the card.
+struct alignas(16) Chunk {
+  int32_t w[4];
+};
+
+LZM_FN Chunk load_chunk(const int32_t* p) {
+#if defined(__CUDA_ARCH__)
+  const int4 v = __ldg(reinterpret_cast<const int4*>(p));
+  return {{v.x, v.y, v.z, v.w}};
+#else
+  Chunk c;
+  memcpy(&c, p, sizeof c);
+  return c;
+#endif
+}
+
+LZM_FN void store_chunk(int32_t* p, const Chunk& c) {
+#if defined(__CUDA_ARCH__)
+  *reinterpret_cast<int4*>(p) = make_int4(c.w[0], c.w[1], c.w[2], c.w[3]);
+#else
+  memcpy(p, &c, sizeof c);
+#endif
+}
+
+// p3's blocks a lane group: the unvisited rows [min(W, iters), W) in
+// ranges of about kCopyRows; 1 for p1, p2.
+LZM_FN int copy_blocks(int mode, int W, int iters) {
+  if (mode != ROW_CLAMP_WRITE) return 1;
+  const int n = W - (iters < W ? iters : W);
+  const int b = n / kCopyRows + (n % kCopyRows != 0);
+  return b < 1 ? 1 : b > kMaxCopyBlocks ? kMaxCopyBlocks : b;
+}
+
+// Block y of `blocks`' range [r0, r1) of p3's unvisited rows.
+LZM_FN void copy_range(int W, int iters, int y, int blocks, int& r0,
+                       int& r1) {
+  const int V = iters < W ? iters : W, n = W - V;
+  const long long per = n / blocks + (n % blocks != 0);
+  r0 = V + int(per * y < n ? per * y : n);
+  r1 = V + int(per * (y + 1) < n ? per * (y + 1) : n);
+}
+
+// p3, rank `tid` of the block's kRowThreads: its share of rows [V, E) of
+// the block's lanes (nl of kRowLanes from lane0), from x into table. In
+// 16-byte chunks, kCopyRun loaded before any is stored, where the group
+// is whole and its rows 16-byte aligned; else word by word.
+LZM_FN void row_copy(const int32_t* __restrict__ x,
+                     int32_t* __restrict__ table, int L, int lane0, int nl,
+                     int V, int E, int tid) {
+  constexpr int nt = kRowThreads, per = kRowLanes / 4;
+  const int32_t* const from = x + lane0;
+  int32_t* const to = table + lane0;
+  const size_t sL = size_t(L);
+  if (nl == kRowLanes && L % 4 == 0 &&
+      reinterpret_cast<uintptr_t>(from) % lzs::kCopy == 0 &&
+      reinterpret_cast<uintptr_t>(to) % lzs::kCopy == 0) {
+    const int n = (E - V) * per;
+    auto at = [&](int i) { return size_t(V + i / per) * sL + (i % per) * 4; };
+    int i = tid;
+    LZM_UNROLL(unroll 1)
+    for (; i + (kCopyRun - 1) * nt < n; i += kCopyRun * nt) {
+      Chunk c[kCopyRun];
+      LZM_UNROLL(unroll)
+      for (int e = 0; e < kCopyRun; ++e)
+        c[e] = load_chunk(from + at(i + e * nt));
+      LZM_UNROLL(unroll)
+      for (int e = 0; e < kCopyRun; ++e)
+        store_chunk(to + at(i + e * nt), c[e]);
+    }
+    LZM_UNROLL(unroll 1)
+    for (; i < n; i += nt) store_chunk(to + at(i), load_chunk(from + at(i)));
+  } else {
+    const int n = (E - V) * kRowLanes;
+    LZM_UNROLL(unroll 1)
+    for (int i = tid; i < n; i += nt) {
+      const int f = i % kRowLanes;
+      const size_t a = size_t(V + i / kRowLanes) * sL + f;
+      if (f < nl) to[a] = from[a];
     }
   }
-  state[lane] = wrap(acc);
-  state[size_t(L) + lane] = idx;
+}
+
+// row_chain's launch: out[0] lanes a block (p6: byte_lanes(W); p1-p3:
+// kRowLanes), out[1] threads a block, out[2] dynamic shared memory a
+// block (p6's slice; p1-p3 none).
+LZM_FN void row_launch(int mode, int W, int* out) {
+  const bool byte = mode == ROW_BYTE;
+  out[0] = byte ? byte_lanes(W) : kRowLanes;
+  out[1] = kRowThreads;
+  out[2] = byte ? out[0] * byte_rows(W) * 4 : 0;
 }
 
 // p4 on a lane-minor table x ([W, L]), one lane; state: [2, L], the acc
@@ -556,8 +729,10 @@ LZM_FN void rw_launch(int mode, int rows, int* out) {
   out[2] = gather_blocks(kGatherWarp, rows);
 }
 
+// p6's rows must fit a block's shared memory (W <= kByteMaxW).
 LZM_FN bool bad_row(int mode, int W, int L, int iters) {
-  return mode < ROW_CLAMP || mode > ROW_BYTE || W < 2 || L < 0 || iters < 0;
+  return mode < ROW_CLAMP || mode > ROW_BYTE || W < 2 || L < 0 ||
+         iters < 0 || (mode == ROW_BYTE && W > kByteMaxW);
 }
 
 // p5's column must fit a block's shared memory (kSegMaxRows).
@@ -592,6 +767,61 @@ void host_gather(const T* x, int x_cols, const int32_t* start, int stride,
             mod, count);
     }
     out[e] = static_cast<T>(acc);
+  }
+}
+
+// row_chain as the card runs it, block by block. p6: every rank stages
+// the block's slice, then each of its lanes runs its chain. p1-p3: each
+// thread's owned rows; a warp's ranks summed into its part (the card's
+// shuffles), p3's copy of the unvisited rows block by block, then the
+// parts summed.
+template <bool kPow2>
+void host_byte(const int32_t* x, int W, int L, int32_t* state, int iters) {
+  using namespace lzm;
+  const int rows = byte_rows(W), lb = byte_lanes(W);
+  std::vector<int32_t> sm(size_t(rows) * lb);
+  const lzs::Shared m{reinterpret_cast<uintptr_t>(sm.data())};
+  for (int b = 0; b * lb < L; ++b) {
+    const lzs::Slice s = lzs::block_slice(rows, lb, L, b);
+    for (int t = 0; t < kRowThreads; ++t)
+      lzs::stage_minor(sm.data(), x, s, t, kRowThreads);
+    for (int f = 0; f < s.nl; ++f) {
+      uint32_t acc;
+      int32_t idx;
+      byte_chain_lane<kPow2>(m, uint32_t(f) * 4, uint32_t(lb) * 4, W, iters,
+                             acc, idx);
+      state[s.lane0 + f] = wrap(acc);
+      state[size_t(L) + s.lane0 + f] = idx;
+    }
+  }
+}
+
+template <int kMode>
+void host_rows(const int32_t* x, int W, int L, int32_t* state,
+               int32_t* table, int iters) {
+  using namespace lzm;
+  for (int lane0 = 0; lane0 < L; lane0 += kRowLanes) {
+    const int nl = std::min(kRowLanes, L - lane0);
+    uint32_t part[kRowWarps][kRowLanes] = {};
+    for (int t = 0; t < kRowThreads; ++t) {
+      const int f = t % kRowLanes;
+      if (f < nl)
+        part[t / 32][f] += row_rank<kMode>(x, table, W, L, lane0 + f,
+                                           t / kRowLanes, iters);
+    }
+    const int blocks = copy_blocks(kMode, W, iters);
+    for (int y = 0; kMode == ROW_CLAMP_WRITE && y < blocks; ++y) {
+      int r0, r1;
+      copy_range(W, iters, y, blocks, r0, r1);
+      for (int t = 0; t < kRowThreads; ++t)
+        row_copy(x, table, L, lane0, nl, r0, r1, t);
+    }
+    for (int f = 0; f < nl; ++f) {
+      uint32_t acc = 0;
+      for (int w = 0; w < kRowWarps; ++w) acc += part[w][f];
+      state[lane0 + f] = wrap(acc);
+      state[size_t(L) + lane0 + f] = iters % W;
+    }
   }
 }
 
@@ -686,18 +916,38 @@ int lzm_scalar_walk(int32_t v0, int cols, int32_t* js, int n) {
   return 0;
 }
 
-int lzm_row_chain(int mode, int32_t* x, int W, int L, int32_t* state,
-                  int iters, void* /*stream*/) {
-  if (lzm::bad_row(mode, W, L, iters)) return lzm::ERR_ARGS;
-  for (int l = 0; l < L; ++l) {
-    if (mode == lzm::ROW_CLAMP)
-      lzm::row_chain_lane<lzm::ROW_CLAMP>(x, W, L, l, state, iters);
-    else if (mode == lzm::ROW_CLAMP_WRITE)
-      lzm::row_chain_lane<lzm::ROW_CLAMP_WRITE>(x, W, L, l, state, iters);
+// x: [W, L], not changed; table: [W, L], p3's output (else null); state:
+// [2, L], written.
+int lzm_row_chain(int mode, const int32_t* x, int W, int L, int32_t* state,
+                  int32_t* table, int iters, void* /*stream*/) {
+  using namespace lzm;
+  if (bad_row(mode, W, L, iters) ||
+      (mode == ROW_CLAMP_WRITE) != (table != nullptr))
+    return ERR_ARGS;
+  if (mode == ROW_BYTE) {
+    if (pow2(W))
+      host_byte<true>(x, W, L, state, iters);
     else
-      lzm::row_chain_lane<lzm::ROW_BYTE>(x, W, L, l, state, iters);
+      host_byte<false>(x, W, L, state, iters);
+  } else if (mode == ROW_CLAMP) {
+    host_rows<ROW_CLAMP>(x, W, L, state, table, iters);
+  } else {
+    host_rows<ROW_CLAMP_WRITE>(x, W, L, state, table, iters);
   }
   return 0;
+}
+
+int lzm_row_launch(int mode, int W, int* out) {
+  if (lzm::bad_row(mode, W, 1, 0)) return lzm::ERR_ARGS;
+  lzm::row_launch(mode, W, out);
+  return 0;
+}
+
+int lzm_row_max_w() { return lzm::kByteMaxW; }
+
+int lzm_row_copy_blocks(int mode, int W, int iters) {
+  if (lzm::bad_row(mode, W, 1, iters)) return lzm::ERR_ARGS;
+  return lzm::copy_blocks(mode, W, iters);
 }
 
 // p5 as host loops over blocks (lanes), warps and their 32 ranks: each

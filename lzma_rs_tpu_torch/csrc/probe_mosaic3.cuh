@@ -7,11 +7,12 @@
 // host by g++ (-x c++ -DLZP_HOST_ENTRY), which then also defines the C
 // interface of probes_mosaic3.cu as host loops, so the logic is checked on
 // the CPU against the plain PyTorch versions (ops/probes_mosaic3.py). The
-// loops run in an order the card's barriers allow: vote_chain steps every
-// lane one iteration at a time and votes over all (the card's block
-// votes); onehot_chain and window_chain stage each block's slice by all
-// its ranks before any lane runs, and a window step takes the max of the
-// warp's 32 ranks (the card's __reduce_max_sync) before the lane goes on.
+// loops run in the card's order: vote_chain steps each of the warp's 32
+// threads' slots one iteration, then ORs a thread's slots and votes over
+// the 32 (the card's warp vote); onehot_chain and window_chain stage each
+// block's slice by all its ranks (probe_stage.cuh) before any lane runs,
+// and a window step takes the max of the warp's 32 ranks (the card's
+// __reduce_max_sync) before the lane goes on.
 //
 // Integer semantics are the probes': wrapping int32 (every add that can
 // wrap is done in uint32_t and converted back), an arithmetic >> of int32,
@@ -22,18 +23,26 @@
 #define LZMA_RS_TPU_TORCH_PROBE_MOSAIC3_CUH_
 
 #include "probe_mosaic.cuh"
-
-#if !defined(__CUDA_ARCH__)
-#include <string.h>
-#endif
+#include "probe_stage.cuh"
 
 namespace lzm3 {
 
 using lzm::floor_mod;
+using lzm::index_mod;
+using lzm::pow2;
 using lzm::wrap;
+using lzs::block_slice;
+using lzs::chunked;
+using lzs::copies_landed;
+using lzs::copy_word;
+using lzs::lanes_per_block;
+using lzs::log2_of;
+using lzs::Shared;
+using lzs::Slice;
+using lzs::stage_minor;
 
 constexpr int kBlock = 128;        // byte_chain's threads a block
-constexpr int kMaxLanes = 1024;    // vote_chain: all lanes in one block
+constexpr int kMaxLanes = 1024;    // vote_chain: all lanes in one warp
 constexpr int kVoteBelow = 5;      // P7-P9: run while a lane is below 5
 constexpr int kWindowRows = 64;    // P10's rows; P16's scratch rows
 constexpr int kChunk = 32;         // P16: rows per chunk
@@ -46,18 +55,16 @@ constexpr int ERR_ARGS = -1;       // a bad argument: nothing was launched
 // stage; window_chain runs a warp a lane (kWindowLanes lanes a block at
 // most), onehot_chain a thread a lane of the first warp (kOnehotLanes at
 // most). A block's lanes: the most, halved while their slice of the table
-// exceeds kSliceBytes (so onehot_chain's 128 lanes of a 2,048-row table
-// are 16 blocks on 16 SMs), at least one. One lane's column must fit the
+// exceeds lzs::kSliceBytes (so onehot_chain's 128 lanes of a 2,048-row
+// table are 16 blocks on 16 SMs), at least one. One lane's column must fit the
 // block's shared memory: at most kMaxOnehotRows rows, and kMaxRefillRows
 // for P16, whose column has a chunk of zeros after it.
 constexpr int kWarp = 32;
 constexpr int kThreads = 256;
 constexpr int kWindowLanes = kThreads / kWarp;  // 8
 constexpr int kOnehotLanes = kWarp;             // 32
-constexpr int kSliceBytes = 65536;
 constexpr int kMaxOnehotRows = lzm::kMaxShared / 4;             // 58,112
 constexpr int kMaxRefillRows = lzm::kMaxShared / 4 - kChunk;    // 58,080
-constexpr int kCopy = 16;          // bytes a staging copy in whole chunks
 constexpr uint32_t kAll = 0xFFFFFFFFu;  // a warp's threads
 
 enum { VOTE_ANY = 0, VOTE_MAX = 1, VOTE_FLAG = 2 };  // P7, P8, P9
@@ -65,9 +72,93 @@ enum { BYTE_SHIFT = 0, BYTE_SELECT = 1 };            // P11a, P11b
 enum { REDUCE_SUM = 0, REDUCE_MAX = 1 };             // P12s; P12m-P15
 enum { WINDOW_CONCAT = 0, WINDOW_REFILL = 1 };       // P10, P16
 
-// P7-P9's body: node += i & 1.
-LZM_FN int32_t vote_step(int32_t node, int i) {
-  return wrap(uint32_t(node) + uint32_t(i & 1));
+// vote_chain holds all L lanes in one warp: thread t keeps K of them in
+// registers, lanes t, t + 32, ..., t + 32 (K - 1) (so node0's loads
+// coalesce), K = ceil(L / 32) rounded up to a power of two (1 to 32), a
+// template parameter: with a run-time count the slots' dynamic indexing
+// would put them in local memory. A slot past L holds kVoteBelow, which
+// node += i & 1 keeps at or above 5 (fewer than 2^31 iterations add at
+// most 2^30), so it never votes.
+LZM_FN int vote_slots(int L) {
+  int k = 1;
+  while (kWarp * k < L) k <<= 1;
+  return k;
+}
+
+template <int K>
+LZM_FN void vote_load(const int32_t* node0, int L, int t, int32_t* node) {
+  LZM_UNROLL(unroll)
+  for (int k = 0; k < K; ++k) {
+    const int l = t + kWarp * k;
+    node[k] = l < L ? node0[l] : kVoteBelow;
+  }
+}
+
+template <int K>
+LZM_FN void vote_store(const int32_t* node, int L, int t, int32_t* out) {
+  LZM_UNROLL(unroll)
+  for (int k = 0; k < K; ++k)
+    if (t + kWarp * k < L) out[t + kWarp * k] = node[k];
+}
+
+// P7-P9's body on each of a thread's slots: node += add (body j's add is
+// j & 1, the probe's node += i & 1).
+template <int K>
+LZM_FN void vote_body(int32_t* node, uint32_t add) {
+  LZM_UNROLL(unroll)
+  for (int k = 0; k < K; ++k) node[k] = wrap(uint32_t(node[k]) + add);
+}
+
+// The min of N slots from v, a tree of log2 N steps: its halves' mins,
+// every index a constant once inlined, so the slots stay in registers (a
+// loop form of the tree left a 128-byte stack frame at 32 slots).
+template <int N>
+struct MinTree {
+  static LZM_FN int32_t of(const int32_t* v) {
+    const int32_t a = MinTree<N / 2>::of(v), b = MinTree<N / 2>::of(v + N / 2);
+    return b < a ? b : a;
+  }
+};
+
+template <>
+struct MinTree<1> {
+  static LZM_FN int32_t of(const int32_t* v) { return v[0]; }
+};
+
+// Whether one of the thread's slots is below 5 (the warp then votes on
+// it): their min below 5, the same test as the OR of each slot's, in a
+// shorter chain.
+template <int K>
+LZM_FN int vote_below(const int32_t* node) {
+  return MinTree<K>::of(node) < kVoteBelow;
+}
+
+#if defined(__CUDACC__)
+#define LZM3_WARP_FN __device__ inline
+#else
+#define LZM3_WARP_FN inline
+#endif
+
+// P7-P9's loop (kMode), at most `iters` iterations, over a warp `w`:
+// w.vote() is the warp's vote that one of its slots is below 5 (on the
+// card the thread's test and __any_sync, or __reduce_max_sync, a max over
+// 0/1 flags being an any; on the host every thread's test, then their
+// max), w.step(add) the body on every slot. Every iteration votes, then
+// takes its exit test on that vote, then runs the body (P9: the body,
+// then the vote), as the probe's while_loop does: no vote runs ahead of
+// its iteration. Returns the iterations run, `w` holding node after them;
+// `flag` is the last vote.
+template <int kMode, int K, class Warp>
+LZM3_WARP_FN int vote_loop(Warp& w, int iters, int& flag) {
+  int i = 0;
+  flag = 1;
+  for (;;) {
+    if (kMode != VOTE_FLAG) flag = w.vote();
+    if (!flag || i >= iters) return i;
+    w.step(uint32_t(i) & 1u);
+    ++i;
+    if (kMode == VOTE_FLAG) flag = w.vote();
+  }
 }
 
 // P11a (a variable per-lane shift) and P11b (a 4-way select of constant
@@ -94,23 +185,6 @@ LZM_FN int32_t byte_chain_lane(int32_t v, int iters) {
   return v;
 }
 
-LZM_FN bool pow2(int32_t m) { return m > 0 && (m & (m - 1)) == 0; }
-
-// jnp's s % m of a wrapped int32 s (m > 0): an and where m is a power of
-// two (kPow2), else the floor mod, an integer division.
-template <bool kPow2>
-LZM_FN int32_t index_mod(int32_t s, int32_t m) {
-  return kPow2 ? s & (m - 1) : floor_mod(s, m);
-}
-
-// The lanes a block of a table of `rows` rows holds (see kSliceBytes).
-LZM_FN int lanes_per_block(int rows, int most) {
-  int lb = most;
-  while (lb > 1 && size_t(lb) * size_t(rows) * 4 > size_t(kSliceBytes))
-    lb >>= 1;
-  return lb;
-}
-
 LZM_FN int onehot_lanes(int R) { return lanes_per_block(R, kOnehotLanes); }
 // P16's slice lands twice (lane-minor, then in columns: stage_major_in),
 // so its lanes are those of a table of 2 W rows: 4 at 2,048 rows, 32
@@ -133,109 +207,7 @@ LZM_FN int window_bytes(int mode, int W) {
   return (refill_column(W) * lb + (lb % 4 == 0 ? W * lb : 0)) * 4;
 }
 
-// The block's shared memory as the chains reach it: byte offsets from its
-// base. On the card the base is a shared-space address held in a register
-// and the loads are ld.shared (as C loads through the extern array,
-// ptxas rebuilt the array's address in every step of mosaic4's chain);
-// volatile and after the staging's barrier. On the host, a pointer.
-struct Shared {
-  uintptr_t base;  // the card: a shared-space address; the host: a pointer
-#if defined(__CUDA_ARCH__)
-  LZM_FN int32_t ld(uint32_t off) const {
-    int32_t v;
-    asm volatile("ld.shared.b32 %0, [%1];"
-                 : "=r"(v)
-                 : "r"(uint32_t(base) + off)
-                 : "memory");
-    return v;
-  }
-#else
-  LZM_FN int32_t ld(uint32_t off) const {
-    return *reinterpret_cast<const int32_t*>(base + off);
-  }
-#endif
-};
-
-// -- staging: a block's lanes' table into shared memory ------------------
-
-// A block's lanes: nl of lb columns from lane0, of a table of L lanes.
-struct Slice {
-  int rows, lb, L, lane0, nl;
-};
-
-LZM_FN Slice block_slice(int rows, int lb, int L, int b) {
-  const int lane0 = b * lb;
-  return {rows, lb, L, lane0, L - lane0 < lb ? L - lane0 : lb};
-}
-
-// One word (4 bytes) or chunk (16) from the table into shared memory:
-// cp.async on the card (the rank waits for its own in copies_landed()), a
-// copy on the host.
-LZM_FN void copy_word(int32_t* dst, const int32_t* src) {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-#else
-  *dst = *src;
-#endif
-}
-
-LZM_FN void copy_chunk(int32_t* dst, const int32_t* src) {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-#else
-  memcpy(dst, src, kCopy);
-#endif
-}
-
-LZM_FN void copies_landed() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-#endif
-}
-
-LZM_FN int log2_of(int v) {
-  int k = 0;
-  while ((1 << k) < v) ++k;
-  return k;
-}
-
-// Whether the block's rows move in 16-byte chunks: a full block of whole
-// chunks (lb a multiple of 4) at 16-byte aligned addresses.
-LZM_FN bool chunked(const int32_t* from, const Slice& s) {
-  return s.nl == s.lb && s.lb % 4 == 0 && s.L % 4 == 0 &&
-         reinterpret_cast<uintptr_t>(from) % kCopy == 0;
-}
-
-// Rank `tid` of `nt` copies its share of onehot_chain's slice into sm,
-// lane-minor ([rows, lb]: row r of lane f at word r lb + f, so the chain
-// threads' one word each lies in lb distinct banks): in 16-byte chunks,
-// neighbouring ranks on neighbouring chunks of a row, where chunked();
-// else word by word. Lanes past nl are not copied (nothing reads them).
-// The block then meets at a barrier.
-LZM_FN void stage_minor(int32_t* sm, const int32_t* x, const Slice& s,
-                        int tid, int nt) {
-  const int32_t* const from = x + s.lane0;
-  if (chunked(from, s)) {
-    const int per_row = s.lb / 4, sh = log2_of(per_row);
-    for (int i = tid; i < s.rows * per_row; i += nt) {
-      const int r = i >> sh, c = i & (per_row - 1);
-      copy_chunk(sm + r * s.lb + c * 4, from + size_t(r) * s.L + c * 4);
-    }
-  } else {
-    const int sh = log2_of(s.lb);
-    for (int i = tid; i < s.rows * s.lb; i += nt) {
-      const int r = i >> sh, f = i & (s.lb - 1);
-      if (f < s.nl) copy_word(sm + i, from + size_t(r) * s.L + f);
-    }
-  }
-  copies_landed();
-}
+// -- staging: a block's lanes' table into shared memory (probe_stage.cuh)
 
 // P16's column layout: lane f's rows are refill_column(W) words from
 // word f refill_column(W), row r at word r ^ swizzle(f, lb) of them (the
@@ -400,6 +372,34 @@ LZM_FN bool bad_window(int mode, int W, int L, int iters) {
 
 namespace lzm3 {
 
+// vote_chain's warp on the host: its 32 threads' slots.
+template <int K>
+struct HostVote {
+  int32_t node[kWarp][K];
+  int vote() const {
+    int v = 0;
+    for (int t = 0; t < kWarp; ++t) {
+      const int b = vote_below<K>(node[t]);
+      v = b > v ? b : v;
+    }
+    return v;
+  }
+  void step(uint32_t add) {
+    for (int t = 0; t < kWarp; ++t) vote_body<K>(node[t], add);
+  }
+};
+
+template <int kMode, int K>
+void host_vote(const int32_t* node0, int L, int32_t* node, int32_t* state,
+               int iters) {
+  HostVote<K> w;
+  for (int t = 0; t < kWarp; ++t) vote_load<K>(node0, L, t, w.node[t]);
+  int flag;
+  state[0] = vote_loop<kMode, K>(w, iters, flag);
+  state[1] = flag;
+  for (int t = 0; t < kWarp; ++t) vote_store<K>(w.node[t], L, t, node);
+}
+
 // onehot_chain, block by block: every rank stages the block's slice, then
 // each of its lanes runs its chain.
 template <int kReduce, int kUnroll, bool kPow2>
@@ -491,27 +491,31 @@ void host_refill(const int32_t* x, int W, int L, int32_t* state,
 
 extern "C" {
 
-// All lanes step together; the vote is over every lane (lzm3 comment).
+// One warp's 32 threads, each with its K slots; a vote takes each
+// thread's test of its slots, then their max.
 int lzm3_vote_chain(int mode, const int32_t* node0, int L, int32_t* node,
                     int32_t* state, int iters, void* /*stream*/) {
-  if (lzm3::bad_vote(mode, L, iters)) return lzm3::ERR_ARGS;
-  auto below = [&]() {
-    int any = 0;
-    for (int l = 0; l < L; ++l) any |= node[l] < lzm3::kVoteBelow;
-    return any;
-  };
-  for (int l = 0; l < L; ++l) node[l] = node0[l];
-  int i = 0, flag = 1;
-  for (;;) {
-    if (mode != lzm3::VOTE_FLAG) flag = below();
-    if (!flag || i >= iters) break;
-    for (int l = 0; l < L; ++l) node[l] = lzm3::vote_step(node[l], i);
-    ++i;
-    if (mode == lzm3::VOTE_FLAG) flag = below();
-  }
-  state[0] = i;
-  state[1] = flag;
+  using namespace lzm3;
+  if (bad_vote(mode, L, iters)) return ERR_ARGS;
+  using Fn = void (*)(const int32_t*, int, int32_t*, int32_t*, int);
+  // [mode][log2 of the slots]
+  static const Fn fns[3][6] = {
+      {host_vote<VOTE_ANY, 1>, host_vote<VOTE_ANY, 2>,
+       host_vote<VOTE_ANY, 4>, host_vote<VOTE_ANY, 8>,
+       host_vote<VOTE_ANY, 16>, host_vote<VOTE_ANY, 32>},
+      {host_vote<VOTE_MAX, 1>, host_vote<VOTE_MAX, 2>,
+       host_vote<VOTE_MAX, 4>, host_vote<VOTE_MAX, 8>,
+       host_vote<VOTE_MAX, 16>, host_vote<VOTE_MAX, 32>},
+      {host_vote<VOTE_FLAG, 1>, host_vote<VOTE_FLAG, 2>,
+       host_vote<VOTE_FLAG, 4>, host_vote<VOTE_FLAG, 8>,
+       host_vote<VOTE_FLAG, 16>, host_vote<VOTE_FLAG, 32>}};
+  fns[mode][log2_of(vote_slots(L))](node0, L, node, state, iters);
   return 0;
+}
+
+int lzm3_vote_slots(int L) {
+  return lzm3::bad_vote(lzm3::VOTE_ANY, L, 0) ? lzm3::ERR_ARGS
+                                              : lzm3::vote_slots(L);
 }
 
 int lzm3_byte_chain(int mode, const int32_t* v0, int L, int32_t* v,

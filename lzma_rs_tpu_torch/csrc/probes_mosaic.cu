@@ -48,11 +48,26 @@
 //     issued kScalarAhead iterations early; a load that a pending store
 //     overwrites takes the stored word from registers (probe_mosaic.cuh:
 //     rw_scalar). The chain an iteration is a select and carry's add.
-//   - row_chain: one thread per lane over the lane-minor [W, L] table
-//     (the TPU layout; a warp's loads coalesce while its lanes' idx agree,
-//     as in p1-p3, and scatter when idx follows the data, as in p6). A
-//     carried index: each load's address waits on the last load (p6) or
-//     on the index's add and floor mod (p1-p3). Latency-bound by design.
+//   - row_chain: p6 (ROW_BYTE) is one serial chain a lane, each load's
+//     row waiting on the byte before it; its walk reaches the first
+//     quarter of the column only (idx < W, row idx >> 2), so a block of
+//     256 threads stages that quarter of its lanes' columns into shared
+//     memory by 16-byte cp.async (probe_stage.cuh, the staging onehot_chain
+//     uses), meets once at a barrier, and a thread a lane runs the chain
+//     there: a step is a dependent shared load, the shift, the and, the
+//     adds and the mod (an and where W is a power of two). Latency-bound
+//     by the load and the few operations after it; no load goes ahead
+//     across steps. Lanes a block follow from the staged bytes
+//     (byte_lanes: 16 at W = 2,048, 32 KiB). p1-p3 start at idx 0, so their
+//     addresses do not depend on the data: a block of 256 threads takes 8
+//     lanes (a row's 8 lanes fill a 32-byte sector; the tool's 128 lanes
+//     on 16 SMs), its 32 ranks a lane each owning rows r, r + 32, ... and
+//     walking their visits in step order, so p3's writes stay exact; the
+//     partial sums meet by shuffles and shared memory (a wrapping add).
+//     p3 writes its table into the output in the same launch, copying
+//     the unvisited rows by 16-byte loads and stores. Bound by the loads'
+//     latency and the launch. Both start from the probes' zeros and write
+//     their state: a call is one launch.
 //   - segment_chain: p4 is one thread per lane re-reading two rows every
 //     8th step (most of its time is set-up). p5 is a vector pass over the
 //     whole table each step on the TPU (+1 on one segment, a max over rows
@@ -137,12 +152,66 @@ __global__ void __launch_bounds__(lzm::kScalarThreads)
   for (int k = threadIdx.x; k < cols; k += lzm::kScalarThreads) x[k] = row[k];
 }
 
+// p6: block b stages rows [0, byte_rows(W)) of its lb lanes' columns,
+// then thread f < nl runs lane lb b + f (probe_mosaic.cuh:
+// byte_chain_lane).
+template <bool kPow2>
+__global__ void __launch_bounds__(lzm::kRowThreads)
+    byte_chain_kernel(const int32_t* __restrict__ x, int W, int L, int lb,
+                      int32_t* __restrict__ state, int iters) {
+  extern __shared__ uint4 slice[];  // 16-byte aligned for cp.async
+  int32_t* const sm = reinterpret_cast<int32_t*>(slice);
+  const int tid = threadIdx.x;
+  const lzs::Slice s =
+      lzs::block_slice(lzm::byte_rows(W), lb, L, blockIdx.x);
+  lzs::stage_minor(sm, x, s, tid, lzm::kRowThreads);
+  __syncthreads();
+  if (tid >= s.nl) return;
+  uint32_t acc;
+  int32_t idx;
+  lzm::byte_chain_lane<kPow2>(lzs::shared_of(sm), uint32_t(tid) * 4,
+                              uint32_t(lb) * 4, W, iters, acc, idx);
+  const int lane = s.lane0 + tid;
+  state[lane] = lzm::wrap(acc);
+  state[size_t(L) + lane] = idx;
+}
+
+// p1-p3: block (b, 0) takes lanes kRowLanes b + f, thread t rank t /
+// kRowLanes of lane t % kRowLanes (probe_mosaic.cuh: row_rank); a warp's 4
+// ranks a lane meet by shuffles, the warps' sums in shared memory. p3's
+// blocks (b, y) also copy range y of the unvisited rows into `table`
+// (copy_range, row_copy).
 template <int kMode>
-__global__ void __launch_bounds__(kBlock)
-    row_chain_kernel(int32_t* x, int W, int L, int32_t* state, int iters) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= L) return;
-  lzm::row_chain_lane<kMode>(x, W, L, lane, state, iters);
+__global__ void __launch_bounds__(lzm::kRowThreads)
+    row_sum_kernel(const int32_t* __restrict__ x, int W, int L,
+                   int32_t* __restrict__ state, int32_t* __restrict__ table,
+                   int iters) {
+  using namespace lzm;
+  __shared__ uint32_t part[kRowWarps][kRowLanes];
+  const int t = threadIdx.x, f = t % kRowLanes;
+  const int lane0 = blockIdx.x * kRowLanes, lane = lane0 + f;
+  const int nl = L - lane0 < kRowLanes ? L - lane0 : kRowLanes;
+  if (kMode == ROW_CLAMP_WRITE) {
+    int r0, r1;
+    copy_range(W, iters, blockIdx.y, gridDim.y, r0, r1);
+    row_copy(x, table, L, lane0, nl, r0, r1, t);
+  }
+  if (blockIdx.y != 0) return;  // the whole block: a copy block
+  uint32_t acc = 0;
+  if (f < nl)
+    acc = row_rank<kMode>(x, table, W, L, lane, t / kRowLanes, iters);
+#pragma unroll
+  for (int d = kRowLanes; d < 32; d <<= 1)
+    acc += __shfl_xor_sync(0xFFFFFFFFu, acc, d);
+  if ((t & 31) < kRowLanes) part[t >> 5][f] = acc;
+  __syncthreads();
+  if (t < nl) {
+    uint32_t sum = 0;
+#pragma unroll
+    for (int w = 0; w < kRowWarps; ++w) sum += part[w][t];
+    state[lane] = wrap(sum);
+    state[size_t(L) + lane] = iters % W;
+  }
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -234,6 +303,16 @@ int attributes(Kernel* kernel, OptedIn* opted, int* out) {
 }
 
 int blocks(int n) { return (n + kBlock - 1) / kBlock; }
+
+// row_chain's kernel for `mode` at W rows.
+const void* row_kernel(int mode, int W) {
+  if (mode == lzm::ROW_CLAMP)
+    return (const void*)row_sum_kernel<lzm::ROW_CLAMP>;
+  if (mode == lzm::ROW_CLAMP_WRITE)
+    return (const void*)row_sum_kernel<lzm::ROW_CLAMP_WRITE>;
+  return lzm::pow2(W) ? (const void*)byte_chain_kernel<true>
+                      : (const void*)byte_chain_kernel<false>;
+}
 
 template <int kAxis, class T, int kGroup>
 void launch_group(const T* x, int x_cols, const int32_t* start, int stride,
@@ -351,24 +430,65 @@ int lzm_rw_attributes(int mode, int* out) {
   return lzm::ERR_ARGS;
 }
 
-// x: [W, L] int32 (updated in place by ROW_CLAMP_WRITE); state: [2, L]
-// (acc, idx), the start in, the end out.
-int lzm_row_chain(int mode, int32_t* x, int W, int L, int32_t* state,
-                  int iters, void* stream) {
-  if (lzm::bad_row(mode, W, L, iters)) return lzm::ERR_ARGS;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (L > 0) {
-    if (mode == lzm::ROW_CLAMP)
-      row_chain_kernel<lzm::ROW_CLAMP><<<blocks(L), kBlock, 0, s>>>(
-          x, W, L, state, iters);
-    else if (mode == lzm::ROW_CLAMP_WRITE)
-      row_chain_kernel<lzm::ROW_CLAMP_WRITE><<<blocks(L), kBlock, 0, s>>>(
-          x, W, L, state, iters);
-    else
-      row_chain_kernel<lzm::ROW_BYTE><<<blocks(L), kBlock, 0, s>>>(
-          x, W, L, state, iters);
+// x: [W, L] int32, not changed; table: [W, L] int32, ROW_CLAMP_WRITE's
+// final table (written), else null; state: [2, L] (acc, idx), written
+// (the chains start from zeros). ROW_BYTE: W <= kByteMaxW.
+int lzm_row_chain(int mode, const int32_t* x, int W, int L, int32_t* state,
+                  int32_t* table, int iters, void* stream) {
+  if (lzm::bad_row(mode, W, L, iters) ||
+      (mode == lzm::ROW_CLAMP_WRITE) != (table != nullptr))
+    return lzm::ERR_ARGS;
+  if (L == 0) return static_cast<int>(cudaGetLastError());
+  int launch[3];
+  lzm::row_launch(mode, W, launch);
+  int lb = launch[0];
+  const dim3 grid(unsigned((L - 1) / lb + 1),
+                  unsigned(lzm::copy_blocks(mode, W, iters)));
+  void* byte_args[] = {&x, &W, &L, &lb, &state, &iters};
+  void* rows_args[] = {&x, &W, &L, &state, &table, &iters};
+  const void* fn = row_kernel(mode, W);
+  cudaError_t e = cudaSuccess;
+  if (mode == lzm::ROW_BYTE)
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             launch[2]);
+  if (e == cudaSuccess)
+    e = cudaLaunchKernel(fn, grid, dim3(launch[1]),
+                         mode == lzm::ROW_BYTE ? byte_args : rows_args,
+                         size_t(launch[2]),
+                         static_cast<cudaStream_t>(stream));
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// row_chain's launch for `mode` at W rows: out[0] lanes a block, out[1]
+// threads a block, out[2] dynamic shared memory a block.
+int lzm_row_launch(int mode, int W, int* out) {
+  if (lzm::bad_row(mode, W, 1, 0)) return lzm::ERR_ARGS;
+  lzm::row_launch(mode, W, out);
+  return 0;
+}
+
+// The most rows of a p6 table.
+int lzm_row_max_w() { return lzm::kByteMaxW; }
+
+// row_chain's blocks a lane group (the grid's y): p3's copy blocks.
+int lzm_row_copy_blocks(int mode, int W, int iters) {
+  if (lzm::bad_row(mode, W, 1, iters)) return lzm::ERR_ARGS;
+  return lzm::copy_blocks(mode, W, iters);
+}
+
+// row_chain's kernel for `mode` at W rows: out[0..3] as attributes()
+// gives them (after p6's opt-in to its slice), out[4..6] as
+// lzm_row_launch's out[0..2].
+int lzm_row_attributes(int mode, int W, int* out) {
+  if (lzm::bad_row(mode, W, 1, 0)) return lzm::ERR_ARGS;
+  lzm::row_launch(mode, W, out + 4);
+  const void* fn = row_kernel(mode, W);
+  if (mode == lzm::ROW_BYTE) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, out[6]);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  return static_cast<int>(cudaGetLastError());
+  return lzk::kernel_attributes(fn, out);
 }
 
 // x: [W, L] int32 (updated in place by SEG_SEGMENTS); state: [2, L], the

@@ -17,14 +17,19 @@
 //   window_chain <- p10 (:114, P10), p16 (:262, P16)
 //
 // What bounds them on this card, and what the design does about it:
-//   - vote_chain: one block holds all L lanes (L <= 1024) and votes on
-//     every iteration whether any lane is still below 5: __syncthreads_or
-//     (P7), or a warp max (__reduce_max_sync) and the warps' maxima through
-//     shared memory (P8; P9 after the update, so its body runs once). A
-//     per-warp exit would be another function (lanes that reached 5 go on
-//     counting while a lane of another warp is below 5), so the whole
-//     block waits at a barrier each iteration: latency-bound by the
-//     barrier, which is what the probe asks.
+//   - vote_chain: one warp holds all L lanes (L <= 1024), ceil(L / 32)
+//     of them a thread in registers (probe_mosaic3.cuh: vote_slots), and
+//     votes on every iteration whether any lane is still below 5: each
+//     thread tests its slots (their min below 5) and the warp votes, by
+//     __any_sync (P7) or __reduce_max_sync over the 0/1 flags (P8; P9
+//     after the update, so its body runs once), one redux.sync: a max
+//     over 0/1 flags is an any. A per-thread or per-lane exit would be
+//     another function (lanes that reached 5 go on counting while another
+//     lane is below 5), so the vote stays in every iteration: bound by
+//     the vote and the test after it, which is what the probe asks; no
+//     barrier and no shared memory. Each iteration votes, branches on
+//     the vote, then runs the body (probe_mosaic3.cuh: vote_loop): no
+//     vote runs ahead of its iteration. Its state is written by thread 0.
 //   - byte_chain: one thread per lane, a dependent chain of a few integer
 //     operations; P11a's shift by 8 (v & 3) and P11b's select of four
 //     constant shifts are written as the probe writes them, so the SASS
@@ -58,9 +63,10 @@
 //     the zeros past the table) with two independent loads; base's mod is
 //     an and where 16 W is a power of two. Its scratch is the ranks' last
 //     two words, written only where asked for (full=True).
-// Both start from the probes' zeros and write their state: a call is one
-// launch. Threads of lanes past L in the last block stage and meet the
-// barrier, then run no chain and store nothing.
+// These two and vote_chain start from the probes' zeros and write their
+// state: a call is one launch. Threads of lanes past L in the last block
+// stage and meet the barrier, then run no chain and store nothing. The
+// staging is probe_stage.cuh's, which row_chain's P6 shares.
 // Each launcher checks its arguments, opts its kernel in to the block's
 // dynamic shared memory (where it has any), launches on `stream` and
 // returns cudaGetLastError() (0 = launched) or lzm3::ERR_ARGS.
@@ -74,44 +80,34 @@
 namespace {
 
 using lzm3::kBlock;
+using lzs::shared_of;
 
-// The block-wide max of `pred` (0 or 1) over all threads. `votes` is one
-// of two buffers used in turns, so a warp that runs ahead to the next vote
-// does not overwrite what a slower warp still reads.
-__device__ int block_max(int pred, int* votes, int warps) {
-  const int w = __reduce_max_sync(0xffffffffu, pred);
-  if ((threadIdx.x & 31) == 0) votes[threadIdx.x >> 5] = w;
-  __syncthreads();
-  int m = 0;
-  for (int k = 0; k < warps; ++k) m = votes[k] > m ? votes[k] : m;
-  return m;
-}
+// vote_chain's warp on the card: the thread's slots, the warp's vote.
+template <int kMode, int K>
+struct CardVote {
+  int32_t node[K];
+  __device__ int vote() const {
+    const int b = lzm3::vote_below<K>(node);
+    return kMode == lzm3::VOTE_ANY
+               ? (__any_sync(lzm3::kAll, b) != 0)
+               : int(__reduce_max_sync(lzm3::kAll, unsigned(b)));
+  }
+  __device__ void step(uint32_t add) { lzm3::vote_body<K>(node, add); }
+};
 
-template <int kMode>
-__global__ void __launch_bounds__(lzm3::kMaxLanes)
+// One block of one warp; thread t's K slots are lanes t, t + 32, ...
+template <int kMode, int K>
+__global__ void __launch_bounds__(lzm3::kWarp)
     vote_chain_kernel(const int32_t* __restrict__ node0, int L,
                       int32_t* __restrict__ node_out,
                       int32_t* __restrict__ state, int iters) {
-  __shared__ int votes[2][lzm3::kMaxLanes / 32];
-  const int lane = threadIdx.x;
-  const bool live = lane < L;  // threads past L (the last warp's) vote 0
-  const int warps = blockDim.x >> 5;
-  int32_t node = live ? node0[lane] : 0;
-  int i = 0, flag = 1;
-  for (;;) {
-    const int below = live && node < lzm3::kVoteBelow;
-    if (kMode == lzm3::VOTE_ANY)
-      flag = __syncthreads_or(below) != 0;
-    else if (kMode == lzm3::VOTE_MAX)
-      flag = block_max(below, votes[i & 1], warps);
-    if (!flag || i >= iters) break;
-    node = lzm3::vote_step(node, i);
-    ++i;
-    if (kMode == lzm3::VOTE_FLAG)
-      flag = block_max(live && node < lzm3::kVoteBelow, votes[i & 1], warps);
-  }
-  if (live) node_out[lane] = node;
-  if (lane == 0) {
+  const int t = threadIdx.x;
+  CardVote<kMode, K> w;
+  lzm3::vote_load<K>(node0, L, t, w.node);
+  int flag;
+  const int i = lzm3::vote_loop<kMode, K>(w, iters, flag);
+  lzm3::vote_store<K>(w.node, L, t, node_out);
+  if (t == 0) {
     state[0] = i;
     state[1] = flag;
   }
@@ -124,14 +120,6 @@ __global__ void __launch_bounds__(kBlock)
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= L) return;
   v[lane] = lzm3::byte_chain_lane<kMode>(v0[lane], iters);
-}
-
-// The block's shared memory as the chains read it: its shared-space
-// address, held in a register.
-__device__ __forceinline__ lzm3::Shared shared_of(const int32_t* sm) {
-  uint32_t at = static_cast<uint32_t>(__cvta_generic_to_shared(sm));
-  asm("" : "+r"(at));
-  return lzm3::Shared{at};
 }
 
 template <int kReduce, int kUnroll, bool kPow2>
@@ -212,11 +200,40 @@ __global__ void __launch_bounds__(lzm3::kThreads)
 
 int blocks(int n) { return (n + kBlock - 1) / kBlock; }
 
-// The kernel of a onehot_chain or window_chain call, its lanes a block and
-// its dynamic shared memory a block.
+// vote_chain's kernel for `mode` at L lanes: its slots a thread.
+const void* vote_kernel(int mode, int L) {
+  using lzm3::VOTE_ANY;
+  using lzm3::VOTE_FLAG;
+  using lzm3::VOTE_MAX;
+  // [mode][log2 of the slots]
+  static const void* const fns[3][6] = {
+      {(const void*)vote_chain_kernel<VOTE_ANY, 1>,
+       (const void*)vote_chain_kernel<VOTE_ANY, 2>,
+       (const void*)vote_chain_kernel<VOTE_ANY, 4>,
+       (const void*)vote_chain_kernel<VOTE_ANY, 8>,
+       (const void*)vote_chain_kernel<VOTE_ANY, 16>,
+       (const void*)vote_chain_kernel<VOTE_ANY, 32>},
+      {(const void*)vote_chain_kernel<VOTE_MAX, 1>,
+       (const void*)vote_chain_kernel<VOTE_MAX, 2>,
+       (const void*)vote_chain_kernel<VOTE_MAX, 4>,
+       (const void*)vote_chain_kernel<VOTE_MAX, 8>,
+       (const void*)vote_chain_kernel<VOTE_MAX, 16>,
+       (const void*)vote_chain_kernel<VOTE_MAX, 32>},
+      {(const void*)vote_chain_kernel<VOTE_FLAG, 1>,
+       (const void*)vote_chain_kernel<VOTE_FLAG, 2>,
+       (const void*)vote_chain_kernel<VOTE_FLAG, 4>,
+       (const void*)vote_chain_kernel<VOTE_FLAG, 8>,
+       (const void*)vote_chain_kernel<VOTE_FLAG, 16>,
+       (const void*)vote_chain_kernel<VOTE_FLAG, 32>}};
+  return fns[mode][lzm3::log2_of(lzm3::vote_slots(L))];
+}
+
+// The kernel of a call, its lanes a block, its dynamic shared memory a
+// block and its threads a block (vote_chain: one warp for all L lanes).
 struct Kernel {
   const void* fn;
   int lb, smem;
+  int threads = lzm3::kThreads;
 };
 
 Kernel onehot_kernel(int reduce, int unroll, int R) {
@@ -269,7 +286,7 @@ int launch(const Kernel& k, int L, void** args, void* stream) {
 int attributes(const Kernel& k, int* out) {
   const cudaError_t e = opt_in(k);
   if (e != cudaSuccess) return static_cast<int>(e);
-  out[4] = lzm3::kThreads;
+  out[4] = k.threads;
   out[5] = k.lb;
   out[6] = k.smem;
   return lzk::kernel_attributes(k.fn, out);
@@ -279,23 +296,22 @@ int attributes(const Kernel& k, int* out) {
 
 extern "C" {
 
-// node0, node: [L] int32 (L <= 1024, one block); state: [2] int32, the
-// iterations run and the last vote (P9: its flag).
+// node0, node: [L] int32 (L <= 1024, one warp); state: [2] int32, the
+// iterations run and the last vote (P9: its flag), written.
 int lzm3_vote_chain(int mode, const int32_t* node0, int L, int32_t* node,
                     int32_t* state, int iters, void* stream) {
   if (lzm3::bad_vote(mode, L, iters)) return lzm3::ERR_ARGS;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = (L + 31) / 32 * 32;
-  if (mode == lzm3::VOTE_ANY)
-    vote_chain_kernel<lzm3::VOTE_ANY><<<1, threads, 0, s>>>(node0, L, node,
-                                                            state, iters);
-  else if (mode == lzm3::VOTE_MAX)
-    vote_chain_kernel<lzm3::VOTE_MAX><<<1, threads, 0, s>>>(node0, L, node,
-                                                            state, iters);
-  else
-    vote_chain_kernel<lzm3::VOTE_FLAG><<<1, threads, 0, s>>>(node0, L, node,
-                                                             state, iters);
-  return static_cast<int>(cudaGetLastError());
+  void* args[] = {&node0, &L, &node, &state, &iters};
+  const cudaError_t e =
+      cudaLaunchKernel(vote_kernel(mode, L), dim3(1), dim3(lzm3::kWarp), args,
+                       0, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// The slots a thread of vote_chain's warp holds for L lanes.
+int lzm3_vote_slots(int L) {
+  return lzm3::bad_vote(lzm3::VOTE_ANY, L, 0) ? lzm3::ERR_ARGS
+                                              : lzm3::vote_slots(L);
 }
 
 // v0, v: [L] int32.
@@ -352,6 +368,12 @@ int lzm3_onehot_attributes(int reduce, int unroll, int R, int* out) {
 int lzm3_window_attributes(int mode, int W, int* out) {
   if (lzm3::bad_window(mode, W, 1, 1)) return lzm3::ERR_ARGS;
   return attributes(window_kernel(mode, W), out);
+}
+
+// vote_chain's kernel at L lanes: out[5] is L (one warp holds them all).
+int lzm3_vote_attributes(int mode, int L, int* out) {
+  if (lzm3::bad_vote(mode, L, 0)) return lzm3::ERR_ARGS;
+  return attributes({vote_kernel(mode, L), L, 0, lzm3::kWarp}, out);
 }
 
 const char* lzm3_error_string(int code) {

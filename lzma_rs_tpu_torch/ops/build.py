@@ -13,15 +13,16 @@ library alone and an unchanged one loads at once. Eleven libraries:
 - ``probes``: the lane2d and state-in-ref probe kernels (``probes.cu`` +
   ``probe_lane.cuh`` + ``kernel_attributes.cuh``), :func:`load_probes`;
 - ``mosaic``: the mosaic probe kernels (``probes_mosaic.cu`` +
-  ``probe_mosaic.cuh`` + ``kernel_attributes.cuh``), :func:`load_mosaic`;
+  ``probe_mosaic.cuh``, which includes ``probe_stage.cuh``, +
+  ``kernel_attributes.cuh``), :func:`load_mosaic`;
 - ``mosaic3``: the mosaic3 probe kernels (``probes_mosaic3.cu`` +
-  ``probe_mosaic3.cuh``, which includes ``probe_mosaic.cuh``, +
-  ``kernel_attributes.cuh``), :func:`load_mosaic3`;
+  ``probe_mosaic3.cuh``, which includes ``probe_mosaic.cuh`` and
+  ``probe_stage.cuh``, + ``kernel_attributes.cuh``), :func:`load_mosaic3`;
 - ``mosaic4``: the mosaic4 probe kernel (``probes_mosaic4.cu`` +
-  ``probe_mosaic4.cuh`` + ``probe_mosaic.cuh`` +
+  ``probe_mosaic4.cuh`` + ``probe_mosaic.cuh`` + ``probe_stage.cuh`` +
   ``kernel_attributes.cuh``), :func:`load_mosaic4`;
 - ``round4``: the round4 probe kernels (``probes_round4.cu`` +
-  ``probe_round4.cuh`` + ``probe_mosaic.cuh`` +
+  ``probe_round4.cuh`` + ``probe_mosaic.cuh`` + ``probe_stage.cuh`` +
   ``kernel_attributes.cuh``), :func:`load_round4`;
 - ``bisect``: the bisect probe kernel (``probes_bisect.cu`` +
   ``probe_bisect.cuh`` + ``probe_lane.cuh`` + ``kernel_attributes.cuh``),
@@ -78,13 +79,16 @@ SEGVAR = Library("segvar", ("decode_variants.cu", "segment_kernel.cuh",
 PROBES = Library("probes", ("probes.cu", "probe_lane.cuh",
                             "kernel_attributes.cuh"))
 MOSAIC = Library("mosaic", ("probes_mosaic.cu", "probe_mosaic.cuh",
-                            "kernel_attributes.cuh"))
+                            "probe_stage.cuh", "kernel_attributes.cuh"))
 MOSAIC3 = Library("mosaic3", ("probes_mosaic3.cu", "probe_mosaic3.cuh",
-                              "probe_mosaic.cuh", "kernel_attributes.cuh"))
+                              "probe_mosaic.cuh", "probe_stage.cuh",
+                              "kernel_attributes.cuh"))
 MOSAIC4 = Library("mosaic4", ("probes_mosaic4.cu", "probe_mosaic4.cuh",
-                              "probe_mosaic.cuh", "kernel_attributes.cuh"))
+                              "probe_mosaic.cuh", "probe_stage.cuh",
+                              "kernel_attributes.cuh"))
 ROUND4 = Library("round4", ("probes_round4.cu", "probe_round4.cuh",
-                            "probe_mosaic.cuh", "kernel_attributes.cuh"))
+                            "probe_mosaic.cuh", "probe_stage.cuh",
+                            "kernel_attributes.cuh"))
 BISECT = Library("bisect", ("probes_bisect.cu", "probe_bisect.cuh",
                             "probe_lane.cuh", "kernel_attributes.cuh"))
 STEPCOST = Library("stepcost", ("step_cost.cu", "segment_kernel.cuh",
@@ -342,12 +346,15 @@ def bind_mosaic(lib: ctypes.CDLL) -> ctypes.CDLL:
         (lib.lzm_gather_sum, [ci, ci, vp, ci, ci, vp, ci, ci, vp, ci, ci, ci,
                               vp]),
         (lib.lzm_rw_chain, [ci, vp, ci, ci, vp, vp, ci, vp]),
-        (lib.lzm_row_chain, [ci, vp, ci, ci, vp, ci, vp]),
+        (lib.lzm_row_chain, [ci, vp, ci, ci, vp, vp, ci, vp]),
         (lib.lzm_segment_chain, [ci, vp, ci, ci, vp, ci, vp]),
         (lib.lzm_segment_max_rows, []),
         (lib.lzm_gather_launch, [ci, ci, vp]),
         (lib.lzm_rw_launch, [ci, ci, vp]),
         (lib.lzm_rw_max_cols, []),
+        (lib.lzm_row_launch, [ci, ci, vp]),
+        (lib.lzm_row_max_w, []),
+        (lib.lzm_row_copy_blocks, [ci, ci, ci]),
     ):
         fn.restype, fn.argtypes = ci, args
     lib.lzm_error_string.restype = ctypes.c_char_p
@@ -358,13 +365,16 @@ def bind_mosaic(lib: ctypes.CDLL) -> ctypes.CDLL:
 @functools.lru_cache(maxsize=1)
 def load_mosaic() -> ctypes.CDLL:
     """Build (if needed) and bind the mosaic probe kernels (and the card
-    build's ``lzm_segment_attributes`` and ``lzm_rw_attributes``); one
-    handle per process."""
+    build's ``lzm_segment_attributes``, ``lzm_rw_attributes`` and
+    ``lzm_row_attributes``); one handle per process."""
     lib = bind_mosaic(ctypes.CDLL(build_library(MOSAIC).path))
     lib.lzm_segment_attributes.restype = ctypes.c_int
     lib.lzm_segment_attributes.argtypes = [ctypes.c_void_p]
     lib.lzm_rw_attributes.restype = ctypes.c_int
     lib.lzm_rw_attributes.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.lzm_row_attributes.restype = ctypes.c_int
+    lib.lzm_row_attributes.argtypes = [ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_void_p]
     return lib
 
 
@@ -378,6 +388,7 @@ def bind_mosaic3(lib: ctypes.CDLL) -> ctypes.CDLL:
         (lib.lzm3_byte_chain, [ci, vp, ci, vp, ci, vp]),
         (lib.lzm3_onehot_chain, [ci, ci, vp, ci, ci, vp, ci, vp]),
         (lib.lzm3_window_chain, [ci, vp, ci, ci, vp, vp, ci, vp]),
+        (lib.lzm3_vote_slots, [ci]),
     ):
         fn.restype, fn.argtypes = ci, args
     lib.lzm3_error_string.restype = ctypes.c_char_p
@@ -388,14 +399,16 @@ def bind_mosaic3(lib: ctypes.CDLL) -> ctypes.CDLL:
 @functools.lru_cache(maxsize=1)
 def load_mosaic3() -> ctypes.CDLL:
     """Build (if needed) and bind the mosaic3 probe kernels (and the card
-    build's ``lzm3_onehot_attributes`` and ``lzm3_window_attributes``); one
-    handle per process."""
+    build's ``lzm3_onehot_attributes``, ``lzm3_window_attributes`` and
+    ``lzm3_vote_attributes``); one handle per process."""
     lib = bind_mosaic3(ctypes.CDLL(build_library(MOSAIC3).path))
     ci, vp = ctypes.c_int, ctypes.c_void_p
     lib.lzm3_onehot_attributes.restype = ci
     lib.lzm3_onehot_attributes.argtypes = [ci, ci, ci, vp]
     lib.lzm3_window_attributes.restype = ci
     lib.lzm3_window_attributes.argtypes = [ci, ci, vp]
+    lib.lzm3_vote_attributes.restype = ci
+    lib.lzm3_vote_attributes.argtypes = [ci, ci, vp]
     return lib
 
 

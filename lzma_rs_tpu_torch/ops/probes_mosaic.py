@@ -13,14 +13,16 @@ probes are direct indexed loads and stores here, with the same results):
   read-modify-write per step, a warp per row (D), or one serial
   load-after-store chain (E) over the row in one block's shared memory;
 - :func:`row_chain` (``p1``/``p2``, ``p3``, ``p6``): a lane-carried index
-  over a lane-minor ``[W, L]`` table;
+  over a lane-minor ``[W, L]`` table, from 0: p6's walk over the bytes a
+  serial chain a lane in shared memory, p1-p3's rows (whose index does
+  not depend on the data) split over a block;
 - :func:`segment_chain` (``p4``, ``p5``): a periodic two-row refill, or
   four segment updates with each segment's max.
 
 Each wrapper launches its hand-written kernel (``csrc/probes_mosaic.cu``)
 on a CUDA tensor, or raises; on a CPU tensor it runs its plain PyTorch
 version (``*_reference``: direct indexing, every thread in lockstep).
-The kernels run a thread per row or lane, with four exceptions.
+The kernels run a thread per row or lane, with five exceptions.
 ``gather_sum`` splits an output's steps over a warp (the minor axis, and
 the major axis below :data:`GATHER_THREAD_MIN` outputs) or gives each
 output a thread (:func:`gather_launch`); ``rw_chain``'s D splits a row's
@@ -30,8 +32,12 @@ holds at most :data:`RW_MAX_COLS` words. p5's (``segment_chain``, mode
 ``"segments"``) runs a block of :data:`SEGMENT_THREADS` per lane, with
 the lane's whole column in the block's shared memory and its rows split
 over the threads; so its table holds at most :data:`SEGMENT_MAX_ROWS`
-rows. The wrappers refuse a larger E row or p5 column on either
-device.
+rows. ``row_chain`` runs p1-p3 as blocks of :data:`ROW_THREADS` over
+:data:`ROW_LANES` lanes, a lane's visited rows split over the block's
+ranks (:func:`row_launch`), and p6 as a thread a lane over the first
+quarter of its lanes' columns staged into the block's shared memory, so
+its table holds at most :data:`ROW_MAX_BYTE_W` rows. The wrappers refuse
+a larger E row, p5 column or p6 table on either device.
 ``<wrapper>.launches`` counts kernel launches, ``<wrapper>.reference`` is
 the plain version. Inputs are not changed. ``full=True`` also returns a
 dict: the final table where the function writes one (E, p3, p5; D's output
@@ -55,7 +61,9 @@ __all__ = [
     "GATHER_OPS", "RW_OPS", "ROW_OPS", "segment_ops", "byte_rows_read",
     "SEGMENT_THREADS", "SEGMENT_MAX_ROWS", "segment_block_bytes",
     "segment_attributes", "GATHER_THREAD_MIN", "gather_launch",
-    "RW_MAX_COLS", "rw_launch", "rw_attributes",
+    "RW_MAX_COLS", "rw_launch", "rw_attributes", "ROW_THREADS",
+    "ROW_LANES", "BYTE_LANES", "ROW_MAX_BYTE_W", "row_launch",
+    "row_copy_blocks", "row_attributes",
     "gather_sum", "gather_sum_reference", "rw_chain", "rw_chain_reference",
     "row_chain", "row_chain_reference", "segment_chain",
     "segment_chain_reference",
@@ -78,6 +86,20 @@ SEGMENT_MAX_ROWS = (MAX_SHARED // 4 - SEGMENT_SLOTS) // 4 * 4  # 58,048
 # RW_MAX_COLS words) into shared memory, one thread runs the chain
 RW_SCALAR_THREADS = 256
 RW_MAX_COLS = MAX_SHARED // 4  # 58,112
+# row_chain's kernels (csrc/probe_mosaic.cuh): blocks of ROW_THREADS; p1-p3
+# ROW_LANES lanes a block; p6 BYTE_LANES a block (8, 16 and 32 took the
+# same time within 0.2 us on the H100, PERF.md), halved while the block's slice (rows
+# [0, ceil(W / 4)) of its lanes' columns) passes SLICE_BYTES, its W at most
+# ROW_MAX_BYTE_W (one lane's slice in MAX_SHARED)
+ROW_THREADS = 256
+ROW_LANES = 8
+BYTE_LANES = 16
+SLICE_BYTES = 65536
+ROW_MAX_BYTE_W = 4 * (MAX_SHARED // 4)  # 232,448
+# p3's blocks a lane group copy its unvisited rows in ranges of about
+# COPY_ROWS rows, one a block (at most MAX_COPY_BLOCKS)
+COPY_ROWS = 256
+MAX_COPY_BLOCKS = 65535
 
 # gather_sum's launch (csrc/probe_mosaic.cuh: gather_group, gather_block):
 # a warp an output, or a thread an output on the major axis from
@@ -132,6 +154,35 @@ def rw_launch(mode: str, rows: int) -> tuple:
     return (GATHER_WARP,) + gather_launch("minor", rows)[1:]
 
 
+def _byte_rows(W: int) -> int:
+    return -(-W // 4)
+
+
+def row_launch(mode: str, W: int) -> tuple:
+    """``row_chain``'s launch at ``W`` rows: the lanes a block (p6:
+    :data:`BYTE_LANES` halved while the slice passes 64 KiB; p1-p3: :data:`ROW_LANES`, p3 with :func:`row_copy_blocks` a
+    lane group), the threads a block and the dynamic shared memory a block
+    (p6's slice; p1-p3 none): a copy of the kernel's rule,
+    ``lzm_row_launch``."""
+    if mode != "byte":
+        return ROW_LANES, ROW_THREADS, 0
+    lb = BYTE_LANES
+    while lb > 1 and lb * _byte_rows(W) * 4 > SLICE_BYTES:
+        lb //= 2
+    return lb, ROW_THREADS, 4 * lb * _byte_rows(W)
+
+
+def row_copy_blocks(mode: str, W: int, iters: int) -> int:
+    """``row_chain``'s blocks a lane group: p3's unvisited rows
+    ``[min(W, iters), W)`` in ranges of about :data:`COPY_ROWS`, one a
+    block (the first also sums); 1 for p1, p2 (a copy of the kernel's rule,
+    ``lzm_row_copy_blocks``)."""
+    if mode != "clamp_write":
+        return 1
+    n = W - min(W, iters)
+    return min(max(1, -(-n // COPY_ROWS)), MAX_COPY_BLOCKS)
+
+
 def segment_block_bytes(W: int) -> int:
     """p5's shared memory a block (a lane) for a column of ``W`` rows."""
     return 4 * (SEGMENT_SLOTS + W)
@@ -155,12 +206,26 @@ def rw_attributes(mode: str) -> dict:
         "rw_attributes")
 
 
-def _attributes(query, what: str) -> dict:
-    out = (ctypes.c_int * 4)()
+def row_attributes(mode: str, W: int) -> dict:
+    """The card build's attributes of the kernel that :func:`row_chain`
+    launches on a ``[W, L]`` table, as :func:`segment_attributes` gives p5's,
+    and its ``lanes`` and ``threads`` a block and ``shared_bytes``, the
+    dynamic shared memory of a block (:func:`row_launch`). Needs the
+    card."""
+    _check_mode("mode", mode, ROW_MODES)
+    return _attributes(
+        lambda lib, out: lib.lzm_row_attributes(ROW_MODES.index(mode), W,
+                                                out),
+        "row_attributes", ("lanes", "threads", "shared_bytes"))
+
+
+def _attributes(query, what: str, more: tuple = ()) -> dict:
+    names = ("registers", "local_bytes", "static_shared",
+             "max_dynamic_shared") + more
+    out = (ctypes.c_int * len(names))()
     lib = _cuda_lib()
     _raise_on(lib, query(lib, out), what)
-    return dict(zip(("registers", "local_bytes", "static_shared",
-                     "max_dynamic_shared"), out))
+    return dict(zip(names, out))
 
 
 # -- plain versions ------------------------------------------------------
@@ -366,20 +431,22 @@ def _state(x):
 
 
 def launch_row_chain(lib, x, *, mode: str, iters: int, full: bool = False):
-    """Run ``lib``'s ``lzm_row_chain`` (on a copy of ``x`` where it
-    writes)."""
-    t = (x.clone(memory_format=torch.contiguous_format)
-         if mode == "clamp_write" else x.contiguous())
-    state = _state(x)
+    """Run ``lib``'s ``lzm_row_chain``: one launch, which writes the state
+    and, for ``clamp_write``, the final table into a new tensor."""
+    t = x.contiguous()
+    state = torch.empty((2, x.shape[1]), dtype=torch.int32, device=x.device)
+    table = torch.empty_like(t) if mode == "clamp_write" else None
     rc = lib.lzm_row_chain(ROW_MODES.index(mode), t.data_ptr(), t.shape[0],
-                           t.shape[1], state.data_ptr(), iters, _stream(x))
+                           t.shape[1], state.data_ptr(),
+                           None if table is None else table.data_ptr(),
+                           iters, _stream(x))
     _raise_on(lib, rc, "row_chain")
     out = state[0:1]
     if not full:
         return out
     res = {"state": state}
-    if mode == "clamp_write":
-        res["table"] = t
+    if table is not None:
+        res["table"] = table
     return out, res
 
 
@@ -474,12 +541,21 @@ def row_chain(x, *, mode: str, iters: int, full: bool = False):
     ``"clamp"`` (p1/p2): ``v = max(x[idx], 0); acc += v; idx = (idx + 1) %
     W``; ``"clamp_write"`` (p3): also ``x[idx] = v + 1`` where ``v`` is odd;
     ``"byte"`` (p6): ``byte = x[idx >> 2] >> 8 (idx & 3) & 0xFF;
-    acc += byte; idx = (idx + byte + 1) % W``."""
+    acc += byte; idx = (idx + byte + 1) % W``; its kernel stages the first
+    quarter of each lane's column into a block's shared memory, so
+    ``"byte"`` takes at most :data:`ROW_MAX_BYTE_W` (232,448) rows, on the
+    CPU as on the card (ValueError beyond). ``full`` adds ``state`` [2, L]
+    (acc and idx) and, for ``"clamp_write"``, the final ``table``."""
     _check("x", x)
     _check_mode("mode", mode, ROW_MODES)
     _check_int("iters", iters, 0)
     if x.shape[0] < 2:
         raise ValueError(f"x {tuple(x.shape)}: want at least 2 rows")
+    if mode == "byte" and x.shape[0] > ROW_MAX_BYTE_W:
+        raise ValueError(f"x {tuple(x.shape)}: p6's quarter column of "
+                         f"{_byte_rows(x.shape[0])} rows does not fit a "
+                         f"block's shared memory (W at most "
+                         f"{ROW_MAX_BYTE_W})")
     if x.device.type == "cpu":
         return row_chain_reference(x, mode=mode, iters=iters, full=full)
     res = launch_row_chain(_cuda_lib(), x, mode=mode, iters=iters,

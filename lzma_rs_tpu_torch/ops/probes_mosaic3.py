@@ -5,8 +5,9 @@ functions, four functions on the card; the one-hot reads of the TPU probes
 are direct indexed loads here, with the same results):
 
 - :func:`vote_chain` (``p7`` P7, ``p8`` P8, ``p9`` P9): ``node += i & 1``
-  while any lane has ``node < 5``, the exit voted by the whole block (an
-  ``any``, a max, or a flag computed after the update);
+  while any lane has ``node < 5``, the exit voted over every lane each
+  iteration (an ``any``, a max, or a flag computed after the update), all
+  lanes in one warp (:func:`vote_slots` a thread);
 - :func:`byte_chain` (``p11a`` P11a, ``p11b`` P11b): ``v = ((v >> 8 (v &
   3)) & 0xFF) + i``, by a variable shift or a 4-way select;
 - :func:`onehot_chain` (``p12(True)`` P12s, ``p12(False)`` P12m, ``p13``
@@ -20,14 +21,16 @@ Each wrapper launches its hand-written kernel (``csrc/probes_mosaic3.cu``)
 on a CUDA tensor, or raises; on a CPU tensor it runs its plain PyTorch
 version (``*_reference``: direct indexing, every lane in lockstep).
 ``<wrapper>.launches`` counts kernel launches, ``<wrapper>.reference`` is
-the plain version. Inputs are not changed. onehot_chain and window_chain
-start from zeros, as the probes do, and a call is one launch: the kernel
-writes its state, which ``full=True`` returns (onehot_chain: ``[2, L]``,
-acc and idx; window_chain's P16: ``[2, L]``, acc and base, and its final
-``[64, L]`` scratch; vote_chain: ``[2]``, the iterations run and the last
-vote). Their kernels hold each block's lanes' table in shared memory, so
-one lane's column must fit a block's: ``R <= 58,112`` and, for P16, ``W
-<= 58,080`` (:data:`MAX_ONEHOT_ROWS`, :data:`MAX_REFILL_ROWS`).
+the plain version. Inputs are not changed. vote_chain, onehot_chain and
+window_chain start from the probes' zeros (vote_chain from ``node0``),
+and a call is one launch: the kernel writes its state, which
+``full=True`` returns (onehot_chain: ``[2, L]``, acc and idx;
+window_chain's P16: ``[2, L]``, acc and base, and its final ``[64, L]``
+scratch; vote_chain: ``[2]``, the iterations run and the last vote).
+onehot_chain's and window_chain's kernels hold each block's lanes' table
+in shared memory, so one lane's column must fit a block's: ``R <=
+58,112`` and, for P16, ``W <= 58,080`` (:data:`MAX_ONEHOT_ROWS`,
+:data:`MAX_REFILL_ROWS`).
 
 Integer semantics are the probes': wrapping int32, an arithmetic ``>>``,
 and an index is jnp's ``%`` of a wrapped int32 (the floor mod).
@@ -36,7 +39,6 @@ and an index is jnp's ``%`` of a wrapped int32 (the floor mod).
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
@@ -46,10 +48,10 @@ from lzma_rs_tpu_torch.ops.probes_mosaic import (_check, _check_int,
 
 __all__ = [
     "VOTE_MODES", "BYTE_MODES", "REDUCES", "UNROLLS", "WINDOW_MODES",
-    "WRAPPERS", "BYTE_OPS", "ONEHOT_OPS", "WINDOW_OPS", "vote_ops",
+    "WRAPPERS", "VOTE_OPS", "BYTE_OPS", "ONEHOT_OPS", "WINDOW_OPS",
     "vote_iterations", "onehot_rows_read", "refill_rows_read",
     "MAX_ONEHOT_ROWS", "MAX_REFILL_ROWS", "onehot_attributes",
-    "window_attributes",
+    "window_attributes", "vote_slots", "vote_attributes",
     "vote_chain", "vote_chain_reference", "byte_chain",
     "byte_chain_reference", "onehot_chain", "onehot_chain_reference",
     "window_chain", "window_chain_reference",
@@ -61,7 +63,8 @@ REDUCES = ("sum", "max")                # P12s; P12m, P13, P14, P15
 UNROLLS = (1, 8)                        # reads per loop pass (P13: 8)
 WINDOW_MODES = ("concat", "refill")     # P10, P16
 VOTE_BELOW = 5
-MAX_LANES = 1024                        # vote_chain: one block
+MAX_LANES = 1024                        # vote_chain: one warp
+WARP = 32
 WINDOW_ROWS = 64                        # P10's rows, P16's scratch
 CHUNK = 32                              # P16: rows per chunk
 BASE_ROW = 128                          # P16: row0 = base // 128
@@ -71,26 +74,30 @@ BASE_STEP = 129                         # P16: base += v + 129
 MAX_ONEHOT_ROWS = 232448 // 4
 MAX_REFILL_ROWS = 232448 // 4 - CHUNK
 
-# Integer operations per thread and step, counted from the probes' code
-# (for the bound). byte_chain: shift v & 3, * 8, the shift, & 0xFF, + i,
+# Integer operations per lane and step, counted from the probes' code
+# (for the bound). vote_chain, every mode alike (a max over 0/1 flags is
+# an any): the test node < 5, its part of the vote, i < iters, i & 1, the
+# add and i + 1. byte_chain: shift v & 3, * 8, the shift, & 0xFF, + i,
 # i + 1, the loop test; select v & 3, three tests, three shifts, four
 # ands, three selects, + i, i + 1, the loop test. onehot_chain: the
 # address, (max: the max,) acc's add, idx + v, + 1, the mod. window_chain:
 # concat per row the address, + i and the max, then acc's add and i + 1;
 # refill base >> 7, the two chunk tests, per row of the two chunks the
 # address and the max, base + v + 129 (two adds), the mod, acc's add.
+VOTE_OPS = 6
 BYTE_OPS = {"shift": 7, "select": 17}
 ONEHOT_OPS = {"sum": 5, "max": 6}
 WINDOW_OPS = {"concat": 3 * WINDOW_ROWS + 2, "refill": 3 + 2 * 2 * CHUNK + 4}
 
 
-def vote_ops(mode: str, lanes: int) -> float:
-    """The test node < 5 and the vote, i < iters, i & 1, the add and i + 1;
-    a max vote (P8, P9) also the select, and per warp of the block a load
-    and a max of the shared maxima."""
-    if mode == "any":
-        return 6
-    return 7 + 2 * math.ceil(lanes / 32)
+def vote_slots(lanes: int) -> int:
+    """The lanes each of vote_chain's 32 threads holds for ``lanes`` lanes:
+    ``ceil(lanes / 32)`` rounded up to a power of two (a copy of the
+    kernel's rule, ``lzm3_vote_slots``)."""
+    k = 1
+    while WARP * k < lanes:
+        k *= 2
+    return k
 
 
 # -- plain versions ------------------------------------------------------
@@ -262,12 +269,12 @@ def launch_vote_chain(lib, node0, *, mode: str, iters: int,
     """Run ``lib``'s ``lzm3_vote_chain``."""
     n0 = node0.contiguous()
     node = torch.empty_like(n0)
-    state = torch.zeros(2, dtype=torch.int32, device=node0.device)
+    state = torch.empty(2, dtype=torch.int32, device=node0.device)
     rc = lib.lzm3_vote_chain(VOTE_MODES.index(mode), n0.data_ptr(),
                              n0.numel(), node.data_ptr(), state.data_ptr(),
                              iters, _stream(node0))
     _raise_on(lib, rc, "vote_chain")
-    out = node[None]
+    out = node.view(1, -1)
     return (out, {"state": state}) if full else out
 
 
@@ -349,6 +356,14 @@ def window_attributes(W: int, *, mode: str) -> dict:
                        WINDOW_MODES.index(mode), W)
 
 
+def vote_attributes(lanes: int, *, mode: str) -> dict:
+    """The same for :func:`vote_chain`'s kernel at ``lanes`` lanes: one
+    warp (``threads`` 32) holds them all (``lanes``), no shared memory."""
+    _check_mode("mode", mode, VOTE_MODES)
+    return _attributes("lzm3_vote_attributes", "vote_attributes",
+                       VOTE_MODES.index(mode), lanes)
+
+
 # -- wrappers ------------------------------------------------------------
 
 
@@ -358,13 +373,14 @@ def vote_chain(node0, *, mode: str, iters: int, full: bool = False):
     is voted over all lanes each iteration: ``"any"`` (P7) and ``"max"``
     (P8) before the body, ``"flag"`` (P9) after it, from a flag that starts
     at 1 (so the body runs at least once). The output is ``node`` [1, L];
-    ``full`` adds ``state`` [2]: the iterations run and the last vote."""
+    ``full`` adds ``state`` [2]: the iterations run and the last vote. The
+    kernel holds every lane in one warp, so L is at most 1,024."""
     _check("node0", node0, dim=1)
     _check_mode("mode", mode, VOTE_MODES)
     _check_int("iters", iters, 0)
     if node0.shape[0] > MAX_LANES:
         raise ValueError(f"node0 {tuple(node0.shape)}: at most {MAX_LANES} "
-                         "lanes (one block votes)")
+                         "lanes (one warp votes)")
     if node0.device.type == "cpu":
         return vote_chain_reference(node0, mode=mode, iters=iters, full=full)
     res = launch_vote_chain(_cuda_lib(), node0, mode=mode, iters=iters,

@@ -8,7 +8,8 @@ the card a thread carries its index in a register, ``p1`` and ``p2`` (a
 a step costs when each load's address waits on the carried index (p1-p3)
 or on the last loaded byte (p6), and what a refill (p4) and a walk over
 every row (p5) cost. The one-hot reads and writes are direct indexed
-accesses here.
+accesses here. On the card, a run that includes P1 also times its library
+call (:func:`library_row`).
 
 Run on the card::
 
@@ -89,6 +90,36 @@ def p6(device=None):
     return _probe(pm.row_chain, "byte", pm.ROW_OPS["byte"], words, device)
 
 
+LIBRARY_ROW = "P1 while-carried 1D idx onehot [W,L]"
+
+
+def clamp_library(x=None, device=None):
+    """P1's function as one PyTorch call: ``call()`` is
+    ``x[:ITERS].clamp(min=0).sum(0, dtype=torch.int32)`` (from idx 0 the
+    walk reads rows 0 .. ITERS - 1 once each where ITERS <= W), on ``x``
+    or the tool's input. Returns ``(call, fn, args)``: ``fn(*args)`` is the
+    row's kernel."""
+    fn, args, _ = p1(device=device if x is None else x.device)
+    if x is not None:
+        args = (x,)
+    t, iters = args[0], fn.iters
+    if iters > t.shape[0]:
+        raise ValueError(f"ITERS = {iters} passes W = {t.shape[0]}: the "
+                         "walk visits rows more than once")
+    return (lambda: t[:iters].clamp(min=0).sum(0, dtype=torch.int32)), fn, args
+
+
+def library_row(device) -> dict:
+    """P1's library call on the card: whether it equals the kernel's output
+    and its median ms, timed as the rows are (``probe_rows.median_ms``)."""
+    from lzma_rs_tpu_torch.tools import probe_rows
+
+    call, fn, args = clamp_library(device=device)
+    equal = torch.equal(call(), fn(*args)[0])
+    return {"name": LIBRARY_ROW, "equal": equal,
+            "ms": probe_rows.median_ms(call)}
+
+
 ROWS_OF_TOOL = [
     ("P1 while-carried 1D idx onehot [W,L]", lambda d: p1(device=d)),
     ("P2 while-carried [1,L] idx keepdims", lambda d: p2(device=d)),
@@ -100,4 +131,10 @@ ROWS_OF_TOOL = [
 
 
 if __name__ == "__main__":
-    main(ROWS_OF_TOOL, prog="probe_mosaic2")
+    ran = main(ROWS_OF_TOOL, prog="probe_mosaic2")
+    on_card = [r for r in ran if r["device"] != "cpu"]
+    if any(r["name"] == LIBRARY_ROW for r in on_card):
+        lib = library_row(torch.device(on_card[0]["device"]))
+        print(f"{LIBRARY_ROW} library call (clamp and sum of rows 0 .. "
+              f"{ITERS - 1}): {lib['ms'] * 1e3:.2f} us, equal to the "
+              f"kernel's output: {lib['equal']}", flush=True)

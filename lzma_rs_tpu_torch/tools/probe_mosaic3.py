@@ -5,8 +5,8 @@ function names, input (``ones[W, L]``) and rows. On the TPU the probe
 looked for the construct behind a Mosaic relayout failure (a vector
 reduced to a scalar in a while loop's condition) and priced a few
 per-lane operations on a table held in VMEM, the core's on-chip memory.
-On the card the questions are what a block-wide vote costs per iteration
-(P7-P9), whether a variable shift and a 4-way select are one code
+On the card the questions are what a vote over every lane costs an
+iteration (P7-P9: one warp holds all lanes), whether a variable shift and a 4-way select are one code
 (P11a/b), what a dependent one-hot read of an on-chip table costs (the
 block's shared memory plays VMEM's part) by sum or by max (P12s, P12m),
 unrolled 8x (P13) and at small heights (P14: 8 rows, P15: 64), and what
@@ -67,7 +67,7 @@ def _vote(mode, device):
         return pm3.vote_iterations(node0, mode=mode, iters=iters)
 
     fn = Probe(pm3.vote_chain, lambda n: (n,), {"mode": mode}, {},
-               pm3.vote_ops(mode, L), 2, (deep_start,), ITERS, ran)
+               pm3.VOTE_OPS, 2, (deep_start,), ITERS, ran)
     return fn, (_zeros(device),), L
 
 

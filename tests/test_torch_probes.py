@@ -596,6 +596,7 @@ def test_the_tools_list_the_tpu_probes_rows():
     ("lzma_lane.cuh", "segdec"), ("decode_segments.cu", "segdec"),
     ("segment_kernel.cuh", "segdec"), ("decode_variants.cu", "segvar"),
     ("probes_mosaic.cu", "mosaic"), ("probe_mosaic.cuh", "mosaic"),
+    ("probe_stage.cuh", "mosaic"),
     ("probes_mosaic3.cu", "mosaic3"), ("probe_mosaic3.cuh", "mosaic3"),
     ("probes_mosaic4.cu", "mosaic4"), ("probe_mosaic4.cuh", "mosaic4"),
     ("probes_round4.cu", "round4"), ("probe_round4.cuh", "round4"),
@@ -606,7 +607,8 @@ def test_the_tools_list_the_tpu_probes_rows():
 def test_an_edit_rebuilds_only_its_library(edited, changed, tmp_path):
     """An edit rebuilds the libraries whose sources hold the file, and no
     other: ``changed``, and ``mosaic3``, ``mosaic4`` and ``round4`` too for
-    ``probe_mosaic.cuh``, which their headers include, ``mosaic``,
+    ``probe_mosaic.cuh``, which their headers include, and for
+    ``probe_stage.cuh``, which ``probe_mosaic.cuh`` includes, ``mosaic``,
     ``mosaic3``, ``round4``, ``mosaic4`` and ``bisect`` too for
     ``kernel_attributes.cuh``, and ``bisect`` for ``probe_lane.cuh``, which
     its header includes; ``segvar`` and
@@ -621,6 +623,7 @@ def test_an_edit_rebuilds_only_its_library(edited, changed, tmp_path):
         f.write("\n// edited\n")
     after = {lib.name: build.source_hash(lib, str(csrc)) for lib in libs}
     also = {"probe_mosaic.cuh": {"mosaic3", "mosaic4", "round4"},
+            "probe_stage.cuh": {"mosaic3", "mosaic4", "round4"},
             "probe_lane.cuh": {"bisect"},
             "kernel_attributes.cuh": {"mosaic", "mosaic3", "round4",
                                       "mosaic4", "bisect"},

@@ -20,7 +20,11 @@
   ``gather_sum``'s split (an output's ranks and their sum in rank order)
   also against the Pallas probe on every gather row and input, at the
   tool's twelve row shapes at reduced steps, over strides and starts that
-  wrap int32 mid-walk, and its launch rule against the Python copy.
+  wrap int32 mid-walk, and its launch rule against the Python copy;
+  ``row_chain`` in the card's order (p6's staged quarter columns at every
+  lanes a block a call may name, p1-p3's ranks and their block's sum,
+  p3's table written into the output) at W from 2 to 2,048, 0 to 3 W + 7
+  steps and 1 to 130 lanes, p6's row limit, and a call's one launch.
 - The wrappers' checks, the tools' command lines, p6's row count for the
   bound, and (marked ``cuda``) each kernel against its plain version on
   the card. (``ops/build.py``'s per-library hash, the ``mosaic`` library
@@ -468,14 +472,137 @@ def test_rw_launch_is_the_kernels(host_lib):
     assert host_lib.lzm_rw_max_cols() == pm.RW_MAX_COLS == 58112
 
 
+# row_chain's edges: W powers of two and not (p6's floor mod and its
+# ceil(W / 4) staged rows, from one row up), lanes from one through a
+# part-filled block of 8 to past a block of 128, and the tables' ranges
+# cycled over the lane counts
+ROW_W = (2, 3, 5, 64, 100, 257, 2048)
+ROW_LANES = (1, 7, 8, 9, 70, 130)
+ROW_RANGES = (INT32, NEAR_LIMIT, (-4, 12))
+
+
+def row_cases(W: int):
+    """(x, iters) of row_chain's edge cases at W rows: every lane count of
+    ROW_LANES, at 0, W - 1, W, W + 1 (p3's second pass), 3 W + 7 (its
+    later passes) and 250 steps."""
+    for k, L in enumerate(ROW_LANES):
+        x = ints((W, L), 30 + 7 * k + W % 89, ROW_RANGES[k % 3])
+        for iters in sorted({0, W - 1, W, W + 1, 3 * W + 7, 250}):
+            yield x, iters
+
+
+@pytest.mark.parametrize("W", ROW_W)
 @pytest.mark.parametrize("mode", pm.ROW_MODES)
-def test_host_build_row_chain(mode, host_lib):
-    for i, (W, lo_hi) in enumerate(((64, INT32), (100, NEAR_LIMIT),
-                                    (2048, (-4, 12)))):
-        x = ints((W, 70), 30 + i, lo_hi)
-        kw = {"mode": mode, "iters": 250, "full": True}
+def test_host_build_row_chain(mode, W, host_lib):
+    """The card's order on the host: p6 stages each block's rows, then
+    runs its lanes; p1-p3 sum each rank's owned rows, then the block's
+    parts (p3's table: its visited rows and the copied rest)."""
+    for x, iters in row_cases(W):
+        kw = {"mode": mode, "iters": iters, "full": True}
         assert_same(pm.launch_row_chain(host_lib, x, **kw),
                     pm.row_chain_reference(x, **kw))
+
+
+@pytest.mark.parametrize("lanes", (1, 2, 4, 8, 16))
+def test_host_build_row_chain_block_lanes(lanes, host_lib):
+    """p6 at each lanes a block its rule gives (the widest W with that
+    many, and 3 rows fewer), at 130 lanes: part-filled last blocks,
+    staged in 16-byte chunks and word by word."""
+    widest = 4 * (pm.SLICE_BYTES // (4 * lanes))
+    for i, W in enumerate((widest, widest - 3)):
+        assert pm.row_launch("byte", W)[0] == lanes
+        x = ints((W, 130), 90 + i, (-9, 300))
+        kw = {"mode": "byte", "iters": 300, "full": True}
+        assert_same(pm.launch_row_chain(host_lib, x, **kw),
+                    pm.row_chain_reference(x, **kw))
+
+
+def test_row_launch_is_the_kernels(host_lib):
+    """The Python copy of row_chain's launch against the header's
+    (``lzm_row_launch``, ``lzm_row_copy_blocks``): p6 16 lanes a block up
+    to 4,096 rows, halved while the staged slice passes 64 KiB; p1-p3 8
+    lanes, 256 threads, p3's copy in blocks of about 256 rows."""
+    for mode in pm.ROW_MODES:
+        for W in (2, 5, 2048, 8192, 40_000, pm.ROW_MAX_BYTE_W):
+            out = (ctypes.c_int * 3)()
+            assert host_lib.lzm_row_launch(pm.ROW_MODES.index(mode), W,
+                                           out) == 0
+            assert tuple(out) == pm.row_launch(mode, W), (mode, W)
+    assert pm.row_launch("byte", 2048) == (16, 256, 32768)
+    assert pm.row_launch("byte", 40_000) == (1, 256, 40_000)
+    assert pm.row_launch("clamp", 2048) == (8, 256, 0)
+    assert host_lib.lzm_row_max_w() == pm.ROW_MAX_BYTE_W == 232_448
+    for mode in pm.ROW_MODES:
+        for W in (2, 257, 2048) + ((2**25,) if mode != "byte" else ()):
+            for iters in (0, 1, W - 1, W, 64, 3 * W + 7):
+                assert host_lib.lzm_row_copy_blocks(
+                    pm.ROW_MODES.index(mode), W, iters) == \
+                    pm.row_copy_blocks(mode, W, iters), (mode, W, iters)
+    assert pm.row_copy_blocks("clamp_write", 2048, 64) == 8
+    assert pm.row_copy_blocks("clamp_write", 2**25, 0) == 65535
+    out = (ctypes.c_int * 3)()
+    for mode, W in ((2, pm.ROW_MAX_BYTE_W + 1), (0, 1), (3, 64), (-1, 64)):
+        assert host_lib.lzm_row_launch(mode, W, out) != 0
+
+
+def test_host_build_row_chain_at_the_shared_memory_limit(host_lib):
+    """p6's widest table runs (a lane's staged quarter column fills a
+    block's shared memory); one row more is refused by the host build and
+    by the wrapper on the CPU, so both devices take the same inputs; p1-p3
+    take it."""
+    W = pm.ROW_MAX_BYTE_W
+    x = ints((W + 1, 2), 49, (-9, 300))
+    kw = {"mode": "byte", "iters": 40, "full": True}
+    assert_same(pm.launch_row_chain(host_lib, x[:W], **kw),
+                pm.row_chain_reference(x[:W], **kw))
+    with pytest.raises(RuntimeError, match="bad argument"):
+        pm.launch_row_chain(host_lib, x, **kw)
+    with pytest.raises(ValueError, match="shared memory"):
+        pm.row_chain(x, **kw)
+    kw["mode"] = "clamp_write"
+    assert_same(pm.launch_row_chain(host_lib, x, **kw),
+                pm.row_chain_reference(x, **kw))
+
+
+class DispatchedOps:
+    """The PyTorch ops a block of code dispatches (their names)."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        seen = self.seen = []
+
+        class Ops(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                seen.append(func.overloadpacket.__name__)
+                return func(*args, **(kwargs or {}))
+
+        self.mode = Ops()
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+    def only_outputs(self) -> bool:
+        """Only outputs' ``torch.empty`` and views: no copy, no fill."""
+        return bool(self.seen) and all(
+            op.startswith("empty") or op in ("slice", "view")
+            for op in self.seen)
+
+
+def test_a_call_is_one_launch(host_lib):
+    """A row_chain call makes no copy of its input and no zeroed state
+    before the kernel: its state (and p3's table) are ``torch.empty`` and
+    the table goes in as it is, so on the card the kernel's launch is the
+    call's only one."""
+    x = ints((2048, 130), 47, (-3, 50))
+    for mode in pm.ROW_MODES:
+        for full in (False, True):
+            with DispatchedOps() as ops:
+                pm.launch_row_chain(host_lib, x, mode=mode, iters=64,
+                                    full=full)
+            assert ops.only_outputs(), (mode, ops.seen)
 
 
 @pytest.mark.parametrize("mode", pm.SEGMENT_MODES)
@@ -582,6 +709,9 @@ BAD = {
         mode="scalar", iters=1),
     "segment rows": lambda x, s: pm.segment_chain(x[:6], mode="segments",
                                                   iters=1),
+    "byte rows limit": lambda x, s: pm.row_chain(
+        torch.zeros((pm.ROW_MAX_BYTE_W + 1, 1), dtype=torch.int32),
+        mode="byte", iters=1),
 }
 
 
@@ -618,6 +748,18 @@ def test_d_library_call_is_the_function(W):
     call, fn, args = probe_mosaic.onehot_write_library(W, device="cpu")
     assert torch.equal(call(), fn.plain(*args))
     assert probe_mosaic.LIBRARY_ROW in dict(probe_mosaic.ROWS_OF_TOOL)
+
+
+def test_p1_library_call_is_the_function():
+    """P1's library call (``x[:iters].clamp(min=0).sum(0,
+    dtype=torch.int32)``, the tool's iters <= W from idx 0) is P1's
+    function: its plain version on the tool's input and a seeded one."""
+    call, fn, args = probe_mosaic2.clamp_library(device="cpu")
+    assert torch.equal(call(), fn.plain(*args)[0])
+    seeded = fn.seeded_inputs(args, 3)
+    call, _, _ = probe_mosaic2.clamp_library(seeded[0])
+    assert torch.equal(call(), fn.plain(*seeded)[0])
+    assert probe_mosaic2.LIBRARY_ROW in dict(probe_mosaic2.ROWS_OF_TOOL)
 
 
 def test_p6_counts_the_rows_its_walk_reads():
@@ -720,6 +862,49 @@ def test_rw_kernel_edges_on_card(cuda_device):
     for mode in pm.RW_MODES:
         assert pm.rw_attributes(mode)["local_bytes"] == 0
     assert pm.rw_attributes("scalar")["max_dynamic_shared"] == pm.MAX_SHARED
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", ROW_W)
+def test_row_kernel_edges_on_card(W, cuda_device):
+    """The host build's row_chain edges on the card (every mode, lane count
+    and step count of row_cases)."""
+    before, runs = pm.row_chain.launches, 0
+    for x, iters in row_cases(W):
+        x = x.to(cuda_device)
+        for mode in pm.ROW_MODES:
+            kw = {"mode": mode, "iters": iters, "full": True}
+            got = pm.row_chain(x, **kw)
+            torch.cuda.synchronize()
+            assert_same(got, pm.row_chain_reference(x, **kw))
+            runs += 1
+    assert pm.row_chain.launches == before + runs
+
+
+@pytest.mark.cuda
+def test_row_attributes_on_card(cuda_device):
+    """row_chain's kernels: the launch of row_launch, no spills."""
+    for mode in pm.ROW_MODES:
+        for W in (5, 2048, pm.ROW_MAX_BYTE_W):
+            a = pm.row_attributes(mode, W)
+            assert (a["lanes"], a["threads"], a["shared_bytes"]) == \
+                pm.row_launch(mode, W)
+            assert a["local_bytes"] == 0
+
+
+@pytest.mark.cuda
+def test_a_call_is_one_launch_on_card(cuda_device):
+    """On the card a row_chain call dispatches no PyTorch op but its
+    outputs' ``torch.empty`` (and views), and counts one launch."""
+    x = ints((2048, 130), 47, (-3, 50)).to(cuda_device)
+    for mode in pm.ROW_MODES:
+        for full in (False, True):
+            before = pm.row_chain.launches
+            with DispatchedOps() as ops:
+                pm.row_chain(x, mode=mode, iters=64, full=full)
+            torch.cuda.synchronize()
+            assert pm.row_chain.launches == before + 1
+            assert ops.only_outputs(), (mode, ops.seen)
 
 
 @pytest.mark.cuda

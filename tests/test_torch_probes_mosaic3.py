@@ -16,7 +16,9 @@
 - A g++ build of ``csrc/probe_mosaic3.cuh`` (``-DLZP_HOST_ENTRY``, the C
   interface of ``csrc/probes_mosaic3.cu`` as host loops over blocks,
   ranks and lanes) against the plain versions, for every mode, and for
-  the shared-memory kernels at the blocks' edges (1, 70 and 130 lanes,
+  vote_chain as the card's one warp (each thread's slots, then the vote)
+  at 1 to 1,024 lanes, and the shared-memory kernels at the blocks'
+  edges (1, 70 and 130 lanes,
   tables of 8 to 20,000 rows, walks that straddle the table's end, drift
   apart and wrap), with the column limits; a call is one launch.
 - The wrappers' checks, the tool's command line, the counts behind the
@@ -43,7 +45,8 @@ from lzma_rs_tpu_torch.tools import probe_mosaic3, probe_rows
 
 from test_torch_probes import (TOOLS, assert_same, jax_tool,  # noqa: F401
                                pallas)
-from test_torch_probes_mosaic import INT32, NEAR_LIMIT, tpu_row_names
+from test_torch_probes_mosaic import (INT32, NEAR_LIMIT, DispatchedOps,
+                                      tpu_row_names)
 
 REPO = os.path.dirname(TOOLS)
 HEADER = os.path.join(REPO, "lzma_rs_tpu_torch", "csrc",
@@ -218,17 +221,29 @@ def ints(shape, seed: int, lo_hi=INT32):
 VOTE_STARTS = ("zeros", "diverge", "above", "deep", "wide")
 
 
+# vote_chain's lanes: a thread's one slot (1, 31, 32), two (33), a
+# part-filled warp's slots (100, 1000) and the whole warp's (128, 1024),
+# with each count's slots a thread
+VOTE_LANES = {1: 1, 31: 1, 32: 1, 33: 2, 100: 4, 128: 4, 512: 16,
+              513: 32, 1000: 32, 1024: 32}
+
+
+@pytest.mark.parametrize("lanes", VOTE_LANES)
 @pytest.mark.parametrize("mode", pm3.VOTE_MODES)
-def test_host_build_vote_chain(mode, host_lib):
-    for lanes in (L, 100, 1024):
-        for i, kind in enumerate(VOTE_STARTS):
-            n0 = (torch.zeros(lanes, dtype=torch.int32) if kind == "zeros"
-                  else torch.from_numpy(np.resize(start(kind, 10 + i),
-                                                  lanes)))
-            for iters in (0, 7, 64, 300):
-                kw = {"mode": mode, "iters": iters, "full": True}
-                assert_same(pm3.launch_vote_chain(host_lib, n0, **kw),
-                            pm3.vote_chain_reference(n0, **kw))
+def test_host_build_vote_chain(mode, lanes, host_lib):
+    """The card's order on the host: each of the warp's 32 threads steps
+    its slots, then ORs them, then the warp votes."""
+    assert host_lib.lzm3_vote_slots(lanes) == pm3.vote_slots(lanes) == \
+        VOTE_LANES[lanes]
+    for i, kind in enumerate(VOTE_STARTS):
+        n0 = (torch.zeros(lanes, dtype=torch.int32) if kind == "zeros"
+              else torch.from_numpy(np.resize(start(kind, 10 + i), lanes)))
+        if kind == "deep":  # the lane that keeps the loop going, last
+            n0[-1] = probe_mosaic3.DEEP
+        for iters in (0, 7, 64, 300):
+            kw = {"mode": mode, "iters": iters, "full": True}
+            assert_same(pm3.launch_vote_chain(host_lib, n0, **kw),
+                        pm3.vote_chain_reference(n0, **kw))
 
 
 @pytest.mark.parametrize("mode", pm3.BYTE_MODES)
@@ -275,6 +290,8 @@ def test_host_build_refuses_bad_arguments(host_lib):
     with pytest.raises(RuntimeError, match="bad argument"):
         pm3.launch_vote_chain(host_lib, torch.zeros(1025, dtype=torch.int32),
                               mode="any", iters=1)
+    assert host_lib.lzm3_vote_slots(1025) == host_lib.lzm3_vote_slots(0) \
+        == -1  # ERR_ARGS
     with pytest.raises(RuntimeError, match="bad argument"):
         pm3.launch_window_chain(host_lib, x[:40], mode="refill", iters=1)
     assert pm3.MAX_ONEHOT_ROWS == 58_112 and pm3.MAX_REFILL_ROWS == 58_080
@@ -409,26 +426,16 @@ def test_a_call_is_one_launch(host_lib):
     """A call makes no copy of its input and no zeroed state before the
     kernel: outputs are ``torch.empty`` and the table goes in as it is,
     so on the card the kernel's launch is the call's only one."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class Ops(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.seen = []
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.seen.append(func.overloadpacket.__name__)
-            return func(*args, **(kwargs or {}))
-
     x = ints((2048, 130), 47, (-3, 50))
-    for kernel in ("onehot", "concat", "refill"):
-        for launch, _, mode in launches_of(kernel):
-            for full in (False, True):
-                with Ops() as ops:
-                    launch(host_lib, x, iters=64, full=full, **mode)
-                assert ops.seen and all(
-                    op.startswith("empty") or op in ("slice", "view")
-                    for op in ops.seen), (kernel, ops.seen)
+    calls = [(launch, mode) for kernel in ("onehot", "concat", "refill")
+             for launch, _, mode in launches_of(kernel)]
+    calls += [(pm3.launch_vote_chain, {"mode": m}) for m in pm3.VOTE_MODES]
+    for launch, mode in calls:
+        arg = x[0] if launch is pm3.launch_vote_chain else x
+        for full in (False, True):
+            with DispatchedOps() as ops:
+                launch(host_lib, arg, iters=64, full=full, **mode)
+            assert ops.only_outputs(), (mode, ops.seen)
 
 
 # -- the wrappers and the tool -------------------------------------------
@@ -521,6 +528,10 @@ def test_the_counts_behind_the_bound():
         probe_rows.LONG_ITERS
     fn9, _, _ = probe_mosaic3.p9(device="cpu")
     assert fn9.ran_for(torch.full((L,), 5, dtype=torch.int32), iters=64) == 1
+    # a vote's work is the function's, the same for every mode and lane
+    # count: the test, the vote, i < iters, i & 1, the add, i + 1
+    for make in (probe_mosaic3.p7, probe_mosaic3.p8, probe_mosaic3.p9):
+        assert make(device="cpu")[0].ops == pm3.VOTE_OPS == 6
     ones = torch.ones((probe_mosaic3.W, L), dtype=torch.int32)
     # all-ones: idx 0, 2, 4, ...: 64 rows a lane
     assert pm3.onehot_rows_read(ones, reduce="max", iters=64) == 64 * L
@@ -580,31 +591,42 @@ def test_kernel_block_edges_on_card(kernel, cuda_device):
 def test_a_call_is_one_launch_on_card(cuda_device):
     """On the card a wrapper call dispatches no PyTorch op but its outputs'
     ``torch.empty`` (and views), and counts one launch."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class Ops(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.seen = []
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.seen.append(func.overloadpacket.__name__)
-            return func(*args, **(kwargs or {}))
-
     x = ints((2048, 130), 47, (-3, 50)).to(cuda_device)
     calls = [(pm3.onehot_chain, {"reduce": r, "unroll": u})
              for r in pm3.REDUCES for u in pm3.UNROLLS]
     calls += [(pm3.window_chain, {"mode": m}) for m in pm3.WINDOW_MODES]
+    calls += [(pm3.vote_chain, {"mode": m}) for m in pm3.VOTE_MODES]
     for wrapper, kw in calls:
+        arg = x[0] if wrapper is pm3.vote_chain else x
         for full in (False, True):
             before = wrapper.launches
-            with Ops() as ops:
-                wrapper(x, iters=64, full=full, **kw)
+            with DispatchedOps() as ops:
+                wrapper(arg, iters=64, full=full, **kw)
             torch.cuda.synchronize()
             assert wrapper.launches == before + 1
-            assert ops.seen and all(
-                op.startswith("empty") or op in ("slice", "view")
-                for op in ops.seen), (kw, ops.seen)
+            assert ops.only_outputs(), (kw, ops.seen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", VOTE_LANES)
+def test_vote_kernel_lanes_on_card(lanes, cuda_device):
+    """The host build's vote cases on the card: each lane count (its slots
+    a thread), every mode and start, 0 to 300 iterations."""
+    before, runs = pm3.vote_chain.launches, 0
+    for i, kind in enumerate(VOTE_STARTS):
+        n0 = (torch.zeros(lanes, dtype=torch.int32) if kind == "zeros"
+              else torch.from_numpy(np.resize(start(kind, 10 + i), lanes)))
+        if kind == "deep":
+            n0[-1] = probe_mosaic3.DEEP
+        n0 = n0.to(cuda_device)
+        for mode in pm3.VOTE_MODES:
+            for iters in (0, 7, 64, 300):
+                kw = {"mode": mode, "iters": iters, "full": True}
+                got = pm3.vote_chain(n0, **kw)
+                torch.cuda.synchronize()
+                assert_same(got, pm3.vote_chain_reference(n0, **kw))
+                runs += 1
+    assert pm3.vote_chain.launches == before + runs
 
 
 @pytest.mark.cuda
@@ -628,5 +650,11 @@ def test_kernel_attributes_on_card(cuda_device):
             lb, 4 * words, 0)
     a = pm3.window_attributes(2048, mode="concat")
     assert (a["lanes"], a["shared_bytes"], a["local_bytes"]) == (8, 0, 0)
+    for mode in pm3.VOTE_MODES:  # one warp holds every lane
+        for lanes in VOTE_LANES:
+            a = pm3.vote_attributes(lanes, mode=mode)
+            assert (a["lanes"], a["threads"], a["shared_bytes"],
+                    a["static_shared"], a["local_bytes"]) == (
+                        lanes, 32, 0, 0, 0)
     assert pm3.onehot_attributes(pm3.MAX_ONEHOT_ROWS, reduce="sum")[
         "shared_bytes"] == 232448
