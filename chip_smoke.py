@@ -55,10 +55,9 @@ the port's native host library into
    realweight_step's registers
    and spills (none allowed), blocks, threads and shared memory a block,
    and an iteration's split into a round's ns and a fixed part from y4's
-   and y6's slopes, beside the split before its unrolled, pipelined
-   design; tinyops_chain's ns and cycles a round from its main row's
-   slope beside the round's before its redesign, and (a model at assumed
-   latencies) the loop's SASS chain a round (``tools/sass_chain.py``);
+   and y6's slopes; tinyops_chain's ns and cycles a round from its main
+   row's slope, and (a model at assumed latencies) the loop's SASS chain
+   a round (``tools/sass_chain.py``);
 8. the mosaic probe kernels (``csrc/probes_mosaic.cu``): every row of
    ``lzma_rs_tpu_torch/tools/probe_mosaic.py`` (15) and
    ``probe_mosaic2.py`` (6) on the tool's input and on a seeded one
@@ -66,10 +65,13 @@ the port's native host library into
    +-2^31, so they wrap in int32 before the floor mod), timed as in
    phase 7 at the tool's own iterations (512, 64), 8,192 and 0; then each
    row's kernel against its plain version on both inputs, bit for bit
-   (output, final table, carried state); P5's kernel (a block a lane, the
-   column in shared memory) with its registers and spills (none
-   allowed), blocks, threads and shared memory a block, and its slope an
-   iteration beside the thread-a-lane design's; gather_sum's threads an
+   (output, final table, carried state); P4's kernel (a thread a lane,
+   its two source words in registers) and P5's (a block a lane, the
+   column in shared memory) with their lanes and threads a block, blocks,
+   SMs, registers and spills (none allowed) and shared memory a block,
+   each row's ns and cycles an iteration, call and set-up, and P4's loop
+   from ``cuobjdump -sass`` (no load inside it, none allowed; its chain
+   at assumed latencies, a model); gather_sum's threads an
    output, threads a block, blocks and SMs a row, and the library call on
    its main row (C [128, 2048]: ``torch.gather`` and a sum, the index
    built outside the timed region, held equal to the kernel's output;
@@ -92,12 +94,13 @@ the port's native host library into
    and 0 (per iteration run: from the tool's zeros P7-P9 leave after 10
    at both counts, and have no slope); each row's kernel against its
    plain version on both inputs, bit for bit (output, carried state,
-   P16's scratch); the kernel of each vote, one-hot and window row (P7-P9
-   one warp for all lanes, P10, P12s-P16) with its lanes and threads a
+   P16's scratch); the kernel of each row (P7-P9 one warp for all lanes,
+   P10, P11a/b a thread a lane, P12s-P16) with its lanes and threads a
    block, blocks, SMs, registers, spills (none allowed) and shared memory
-   a block; and whether nvcc made
-   one SASS of P11a's variable shift and P11b's select
-   (``cuobjdump -sass``);
+   a block; and from ``cuobjdump -sass`` whether nvcc made one SASS of
+   P11a's byte pick and P11b's select, and each one's pass of four steps:
+   its PRMTs, variable shifts and selects (P11a must hold a PRMT a step
+   and no variable shift);
 10. the mosaic4 probe kernel (``csrc/probes_mosaic4.cu``): the 7 rows of
     ``lzma_rs_tpu_torch/tools/probe_mosaic4.py`` (``build``'s four
     variants, ``build2``'s three) on the tool's input (zeros) and on a
@@ -500,8 +503,8 @@ def block_lines(phase: str, kernels: dict, lanes: int, entries: list,
 
 
 def mosaic3_attributes(dev) -> dict:
-    """The attributes of the kernel each vote_chain, onehot_chain and
-    window_chain row of the mosaic3 tool launches, by row."""
+    """The attributes of the kernel each row of the mosaic3 tool
+    launches, by row."""
     from lzma_rs_tpu_torch.ops import probes_mosaic3 as pm3
     from lzma_rs_tpu_torch.tools import probe_mosaic3
 
@@ -515,6 +518,8 @@ def mosaic3_attributes(dev) -> dict:
             out[name] = pm3.window_attributes(rows, **fn.kwargs)
         elif fn.wrapper is pm3.vote_chain:
             out[name] = pm3.vote_attributes(rows, **fn.kwargs)
+        else:
+            out[name] = pm3.byte_attributes(**fn.kwargs)
     return out
 
 
@@ -608,14 +613,8 @@ def probes_phase(torch, dev, phase: str, rows, wrappers, source: str,
 # slopes split an iteration into its rounds and a fixed part
 REALWEIGHT_SPLIT = ("y4 real-weight S=8 nops=500", 166,
                     "y6 real-weight S=8 nops=250", 83)
-# realweight_step's split before its unrolled, pipelined design: ns a
-# round and ns fixed an iteration, on the tool's and the seeded input (the
-# earlier build's y4 and y6 in turns with the redesign's on one H100 80GB
-# HBM3 at 700.00 W; PERF.md §6)
-REALWEIGHT_BEFORE = {"tool": (28.788, 100.99), "seeded": (28.788, 101.0)}
-# P5's ns an iteration in its first, thread-a-lane design (PERF.md §6)
-SEGMENTS_BEFORE_NS = 134_600.0
-SEGMENTS_ROW = "P5 static-slice swap with carried mask"
+SEGMENTS_ROWS = {"refill": "P4 pl.when ref write in while",
+                 "segments": "P5 static-slice swap with carried mask"}
 
 
 def realweight_split(by: dict, what: str) -> tuple:
@@ -631,7 +630,7 @@ def realweight_lines(by: dict, entries: list, peaks) -> None:
     """Phase 7's lines for realweight_step: its build's registers and
     spills (none allowed), blocks, threads and shared memory a block, and
     the split of an iteration into rounds and a fixed part (from y4's and
-    y6's slopes) beside the split before the redesign."""
+    y6's slopes)."""
     import math
 
     from lzma_rs_tpu_torch.ops import probes
@@ -649,57 +648,47 @@ def realweight_lines(by: dict, entries: list, peaks) -> None:
         f"at {lanes} lanes, {a['static_shared']} B of shared memory a block")
     for what in ("tool", "seeded"):
         per_round, fixed = realweight_split(by, what)
-        before = ("; before the redesign {:.2f} ns ({:.1f} cycles) a round, "
-                  "{:.1f} ns ({:.0f} cycles) fixed".format(
-                      *(v * k for v in REALWEIGHT_BEFORE[what]
-                        for k in (1, peaks.clock_mhz / 1e3))))
         say("7 probes", f"realweight_step [{what}], measured: a round "
             f"{per_round:.2f} ns ({per_round * peaks.clock_mhz / 1e3:.1f} "
             f"cycles), the fixed part of an iteration {fixed:.1f} ns "
             f"({fixed * peaks.clock_mhz / 1e3:.0f} cycles) ((y4 - y6) / 83 "
-            f"and y4 - 166 x that, from the slopes){before}")
+            f"and y4 - 166 x that, from the slopes)")
 
 
-def segments_lines(by: dict, entries: list, peaks) -> None:
-    """Phase 8's lines for P5 (segment_chain, mode segments): its build's
-    registers and spills (none allowed), blocks, threads and shared memory
-    a block, and its slope an iteration beside the thread-a-lane
-    design's."""
+def segments_lines(by: dict, entries: list, path: str, peaks) -> None:
+    """Phase 8's lines for segment_chain: each kernel's launch and
+    attributes (P4 a thread a lane, P5 a block a lane with its column in
+    shared memory; registers and spills, none allowed), each row's ns and
+    cycles an iteration, its call and set-up, and P4's loop from its SASS:
+    no load inside it (none allowed), and its dependent chain a round at
+    assumed latencies (a model)."""
     from lzma_rs_tpu_torch.ops import probes_mosaic as pm
     from lzma_rs_tpu_torch.tools import probe_mosaic2
 
-    a = pm.segment_attributes()
-    check(a["local_bytes"] == 0, f"phase 8: P5's kernel spills "
-          f"{a['local_bytes']} B a thread")
-    for e in entries:
-        if e["name"] == "segment_chain":
-            e.update(registers=a["registers"], local_bytes=a["local_bytes"])
     W, L = probe_mosaic2.W, probe_mosaic2.L
-    say("8 probes", f"P5: {a['registers']} registers, {a['local_bytes']} B "
-        f"local a thread (spills); a block a lane: {L} blocks of "
-        f"{pm.SEGMENT_THREADS} threads, {pm.segment_block_bytes(W)} B of "
-        f"shared memory a block (W = {W}; opted in to "
-        f"{a['max_dynamic_shared']} B)")
-    for what in ("tool", "seeded"):
-        r = by[SEGMENTS_ROW, what]
-        say("8 probes", f"P5 [{what}]: {r['ns_per_iter']:.2f} ns "
-            f"({r['cycles_per_iter']:.1f} cycles) an iteration, the slope "
-            f"from {r['iters']} to 8,192; a call at {r['iters']} iterations "
-            f"{r['ms'] * 1e3:.1f} us ({r['setup_ms'] * 1e3:.1f} us set-up); "
-            f"the thread-a-lane design {SEGMENTS_BEFORE_NS:,.0f} ns an "
-            f"iteration ({SEGMENTS_BEFORE_NS / r['ns_per_iter']:.0f}x)")
+    block_lines("8", {SEGMENTS_ROWS[m]: pm.segment_attributes(m, W)
+                      for m in pm.SEGMENT_MODES}, L, entries,
+                "segment_chain", peaks)
+    for mode, row in SEGMENTS_ROWS.items():
+        for what in ("tool", "seeded"):
+            r = by[row, what]
+            say("8 probes", f"{row.split()[0]} ({mode}) [{what}]: "
+                f"{r['ns_per_iter']:.2f} ns ({r['cycles_per_iter']:.1f} "
+                f"cycles) an iteration, the slope from {r['iters']} to "
+                f"8,192; a call at {r['iters']} iterations "
+                f"{r['ms'] * 1e3:.2f} us ({r['setup_ms'] * 1e3:.2f} us "
+                f"set-up); bound {r['bound_ms'] * 1e3:.4f} us "
+                f"({r['bound_by']})")
+    say("8 probes", "P4's loop: " + refill_sass_text(path))
 
 
-# tinyops_chain's cycles a round before the round's redesign (the main
-# row's slope on one H100 80GB HBM3 at 700.00 W; PERF.md §6)
-TINYOPS_BEFORE_CYCLES = 38.4
 TINY_ROUNDS = 50  # a tinyops iteration's rounds (probe_lane.cuh)
 
 
 def tinyops_lines(by: dict, entries: list, path: str, peaks) -> None:
     """Phase 7's lines for tinyops_chain: a round's ns and cycles from the
-    main row's slope (an iteration is 50 rounds) beside the round before
-    its redesign, and, as a model at assumed latencies (printed only), the
+    main row's slope (an iteration is 50 rounds), and, as a model at
+    assumed latencies (printed only), the
     dependent chain of the loop's SASS (``tools/sass_chain.py``, integer 4
     cycles) a round. The kernel line's entry gets the measured cycles."""
     from lzma_rs_tpu_torch.tools import sass_chain
@@ -711,8 +700,7 @@ def tinyops_lines(by: dict, entries: list, path: str, peaks) -> None:
         cyc = ns * peaks.clock_mhz / 1e3
         say("7 probes", f"tinyops_chain [{what}], measured: a round {ns:.2f} "
             f"ns ({cyc:.1f} cycles; the slope from {r['iters']} to 8,192 "
-            f"iterations of {TINY_ROUNDS} rounds); before the round's "
-            f"redesign {TINYOPS_BEFORE_CYCLES} cycles")
+            f"iterations of {TINY_ROUNDS} rounds)")
         if what == "tool":
             for e in entries:
                 if e["name"] == "tinyops_chain":
@@ -1011,13 +999,6 @@ def sass_listing(path: str) -> dict:
     return kernels
 
 
-def sass_by_kernel(path: str) -> dict:
-    """Each kernel's SASS instructions in ``path``, by mangled name, the
-    padding NOPs left out; {} without cuobjdump."""
-    return {k: [i for _, i in v if i != "NOP"]
-            for k, v in sass_listing(path).items()}
-
-
 def opcode(ins: str) -> str:
     return next(w for w in ins.split() if not w.startswith("@"))
 
@@ -1052,20 +1033,77 @@ def bisect_sass_text(path: str) -> str:
     return "; ".join(out)
 
 
-def byte_sass_text(path: str) -> str:
-    """Whether nvcc made one SASS of byte_chain's two modes (P11a's
-    variable shift, P11b's select)."""
-    sass = sass_by_kernel(path)
+def main_loop(listing) -> list:
+    """The instructions of a kernel's longest loop (its unrolled passes)."""
+    from lzma_rs_tpu_torch.tools import sass_chain
+
+    spans = sass_chain.loops(listing)
+    if not spans:
+        return []
+    lo, hi = max(spans, key=lambda s: s[1] - s[0])
+    return [ins for a, ins in listing if lo <= a <= hi]
+
+
+def variable_shift(ins: str) -> bool:
+    """A shift by a register: SHF whose shift-count operand (the third) is
+    one, not an immediate."""
+    if ins.startswith("@"):  # the guard predicate
+        ins = ins.split(None, 1)[1]
+    op, _, rest = ins.partition(" ")
+    ops = [o.strip() for o in rest.split(",")]
+    return op.startswith("SHF") and len(ops) > 2 and \
+        re.fullmatch(r"-?R\d+(\.\w+)*", ops[2]) is not None
+
+
+def byte_sass_text(path: str) -> tuple:
+    """Whether nvcc made one SASS of byte_chain's two modes, and each
+    mode's pass of four steps (its longest loop): PRMTs, variable shifts
+    and selects. Returns the text and P11a's (PRMTs, variable shifts), or
+    None where the SASS was not read."""
+    sass = sass_listing(path)
     pair = [sass[k] for k in sorted(sass) if "byte_chain_kernel" in k]
     if len(pair) != 2:
-        return f"not measured (cuobjdump found {len(pair)} byte kernels)"
-    shift, select = pair  # template argument 0 (shift) sorts first
-    if shift == select:
-        return f"one SASS, {len(shift)} instructions for both modes"
-    ops = [" ".join(next(w for w in i.split() if not w.startswith("@"))
-                    for i in k) for k in (shift, select)]
-    return (f"two SASS: shift {len(shift)} instructions [{ops[0]}], select "
-            f"{len(select)} [{ops[1]}]")
+        return (f"not measured (cuobjdump found {len(pair)} byte kernels)",
+                None)
+    same = [i for _, i in pair[0] if i != "NOP"] == \
+        [i for _, i in pair[1] if i != "NOP"]
+    counts, out = {}, []
+    # template argument 0 (shift, P11a) sorts first
+    for mode, listing in zip(("P11a shift", "P11b select"), pair):
+        body = main_loop(listing)
+        ops = [opcode(i).split(".")[0] for i in body]
+        n = (ops.count("PRMT"), sum(map(variable_shift, body)),
+             ops.count("SEL") + sum(i.startswith("@") for i in body))
+        counts[mode] = n
+        out.append(f"{mode}: {len(body)} instructions a pass of 4 steps, "
+                   f"{n[0]} PRMT ({'holds a PRMT' if n[0] else 'no PRMT'}),"
+                   f" {n[1]} variable shifts, {n[2]} selects or predicated "
+                   "instructions")
+    head = "one SASS for both modes" if same else "two SASS"
+    return f"{head}; " + "; ".join(out), counts["P11a shift"][:2]
+
+
+def refill_sass_text(path: str) -> str:
+    """P4's kernel (``refill_kernel`` of the mosaic library): its loads
+    inside a loop (a global load on its chain fails the phase), and its
+    pass of 8 steps' dependent chain at assumed latencies (a model,
+    ``tools/sass_chain.py``)."""
+    from lzma_rs_tpu_torch.tools import sass_chain
+
+    kern = [v for k, v in sass_listing(path).items() if "refill_kernel" in k]
+    if len(kern) != 1:
+        return f"not measured (cuobjdump found {len(kern)} refill kernels)"
+    inside, total = loads_in_loops(kern[0])
+    check(inside == 0, f"phase 8: P4's loop holds {inside} loads")
+    body = main_loop(kern[0])
+    adds = sum(opcode(i).startswith(("IADD", "IMAD.IADD")) for i in body)
+    cyc = sass_chain.chain_cycles(body)
+    return (f"{inside} of its {total} loads inside a loop (the two source "
+            f"words read before it); the pass of 8 steps {len(body)} "
+            f"instructions, {adds} adds; a model, not a measurement: its "
+            f"chain {cyc:.1f} cycles a pass at {sass_chain.ALU} cycles an "
+            f"integer instruction ({cyc / sass_chain.ALU / 8:.2f} dependent "
+            "instructions a step)")
 
 
 def ptxas_summary(log: str) -> str:
@@ -2393,7 +2431,8 @@ def main() -> None:
         + probe_mosaic2.ROWS_OF_TOOL, probes_mosaic.WRAPPERS,
         "lzma_rs_tpu_torch/csrc/probes_mosaic.cu", MOSAIC_REPLACES,
         MOSAIC_MAIN_ROW)
-    segments_lines(by, entries, peaks)
+    segments_lines(by, entries, build.build_library(build.MOSAIC).path,
+                   peaks)
     gather_lines(torch, dev, by, entries, peaks)
     rw_lines(torch, dev, by, entries, peaks)
     row_lines(torch, dev, by, entries, peaks)
@@ -2408,10 +2447,13 @@ def main() -> None:
         "lzma_rs_tpu_torch/csrc/probes_mosaic3.cu", MOSAIC3_REPLACES,
         MOSAIC3_MAIN_ROW)[0]
     block_lines("9", mosaic3_attributes(dev), probe_mosaic3.L, entries,
-                ("vote_chain", "onehot_chain", "window_chain"), peaks)
+                ("vote_chain", "byte_chain", "onehot_chain", "window_chain"),
+                peaks)
     probe_entries += entries
-    say("9 probes", "byte_chain (P11a shift, P11b select): "
-        + byte_sass_text(build.build_library(build.MOSAIC3).path))
+    text, shift = byte_sass_text(build.build_library(build.MOSAIC3).path)
+    say("9 probes", "byte_chain (P11a shift, P11b select): " + text)
+    check(shift is None or shift == (4, 0), "phase 9: P11a's pass of four "
+          f"steps holds {shift} (PRMTs, variable shifts), want (4, 0)")
 
     # -- 10. the mosaic4 probe kernel --------------------------------
     from lzma_rs_tpu_torch.ops import probes_mosaic4, probes_round4

@@ -547,31 +547,57 @@ LZM_FN void row_launch(int mode, int W, int* out) {
   out[2] = byte ? out[0] * byte_rows(W) * 4 : 0;
 }
 
-// p4 on a lane-minor table x ([W, L]), one lane; state: [2, L], the acc
-// of rows 0 and 1: every 8th step s = x[0:2] + i; acc += s.
+// p4's step on its two rows: acc += s. On the card an empty asm after
+// each step keeps nvcc from folding a round's eight adds into one multiply
+// (a closed form). ptxas still builds the adds its own way: in the H100
+// build row 1 takes x1 + i into each step's add, one IADD3 a step, eight
+// dependent a round, and row 0 adds s twice in one IADD3, four a round
+// (chip_smoke.py phase 8 models the loop's chain from its SASS). Row 1's
+// chain sets the step's time.
+LZM_FN void refill_add(uint32_t& acc0, uint32_t& acc1, uint32_t s0,
+                       uint32_t s1) {
+  acc0 += s0;
+  acc1 += s1;
+#if defined(__CUDA_ARCH__)
+  asm volatile("" : "+r"(acc0), "+r"(acc1));
+#endif
+}
+
+constexpr int kRefillEvery = 8;  // p4: s = x[0:2] + i where i % 8 == 0
+
+// p4 on a lane-minor table x ([W, L]), one lane, from acc = 0: every 8th
+// step s = x[0:2] + i; acc += s. Nothing writes x, so the lane's two
+// source words are read once, before the loop, into registers (the TPU
+// probe's x_ref in VMEM), and its scratch s is two registers. Rounds of
+// 8 steps, the refill at each round's start (i % 8 == 0 there), then the
+// last round's steps; state: [2, L], the acc of rows 0 and 1, written.
 LZM_FN void refill_lane(const int32_t* x, int L, int lane, int32_t* state,
                         int iters) {
   const size_t sL = size_t(L);
-  uint32_t acc0 = uint32_t(state[lane]), acc1 = uint32_t(state[sL + lane]);
-  uint32_t s0 = 0, s1 = 0;
+  const uint32_t x0 = uint32_t(x[lane]), x1 = uint32_t(x[sL + lane]);
+  uint32_t acc0 = 0, acc1 = 0;
+  int i = 0;
   LZM_UNROLL(unroll 1)
-  for (int i = 0; i < iters; ++i) {
-    if (i % 8 == 0) {
-      s0 = uint32_t(x[lane]) + uint32_t(i);
-      s1 = uint32_t(x[sL + lane]) + uint32_t(i);
-    }
-    acc0 += s0;
-    acc1 += s1;
+  for (; i < iters - (kRefillEvery - 1); i += kRefillEvery) {
+    const uint32_t s0 = x0 + uint32_t(i), s1 = x1 + uint32_t(i);
+    LZM_UNROLL(unroll)
+    for (int k = 0; k < kRefillEvery; ++k) refill_add(acc0, acc1, s0, s1);
+  }
+  if (i < iters) {
+    const uint32_t s0 = x0 + uint32_t(i), s1 = x1 + uint32_t(i);
+    LZM_UNROLL(unroll 1)
+    for (; i < iters; ++i) refill_add(acc0, acc1, s0, s1);
   }
   state[lane] = wrap(acc0);
   state[sL + lane] = wrap(acc1);
 }
 
 // p5, one block a lane. The lane's column (W rows of a lane-minor [W, L]
-// table) lives in the block's shared memory from staging to write-back;
-// each step, of its four segments of S = W / 4 rows the one equal to
-// `mask` gets +1 (written back), total adds each segment's max, and mask
-// = (mask + 1) % 4. state: [2, L], total then mask.
+// table x) lives in the block's shared memory from staging to the write
+// into the output table; each step, of its four segments of S = W / 4
+// rows the one equal to `mask` gets +1 (written back), total adds each
+// segment's max, and mask = (mask + 1) % 4, from total = mask = 0.
+// state: [2, L], total then mask, written.
 //
 // Warp w walks segment w % 4 (two warps a segment): thread t is rank
 // seg_rank(t) of its segment's kSegGroup threads and owns rows u, u +
@@ -602,19 +628,20 @@ LZM_FN size_t seg_block_bytes(int W) {
   return (size_t(kSegSlots) + size_t(W)) * sizeof(int32_t);
 }
 
-// Thread t's rows (r = t, t + kSegThreads, ...) between the lane's column
-// of x and the block's copy col: in (kIn) or back. The block meets at a
-// barrier between this and the steps.
-template <bool kIn>
-LZM_FN void seg_copy(int32_t* x, int W, int L, int lane, int32_t* col,
-                     int t) {
-  for (int r = t; r < W; r += kSegThreads) {
-    int32_t* g = x + size_t(r) * L + lane;
-    if (kIn)
-      col[r] = *g;
-    else
-      *g = col[r];
-  }
+// Thread t's rows (r = t, t + kSegThreads, ...) of the lane's column:
+// from the input x into the block's copy col, or at the end from col into
+// the output table (x is not written). The block meets at a barrier
+// between the staging and the steps.
+LZM_FN void seg_stage(const int32_t* x, int W, int L, int lane,
+                      int32_t* col, int t) {
+  for (int r = t; r < W; r += kSegThreads)
+    col[r] = x[size_t(r) * L + lane];
+}
+
+LZM_FN void seg_write(const int32_t* col, int W, int L, int lane,
+                      int32_t* table, int t) {
+  for (int r = t; r < W; r += kSegThreads)
+    table[size_t(r) * L + lane] = col[r];
 }
 
 LZM_FN int32_t max_of(int32_t a, int32_t b) { return a > b ? a : b; }
@@ -685,9 +712,9 @@ LZM_FN void seg_take(int32_t* red, int t, uint32_t* part) {
 }
 
 // After the last barrier, with each thread's part in red[t] (t <
-// kSegSlots): the lane's total, from its start.
-LZM_FN int32_t seg_total(const int32_t* red, int32_t start) {
-  uint32_t total = uint32_t(start);
+// kSegSlots): the lane's total, from 0.
+LZM_FN int32_t seg_total(const int32_t* red) {
+  uint32_t total = 0;
   for (int t = 0; t < kSegSlots; ++t) total += uint32_t(red[t]);
   return wrap(total);
 }
@@ -950,14 +977,18 @@ int lzm_row_copy_blocks(int mode, int W, int iters) {
   return lzm::copy_blocks(mode, W, iters);
 }
 
-// p5 as host loops over blocks (lanes), warps and their 32 ranks: each
-// block stages its column, runs every step (a warp's max over its ranks
-// for __reduce_max_sync, kept by the lane of the step's place), posts and
-// combines at each chunk's end and writes back.
-int lzm_segment_chain(int mode, int32_t* x, int W, int L, int32_t* state,
-                      int iters, void* /*stream*/) {
+// p4 lane by lane (its two words read, then its rounds); p5 as host
+// loops over blocks (lanes), warps and their 32 ranks: each block stages
+// its column, runs every step (a warp's max over its ranks for
+// __reduce_max_sync, kept by the lane of the step's place), posts and
+// combines at each chunk's end and writes the column into `table`.
+int lzm_segment_chain(int mode, const int32_t* x, int W, int L,
+                      int32_t* state, int32_t* table, int iters,
+                      void* /*stream*/) {
   using namespace lzm;
-  if (bad_segment(mode, W, L, iters)) return ERR_ARGS;
+  if (bad_segment(mode, W, L, iters) ||
+      (mode == SEG_SEGMENTS) != (table != nullptr))
+    return ERR_ARGS;
   if (mode == SEG_REFILL) {
     for (int l = 0; l < L; ++l) refill_lane(x, L, l, state, iters);
     return 0;
@@ -968,11 +999,11 @@ int lzm_segment_chain(int mode, int32_t* x, int W, int L, int32_t* state,
   std::vector<uint32_t> part(kSegSlots);
   for (int lane = 0; lane < L; ++lane) {
     for (int t = 0; t < kSegThreads; ++t)
-      seg_copy<true>(x, W, L, lane, col.data(), t);
+      seg_stage(x, W, L, lane, col.data(), t);
     std::fill(red.begin(), red.end(), INT32_MIN);
     std::fill(kept.begin(), kept.end(), INT32_MIN);
     std::fill(part.begin(), part.end(), 0u);
-    int mask = floor_mod(state[size_t(L) + lane], 4);
+    int mask = 0;
     for (int i = 0; i < iters; ++i) {
       for (int w = 0; w < kSegWarps; ++w) {
         const int s = seg_of(w * 32);
@@ -995,10 +1026,10 @@ int lzm_segment_chain(int mode, int32_t* x, int W, int L, int32_t* state,
       }
     }
     for (int t = 0; t < kSegSlots; ++t) red[t] = wrap(part[t]);
-    state[lane] = seg_total(red.data(), state[lane]);
+    state[lane] = seg_total(red.data());
     state[size_t(L) + lane] = mask;
     for (int t = 0; t < kSegThreads; ++t)
-      seg_copy<false>(x, W, L, lane, col.data(), t);
+      seg_write(col.data(), W, L, lane, table, t);
   }
   return 0;
 }

@@ -12,7 +12,9 @@
 // the 32 (the card's warp vote); onehot_chain and window_chain stage each
 // block's slice by all its ranks (probe_stage.cuh) before any lane runs,
 // and a window step takes the max of the warp's 32 ranks (the card's
-// __reduce_max_sync) before the lane goes on.
+// __reduce_max_sync) before the lane goes on; byte_chain runs its passes
+// of four steps, then the remainder, and its byte permute is the host's C
+// form of the card's PRMT (byte_perm).
 //
 // Integer semantics are the probes': wrapping int32 (every add that can
 // wrap is done in uint32_t and converted back), an arithmetic >> of int32,
@@ -161,28 +163,67 @@ LZM3_WARP_FN int vote_loop(Warp& w, int iters, int& flag) {
   }
 }
 
-// P11a (a variable per-lane shift) and P11b (a 4-way select of constant
-// shifts), written as the probe writes them; the same value.
-template <int kMode>
-LZM_FN int32_t byte_step(int32_t v, int i) {
-  int32_t b;
-  if (kMode == BYTE_SHIFT) {
-    b = (v >> ((v & 3) * 8)) & 0xFF;
-  } else {
-    const int32_t k = v & 3;
-    b = k == 0   ? v & 0xFF
-        : k == 1 ? (v >> 8) & 0xFF
-        : k == 2 ? (v >> 16) & 0xFF
-                 : (v >> 24) & 0xFF;
+// The byte permute of the pair (v, 0) by selector s: byte n of the result
+// is byte (s >> 4 n) & 7 of the 8 bytes v, 0 (bytes 4-7 zero). On the card
+// __byte_perm, one PRMT; on the host the same rule in C (the tests hold it
+// against the probe's shift).
+LZM_FN uint32_t byte_perm(uint32_t v, uint32_t s) {
+#if defined(__CUDA_ARCH__)
+  return __byte_perm(v, 0u, s);
+#else
+  uint32_t r = 0;
+  for (int n = 0; n < 4; ++n) {
+    const uint32_t k = (s >> (4 * n)) & 7u;
+    r |= (k < 4 ? (v >> (8 * k)) & 0xFFu : 0u) << (8 * n);
   }
-  return wrap(uint32_t(b) + uint32_t(i));
+  return r;
+#endif
 }
 
+// P11a's selector is (v & 3) | kBytePick: byte v & 3 of v into byte 0,
+// byte 4 (a zero) into bytes 1-3, so the permute is (v >> 8 (v & 3)) &
+// 0xFF for every int32 v. The card's kernel takes kBytePick as an argument,
+// so ptxas holds it in a register and the selector is one LOP3 ((v & 3) |
+// pick); as a constant it took two (an and, then an or).
+constexpr uint32_t kBytePick = 0x4440u;
+
+// One step of P11a (a variable per-lane byte pick) or P11b (a select of
+// four constant shifts): the byte of v that v & 3 names, plus i. P11a is
+// the byte permute: LOP3 (the selector), PRMT, the add. P11b forms the
+// four candidate bytes from v, which do not wait on k = v & 3, then picks
+// by k's two bits, two selects deep, then adds i.
 template <int kMode>
-LZM_FN int32_t byte_chain_lane(int32_t v, int iters) {
+LZM_FN uint32_t byte_step(uint32_t v, uint32_t i, uint32_t pick) {
+  uint32_t b;
+  if (kMode == BYTE_SHIFT) {
+    b = byte_perm(v, (v & 3u) | pick);
+  } else {
+    const uint32_t b0 = v & 0xFFu, b1 = (v >> 8) & 0xFFu;
+    const uint32_t b2 = (v >> 16) & 0xFFu, b3 = v >> 24;
+    const uint32_t lo = (v & 1u) ? b1 : b0, hi = (v & 1u) ? b3 : b2;
+    b = (v & 2u) ? hi : lo;
+  }
+  return b + i;
+}
+
+// A lane's chain: passes of kByteUnroll steps (the loop's counter, test
+// and branch off the chain, a step's i the pass's base plus a constant),
+// then the remainder one step at a time; exact for any iters >= 0.
+constexpr int kByteUnroll = 4;
+
+template <int kMode>
+LZM_FN int32_t byte_chain_lane(int32_t v0, int iters, uint32_t pick) {
+  uint32_t v = uint32_t(v0);
+  int i = 0;
   LZM_UNROLL(unroll 1)
-  for (int i = 0; i < iters; ++i) v = byte_step<kMode>(v, i);
-  return v;
+  for (; i < iters - (kByteUnroll - 1); i += kByteUnroll) {
+    LZM_UNROLL(unroll)
+    for (int u = 0; u < kByteUnroll; ++u)
+      v = byte_step<kMode>(v, uint32_t(i) + uint32_t(u), pick);
+  }
+  LZM_UNROLL(unroll 1)
+  for (; i < iters; ++i) v = byte_step<kMode>(v, uint32_t(i), pick);
+  return wrap(v);
 }
 
 LZM_FN int onehot_lanes(int R) { return lanes_per_block(R, kOnehotLanes); }
@@ -523,9 +564,21 @@ int lzm3_byte_chain(int mode, const int32_t* v0, int L, int32_t* v,
   if (lzm3::bad_byte(mode, L, iters)) return lzm3::ERR_ARGS;
   for (int l = 0; l < L; ++l)
     v[l] = mode == lzm3::BYTE_SHIFT
-               ? lzm3::byte_chain_lane<lzm3::BYTE_SHIFT>(v0[l], iters)
-               : lzm3::byte_chain_lane<lzm3::BYTE_SELECT>(v0[l], iters);
+               ? lzm3::byte_chain_lane<lzm3::BYTE_SHIFT>(v0[l], iters,
+                                                         lzm3::kBytePick)
+               : lzm3::byte_chain_lane<lzm3::BYTE_SELECT>(v0[l], iters,
+                                                          lzm3::kBytePick);
   return 0;
+}
+
+// The host's byte permute of each v[j] with 0 (tests only): by selector
+// s, or by P11a's own ((v[j] & 3) | kBytePick) where s is -1.
+void lzm3_byte_perm(const int32_t* v, int n, int s, int32_t* out) {
+  for (int j = 0; j < n; ++j) {
+    const uint32_t u = uint32_t(v[j]);
+    out[j] = lzm3::wrap(lzm3::byte_perm(
+        u, s == -1 ? (u & 3u) | lzm3::kBytePick : uint32_t(s)));
+  }
 }
 
 int lzm3_onehot_chain(int reduce, int unroll, const int32_t* x, int R, int L,

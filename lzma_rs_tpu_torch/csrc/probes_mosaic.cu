@@ -68,10 +68,18 @@
 //     the unvisited rows by 16-byte loads and stores. Bound by the loads'
 //     latency and the launch. Both start from the probes' zeros and write
 //     their state: a call is one launch.
-//   - segment_chain: p4 is one thread per lane re-reading two rows every
-//     8th step (most of its time is set-up). p5 is a vector pass over the
-//     whole table each step on the TPU (+1 on one segment, a max over rows
-//     on four): a lane's rows are not a serial chain, only the table,
+//   - segment_chain: p4 is one serial chain of adds a lane (acc += s on
+//     two rows, s = x[0:2] + i every 8th step), a thread a lane in blocks
+//     of kBlock = 128 (latency-bound: four warps, one a scheduler).
+//     Nothing in p4 writes x, so the lane's two source words are read
+//     once, coalesced, into registers before the loop (the TPU probe holds
+//     x_ref in VMEM), its scratch s is two registers, and no load is left
+//     on the chain: rounds of 8 steps with the refill at each round's
+//     start, no closed form of a round (probe_mosaic.cuh: refill_lane,
+//     refill_add; chip_smoke.py phase 8 reads that the loop loads
+//     nothing). Bound by the add chain and the launch. p5 is a vector pass
+//     over the whole table each step on the TPU (+1 on one segment, a max
+//     over rows on four): a lane's rows are not a serial chain, only the table,
 //     mask and total carry from step to step. So a block is a lane (the
 //     tool's 128 lanes are 128 blocks on 132 SMs): it stages the lane's
 //     column (8 KiB at W = 2,048) into shared memory once, and its 256
@@ -85,7 +93,9 @@
 //     prices. Bound by the step's shared loads and their latency, and the
 //     warp reduction's; the table's bytes are read once. A column
 //     over kSegMaxRows (58,048 rows: the column and the slots in 227 KB)
-//     is refused (ERR_ARGS): there is no device-memory route.
+//     is refused (ERR_ARGS): there is no device-memory route. Both start
+//     from the probes' zeros and write their state, p5 its final column
+//     into a new table (x is not written): a call is one launch.
 // Each launcher checks its arguments, launches on `stream` and returns
 // cudaGetLastError() (0 = launched), a CUDA error of the opt-in, or
 // lzm::ERR_ARGS.
@@ -214,6 +224,7 @@ __global__ void __launch_bounds__(lzm::kRowThreads)
   }
 }
 
+// p4: a thread a lane, kBlock a block (probe_mosaic.cuh: refill_lane).
 __global__ void __launch_bounds__(kBlock)
     refill_kernel(const int32_t* __restrict__ x, int L,
                   int32_t* __restrict__ state, int iters) {
@@ -223,10 +234,12 @@ __global__ void __launch_bounds__(kBlock)
 }
 
 // p5: block b is lane b (probe_mosaic.cuh: the column in shared memory,
-// a warp a segment, a barrier pair every kSegChunk steps).
+// a warp a segment, a barrier pair every kSegChunk steps); the final
+// column goes into `table`, x is not written.
 __global__ void __launch_bounds__(lzm::kSegThreads)
-    segments_kernel(int32_t* __restrict__ x, int W, int L,
-                    int32_t* __restrict__ state, int iters) {
+    segments_kernel(const int32_t* __restrict__ x, int W, int L,
+                    int32_t* __restrict__ state,
+                    int32_t* __restrict__ table, int iters) {
   using namespace lzm;
   extern __shared__ int32_t smem[];
   int32_t* const red = smem;
@@ -238,9 +251,9 @@ __global__ void __launch_bounds__(lzm::kSegThreads)
   int s = seg_of(t), u = seg_rank(t), r = t & 31;
   asm volatile("" : "+r"(s), "+r"(u), "+r"(r));
   int32_t* const seg = col + s * S;
-  seg_copy<true>(x, W, L, lane, col, t);
+  seg_stage(x, W, L, lane, col, t);
   if (t < kSegSlots) red[t] = INT32_MIN;
-  int mask = floor_mod(state[size_t(L) + lane], 4);
+  int mask = 0;
   uint32_t part = 0;
   int32_t kept = INT32_MIN;
   __syncthreads();
@@ -261,10 +274,10 @@ __global__ void __launch_bounds__(lzm::kSegThreads)
   if (t < kSegSlots) red[t] = wrap(part);
   __syncthreads();
   if (t == 0) {
-    state[lane] = seg_total(red, state[lane]);
+    state[lane] = seg_total(red);
     state[size_t(L) + lane] = mask;
   }
-  seg_copy<false>(x, W, L, lane, col, t);
+  seg_write(col, W, L, lane, table, t);
 }
 
 constexpr int kMaxDevices = 64;  // devices whose opt-in is remembered
@@ -491,12 +504,16 @@ int lzm_row_attributes(int mode, int W, int* out) {
   return lzk::kernel_attributes(fn, out);
 }
 
-// x: [W, L] int32 (updated in place by SEG_SEGMENTS); state: [2, L], the
-// start in, the end out. SEG_SEGMENTS: W <= kSegMaxRows, one block of
-// kSegThreads a lane.
-int lzm_segment_chain(int mode, int32_t* x, int W, int L, int32_t* state,
-                      int iters, void* stream) {
-  if (lzm::bad_segment(mode, W, L, iters)) return lzm::ERR_ARGS;
+// x: [W, L] int32, not changed; state: [2, L], written (both chains start
+// from zeros); table: [W, L] int32, SEG_SEGMENTS's final table (written),
+// else null. SEG_SEGMENTS: W <= kSegMaxRows, one block of kSegThreads a
+// lane; SEG_REFILL: a thread a lane.
+int lzm_segment_chain(int mode, const int32_t* x, int W, int L,
+                      int32_t* state, int32_t* table, int iters,
+                      void* stream) {
+  if (lzm::bad_segment(mode, W, L, iters) ||
+      (mode == lzm::SEG_SEGMENTS) != (table != nullptr))
+    return lzm::ERR_ARGS;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (L == 0) return static_cast<int>(cudaGetLastError());
   if (mode == lzm::SEG_REFILL) {
@@ -505,7 +522,7 @@ int lzm_segment_chain(int mode, int32_t* x, int W, int L, int32_t* state,
     const cudaError_t e = opt_in(segments_kernel, segments_opted);
     if (e != cudaSuccess) return static_cast<int>(e);
     segments_kernel<<<L, lzm::kSegThreads, lzm::seg_block_bytes(W), s>>>(
-        x, W, L, state, iters);
+        x, W, L, state, table, iters);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -513,9 +530,18 @@ int lzm_segment_chain(int mode, int32_t* x, int W, int L, int32_t* state,
 // The most rows of a p5 column.
 int lzm_segment_max_rows() { return lzm::kSegMaxRows; }
 
-// p5's kernel: see attributes.
-int lzm_segment_attributes(int* out) {
-  return attributes(segments_kernel, &segments_opted, out);
+// segment_chain's kernel for `mode` at W rows: out[0..3] as attributes()
+// gives them (after p5's opt-in), out[4] lanes a block (p4 a thread a
+// lane; p5 a block a lane), out[5] threads a block, out[6] dynamic shared
+// memory a block (p5's slots and column; p4 none).
+int lzm_segment_attributes(int mode, int W, int* out) {
+  if (lzm::bad_segment(mode, W, 1, 0)) return lzm::ERR_ARGS;
+  const bool refill = mode == lzm::SEG_REFILL;
+  out[4] = refill ? kBlock : 1;
+  out[5] = refill ? kBlock : lzm::kSegThreads;
+  out[6] = refill ? 0 : int(lzm::seg_block_bytes(W));
+  return refill ? attributes(refill_kernel, nullptr, out)
+                : attributes(segments_kernel, &segments_opted, out);
 }
 
 const char* lzm_error_string(int code) {

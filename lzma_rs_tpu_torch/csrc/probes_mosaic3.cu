@@ -30,10 +30,20 @@
 //     barrier and no shared memory. Each iteration votes, branches on
 //     the vote, then runs the body (probe_mosaic3.cuh: vote_loop): no
 //     vote runs ahead of its iteration. Its state is written by thread 0.
-//   - byte_chain: one thread per lane, a dependent chain of a few integer
-//     operations; P11a's shift by 8 (v & 3) and P11b's select of four
-//     constant shifts are written as the probe writes them, so the SASS
-//     shows whether nvcc makes them one code.
+//   - byte_chain: one thread per lane (blocks of kBlock = 128: the chain
+//     is latency-bound, four warps on an SM's four schedulers), one serial
+//     chain of a few integer operations a step, each step's byte picked by
+//     the one before it. Bound by the chain's dependent instructions, so a
+//     step is the fewest this card has for each mode
+//     (probe_mosaic3.cuh: byte_step): P11a's pick of byte v & 3 is one
+//     byte permute (PRMT, its selector (v & 3) | 0x4440 one LOP3 with the
+//     constant held in a register: the kernel takes it as an argument),
+//     then the add of i; P11b's select of four constant shifts forms the
+//     four bytes before k = v & 3 resolves and picks by k's two bits, two
+//     selects deep. Passes of four steps
+//     keep the loop's counter and branch off the chain, each step's i a
+//     base plus a constant; the remainder runs a step at a time.
+//     chip_smoke.py phase 9 reads whether each mode's loop holds a PRMT.
 //   - onehot_chain and window_chain: the TPU probes hold the whole table
 //     in VMEM, the TPU core's on-chip memory (P16 also its two chunks in a
 //     (64, L) VMEM scratch); a Hopper block's shared memory plays VMEM's
@@ -64,9 +74,10 @@
 //     an and where 16 W is a power of two. Its scratch is the ranks' last
 //     two words, written only where asked for (full=True).
 // These two and vote_chain start from the probes' zeros and write their
-// state: a call is one launch. Threads of lanes past L in the last block
-// stage and meet the barrier, then run no chain and store nothing. The
-// staging is probe_stage.cuh's, which row_chain's P6 shares.
+// state, and byte_chain reads v0 and writes v: a call is one launch.
+// Threads of lanes past L in the last block stage and meet the barrier,
+// then run no chain and store nothing. The staging is probe_stage.cuh's,
+// which row_chain's P6 shares.
 // Each launcher checks its arguments, opts its kernel in to the block's
 // dynamic shared memory (where it has any), launches on `stream` and
 // returns cudaGetLastError() (0 = launched) or lzm3::ERR_ARGS.
@@ -113,13 +124,15 @@ __global__ void __launch_bounds__(lzm3::kWarp)
   }
 }
 
+// A thread a lane; `pick` is lzm3::kBytePick (an argument, so that it
+// stays in a register: probe_mosaic3.cuh).
 template <int kMode>
 __global__ void __launch_bounds__(kBlock)
     byte_chain_kernel(const int32_t* __restrict__ v0, int L,
-                      int32_t* __restrict__ v, int iters) {
+                      int32_t* __restrict__ v, int iters, uint32_t pick) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= L) return;
-  v[lane] = lzm3::byte_chain_lane<kMode>(v0[lane], iters);
+  v[lane] = lzm3::byte_chain_lane<kMode>(v0[lane], iters, pick);
 }
 
 template <int kReduce, int kUnroll, bool kPow2>
@@ -322,10 +335,10 @@ int lzm3_byte_chain(int mode, const int32_t* v0, int L, int32_t* v,
   if (L > 0) {
     if (mode == lzm3::BYTE_SHIFT)
       byte_chain_kernel<lzm3::BYTE_SHIFT><<<blocks(L), kBlock, 0, s>>>(
-          v0, L, v, iters);
+          v0, L, v, iters, lzm3::kBytePick);
     else
       byte_chain_kernel<lzm3::BYTE_SELECT><<<blocks(L), kBlock, 0, s>>>(
-          v0, L, v, iters);
+          v0, L, v, iters, lzm3::kBytePick);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -368,6 +381,15 @@ int lzm3_onehot_attributes(int reduce, int unroll, int R, int* out) {
 int lzm3_window_attributes(int mode, int W, int* out) {
   if (lzm3::bad_window(mode, W, 1, 1)) return lzm3::ERR_ARGS;
   return attributes(window_kernel(mode, W), out);
+}
+
+// byte_chain's kernel for `mode`: a thread a lane, kBlock a block.
+int lzm3_byte_attributes(int mode, int* out) {
+  if (lzm3::bad_byte(mode, 1, 1)) return lzm3::ERR_ARGS;
+  const void* fn = mode == lzm3::BYTE_SHIFT
+                       ? (const void*)byte_chain_kernel<lzm3::BYTE_SHIFT>
+                       : (const void*)byte_chain_kernel<lzm3::BYTE_SELECT>;
+  return attributes({fn, kBlock, 0, kBlock}, out);
 }
 
 // vote_chain's kernel at L lanes: out[5] is L (one warp holds them all).

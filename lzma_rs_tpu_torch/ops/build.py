@@ -347,7 +347,7 @@ def bind_mosaic(lib: ctypes.CDLL) -> ctypes.CDLL:
                               vp]),
         (lib.lzm_rw_chain, [ci, vp, ci, ci, vp, vp, ci, vp]),
         (lib.lzm_row_chain, [ci, vp, ci, ci, vp, vp, ci, vp]),
-        (lib.lzm_segment_chain, [ci, vp, ci, ci, vp, ci, vp]),
+        (lib.lzm_segment_chain, [ci, vp, ci, ci, vp, vp, ci, vp]),
         (lib.lzm_segment_max_rows, []),
         (lib.lzm_gather_launch, [ci, ci, vp]),
         (lib.lzm_rw_launch, [ci, ci, vp]),
@@ -369,7 +369,8 @@ def load_mosaic() -> ctypes.CDLL:
     ``lzm_row_attributes``); one handle per process."""
     lib = bind_mosaic(ctypes.CDLL(build_library(MOSAIC).path))
     lib.lzm_segment_attributes.restype = ctypes.c_int
-    lib.lzm_segment_attributes.argtypes = [ctypes.c_void_p]
+    lib.lzm_segment_attributes.argtypes = [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
     lib.lzm_rw_attributes.restype = ctypes.c_int
     lib.lzm_rw_attributes.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.lzm_row_attributes.restype = ctypes.c_int
@@ -399,8 +400,9 @@ def bind_mosaic3(lib: ctypes.CDLL) -> ctypes.CDLL:
 @functools.lru_cache(maxsize=1)
 def load_mosaic3() -> ctypes.CDLL:
     """Build (if needed) and bind the mosaic3 probe kernels (and the card
-    build's ``lzm3_onehot_attributes``, ``lzm3_window_attributes`` and
-    ``lzm3_vote_attributes``); one handle per process."""
+    build's ``lzm3_onehot_attributes``, ``lzm3_window_attributes``,
+    ``lzm3_vote_attributes`` and ``lzm3_byte_attributes``); one handle per
+    process."""
     lib = bind_mosaic3(ctypes.CDLL(build_library(MOSAIC3).path))
     ci, vp = ctypes.c_int, ctypes.c_void_p
     lib.lzm3_onehot_attributes.restype = ci
@@ -409,6 +411,8 @@ def load_mosaic3() -> ctypes.CDLL:
     lib.lzm3_window_attributes.argtypes = [ci, ci, vp]
     lib.lzm3_vote_attributes.restype = ci
     lib.lzm3_vote_attributes.argtypes = [ci, ci, vp]
+    lib.lzm3_byte_attributes.restype = ci
+    lib.lzm3_byte_attributes.argtypes = [ci, vp]
     return lib
 
 

@@ -32,14 +32,17 @@ holds at most :data:`RW_MAX_COLS` words. p5's (``segment_chain``, mode
 ``"segments"``) runs a block of :data:`SEGMENT_THREADS` per lane, with
 the lane's whole column in the block's shared memory and its rows split
 over the threads; so its table holds at most :data:`SEGMENT_MAX_ROWS`
-rows. ``row_chain`` runs p1-p3 as blocks of :data:`ROW_THREADS` over
+rows; p4's (mode ``"refill"``) runs a thread a lane with the lane's two
+source words in registers. ``row_chain`` runs p1-p3 as blocks of :data:`ROW_THREADS` over
 :data:`ROW_LANES` lanes, a lane's visited rows split over the block's
 ranks (:func:`row_launch`), and p6 as a thread a lane over the first
 quarter of its lanes' columns staged into the block's shared memory, so
 its table holds at most :data:`ROW_MAX_BYTE_W` rows. The wrappers refuse
 a larger E row, p5 column or p6 table on either device.
 ``<wrapper>.launches`` counts kernel launches, ``<wrapper>.reference`` is
-the plain version. Inputs are not changed. ``full=True`` also returns a
+the plain version. Inputs are not changed. ``row_chain`` and
+``segment_chain`` start from the probes' zeros, and a call is one launch,
+which writes the state and the final table. ``full=True`` also returns a
 dict: the final table where the function writes one (E, p3, p5; D's output
 is its final table) and the carried state (``[2, L]``: row_chain's acc and
 idx, p4's two acc rows, p5's total and mask).
@@ -188,18 +191,26 @@ def segment_block_bytes(W: int) -> int:
     return 4 * (SEGMENT_SLOTS + W)
 
 
-def segment_attributes() -> dict:
-    """The card build's attributes of p5's kernel: ``registers`` and
-    ``local_bytes`` a thread (spills), ``static_shared`` bytes and the
-    ``max_dynamic_shared`` bytes it is opted in to
-    (``cudaFuncGetAttributes``). Needs the card."""
-    return _attributes(lambda lib, out: lib.lzm_segment_attributes(out),
-                       "segment_attributes")
+def segment_attributes(mode: str, W: int) -> dict:
+    """The card build's attributes of the kernel that :func:`segment_chain`
+    launches on a ``[W, L]`` table: ``registers`` and ``local_bytes`` a
+    thread (spills), ``static_shared`` bytes and the ``max_dynamic_shared``
+    bytes it is opted in to (``cudaFuncGetAttributes``), and its ``lanes``
+    and ``threads`` a block and ``shared_bytes``, the dynamic shared memory
+    of a block (p4: 128 lanes and threads, none; p5: one lane, 256
+    threads, :func:`segment_block_bytes`). Needs the card."""
+    _check_mode("mode", mode, SEGMENT_MODES)
+    return _attributes(
+        lambda lib, out: lib.lzm_segment_attributes(
+            SEGMENT_MODES.index(mode), W, out),
+        "segment_attributes", ("lanes", "threads", "shared_bytes"))
 
 
 def rw_attributes(mode: str) -> dict:
-    """The card build's attributes of ``rw_chain``'s kernel for ``mode``,
-    as :func:`segment_attributes` gives p5's. Needs the card."""
+    """The card build's attributes of ``rw_chain``'s kernel for ``mode``:
+    ``registers``, ``local_bytes``, ``static_shared`` and
+    ``max_dynamic_shared``, as :func:`segment_attributes` gives them. Needs
+    the card."""
     _check_mode("mode", mode, RW_MODES)
     return _attributes(
         lambda lib, out: lib.lzm_rw_attributes(RW_MODES.index(mode), out),
@@ -208,10 +219,8 @@ def rw_attributes(mode: str) -> dict:
 
 def row_attributes(mode: str, W: int) -> dict:
     """The card build's attributes of the kernel that :func:`row_chain`
-    launches on a ``[W, L]`` table, as :func:`segment_attributes` gives p5's,
-    and its ``lanes`` and ``threads`` a block and ``shared_bytes``, the
-    dynamic shared memory of a block (:func:`row_launch`). Needs the
-    card."""
+    launches on a ``[W, L]`` table, as :func:`segment_attributes` gives
+    them, its launch from :func:`row_launch`. Needs the card."""
     _check_mode("mode", mode, ROW_MODES)
     return _attributes(
         lambda lib, out: lib.lzm_row_attributes(ROW_MODES.index(mode), W,
@@ -426,10 +435,6 @@ def launch_rw_chain(lib, x, start=None, *, mode: str, iters: int,
     return (t, {}) if full else t
 
 
-def _state(x):
-    return torch.zeros((2, x.shape[1]), dtype=torch.int32, device=x.device)
-
-
 def launch_row_chain(lib, x, *, mode: str, iters: int, full: bool = False):
     """Run ``lib``'s ``lzm_row_chain``: one launch, which writes the state
     and, for ``clamp_write``, the final table into a new tensor."""
@@ -452,21 +457,22 @@ def launch_row_chain(lib, x, *, mode: str, iters: int, full: bool = False):
 
 def launch_segment_chain(lib, x, *, mode: str, iters: int,
                          full: bool = False):
-    """Run ``lib``'s ``lzm_segment_chain`` (on a copy of ``x`` where it
-    writes)."""
-    t = (x.clone(memory_format=torch.contiguous_format)
-         if mode == "segments" else x.contiguous())
-    state = _state(x)
+    """Run ``lib``'s ``lzm_segment_chain``: one launch, which writes the
+    state and, for ``segments``, the final table into a new tensor."""
+    t = x.contiguous()
+    state = torch.empty((2, x.shape[1]), dtype=torch.int32, device=x.device)
+    table = torch.empty_like(t) if mode == "segments" else None
     rc = lib.lzm_segment_chain(SEGMENT_MODES.index(mode), t.data_ptr(),
                                t.shape[0], t.shape[1], state.data_ptr(),
+                               None if table is None else table.data_ptr(),
                                iters, _stream(x))
     _raise_on(lib, rc, "segment_chain")
     out = state[0:1]
     if not full:
         return out
     res = {"state": state}
-    if mode == "segments":
-        res["table"] = t
+    if table is not None:
+        res["table"] = table
     return out, res
 
 

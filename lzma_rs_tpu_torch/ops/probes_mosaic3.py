@@ -9,7 +9,8 @@ are direct indexed loads here, with the same results):
   iteration (an ``any``, a max, or a flag computed after the update), all
   lanes in one warp (:func:`vote_slots` a thread);
 - :func:`byte_chain` (``p11a`` P11a, ``p11b`` P11b): ``v = ((v >> 8 (v &
-  3)) & 0xFF) + i``, by a variable shift or a 4-way select;
+  3)) & 0xFF) + i``, by a variable per-lane byte pick (on the card one
+  byte permute) or a 4-way select of constant shifts, a thread a lane;
 - :func:`onehot_chain` (``p12(True)`` P12s, ``p12(False)`` P12m, ``p13``
   P13, ``p_small(8 | 64)`` P14, P15): a lane-carried index over a
   lane-minor ``[R, L]`` table, each next address waiting on the value read;
@@ -51,7 +52,7 @@ __all__ = [
     "WRAPPERS", "VOTE_OPS", "BYTE_OPS", "ONEHOT_OPS", "WINDOW_OPS",
     "vote_iterations", "onehot_rows_read", "refill_rows_read",
     "MAX_ONEHOT_ROWS", "MAX_REFILL_ROWS", "onehot_attributes",
-    "window_attributes", "vote_slots", "vote_attributes",
+    "window_attributes", "vote_slots", "vote_attributes", "byte_attributes",
     "vote_chain", "vote_chain_reference", "byte_chain",
     "byte_chain_reference", "onehot_chain", "onehot_chain_reference",
     "window_chain", "window_chain_reference",
@@ -285,7 +286,7 @@ def launch_byte_chain(lib, v0, *, mode: str, iters: int, full: bool = False):
     rc = lib.lzm3_byte_chain(BYTE_MODES.index(mode), s.data_ptr(), s.numel(),
                              v.data_ptr(), iters, _stream(v0))
     _raise_on(lib, rc, "byte_chain")
-    out = v[None]
+    out = v.view(1, -1)
     return (out, {}) if full else out
 
 
@@ -354,6 +355,14 @@ def window_attributes(W: int, *, mode: str) -> dict:
     _check_mode("mode", mode, WINDOW_MODES)
     return _attributes("lzm3_window_attributes", "window_attributes",
                        WINDOW_MODES.index(mode), W)
+
+
+def byte_attributes(*, mode: str) -> dict:
+    """The same for :func:`byte_chain`'s kernel: a thread a lane, 128
+    (``threads`` and ``lanes``) a block, no shared memory."""
+    _check_mode("mode", mode, BYTE_MODES)
+    return _attributes("lzm3_byte_attributes", "byte_attributes",
+                       BYTE_MODES.index(mode))
 
 
 def vote_attributes(lanes: int, *, mode: str) -> dict:

@@ -592,32 +592,65 @@ class DispatchedOps:
 
 
 def test_a_call_is_one_launch(host_lib):
-    """A row_chain call makes no copy of its input and no zeroed state
-    before the kernel: its state (and p3's table) are ``torch.empty`` and
-    the table goes in as it is, so on the card the kernel's launch is the
-    call's only one."""
+    """A row_chain or segment_chain call makes no copy of its input and no
+    zeroed state before the kernel: its state (and p3's and p5's tables)
+    are ``torch.empty`` and the table goes in as it is, so on the card the
+    kernel's launch is the call's only one; the input is not written."""
     x = ints((2048, 130), 47, (-3, 50))
-    for mode in pm.ROW_MODES:
+    kept = x.clone()
+    calls = [(pm.launch_row_chain, m) for m in pm.ROW_MODES]
+    calls += [(pm.launch_segment_chain, m) for m in pm.SEGMENT_MODES]
+    for launch, mode in calls:
         for full in (False, True):
             with DispatchedOps() as ops:
-                pm.launch_row_chain(host_lib, x, mode=mode, iters=64,
-                                    full=full)
+                launch(host_lib, x, mode=mode, iters=64, full=full)
             assert ops.only_outputs(), (mode, ops.seen)
+    assert torch.equal(x, kept)
 
 
-@pytest.mark.parametrize("mode", pm.SEGMENT_MODES)
-def test_host_build_segment_chain(mode, host_lib):
+# segment_chain's cases: both modes at 70 lanes, and p4 at one lane and
+# either side of a 128-thread block
+SEGMENT_CASES = [(m, 70) for m in pm.SEGMENT_MODES] + [
+    ("refill", n) for n in (1, 127, 128, 129)]
+# p4's iterations: either side of a round of 8 and of 8 rounds, and long
+REFILL_ITERS = (0, 1, 7, 8, 9, 41, 63, 64, 65, 500)
+
+
+@pytest.mark.parametrize(
+    "mode,lanes", SEGMENT_CASES,
+    ids=[m if n == 70 else f"{m}-{n}" for m, n in SEGMENT_CASES])
+def test_host_build_segment_chain(mode, lanes, host_lib):
     """p5's block (one a lane, 256 threads splitting the rows, a combine
     every 16 steps) at W from one row a segment (thread 0 alone) past the
     block's threads, tables that wrap on +1, 0 and 1 steps and a run that
-    ends inside a chunk."""
-    for i, W in enumerate((4, 8, 64, 100, 2048)):
+    ends inside a chunk. p4 in the card's order (its two words read once,
+    rounds of 8 steps, then the last round's) at the rounds' edges, on
+    tables whose refill wraps."""
+    refill = mode == "refill"
+    widths = (4, 8, 64, 100, 2048) if lanes == 70 else (4, 64)
+    for i, W in enumerate(widths):
         for j, lo_hi in enumerate((INT32, NEAR_LIMIT)):
-            x = ints((W, 70), 40 + 2 * i + j, lo_hi)
-            for iters in (0, 1, 41):
+            x = ints((W, lanes), 40 + 2 * i + j, lo_hi)
+            for iters in REFILL_ITERS if refill else (0, 1, 41):
                 kw = {"mode": mode, "iters": iters, "full": True}
                 assert_same(pm.launch_segment_chain(host_lib, x, **kw),
                             pm.segment_chain_reference(x, **kw))
+
+
+@pytest.mark.parametrize("mode", pm.SEGMENT_MODES)
+def test_segment_chain_leaves_its_input_unchanged(mode, host_lib):
+    """p5 writes its final column into a new table and p4 only reads: the
+    host build's call (the card's C interface) and the wrapper leave x as
+    it was, and p5's table is the plain version's."""
+    x = ints((64, 130), 49, (-3, 50))
+    kept = x.clone()
+    kw = {"mode": mode, "iters": 41, "full": True}
+    got = pm.launch_segment_chain(host_lib, x, **kw)
+    assert_same(got, pm.segment_chain_reference(x, **kw))
+    pm.segment_chain(x, **kw)
+    assert torch.equal(x, kept)
+    if mode == "segments":
+        assert not torch.equal(got[1]["table"], x)  # 41 steps of +1
 
 
 def test_host_build_segment_chain_at_the_shared_memory_limit(host_lib):
@@ -894,17 +927,44 @@ def test_row_attributes_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_a_call_is_one_launch_on_card(cuda_device):
-    """On the card a row_chain call dispatches no PyTorch op but its
-    outputs' ``torch.empty`` (and views), and counts one launch."""
+    """On the card a row_chain or segment_chain call dispatches no PyTorch
+    op but its outputs' ``torch.empty`` (and views), counts one launch and
+    leaves its input as it was."""
     x = ints((2048, 130), 47, (-3, 50)).to(cuda_device)
-    for mode in pm.ROW_MODES:
+    kept = x.clone()
+    calls = [(pm.row_chain, m) for m in pm.ROW_MODES]
+    calls += [(pm.segment_chain, m) for m in pm.SEGMENT_MODES]
+    for wrapper, mode in calls:
         for full in (False, True):
-            before = pm.row_chain.launches
+            before = wrapper.launches
             with DispatchedOps() as ops:
-                pm.row_chain(x, mode=mode, iters=64, full=full)
+                wrapper(x, mode=mode, iters=64, full=full)
             torch.cuda.synchronize()
-            assert pm.row_chain.launches == before + 1
+            assert wrapper.launches == before + 1
             assert ops.only_outputs(), (mode, ops.seen)
+    assert torch.equal(x, kept)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", (1, 127, 128, 129, 70))
+def test_refill_kernel_edges_on_card(lanes, cuda_device):
+    """p4's host-build cases on the card: one lane and either side of a
+    block, 0 to 500 iterations (every round's edge), tables whose refill
+    wraps; its kernel's launch and no spills."""
+    before, runs = pm.segment_chain.launches, 0
+    for i, W in enumerate((4, 64)):
+        for j, lo_hi in enumerate((INT32, NEAR_LIMIT)):
+            x = ints((W, lanes), 40 + 2 * i + j, lo_hi).to(cuda_device)
+            for iters in REFILL_ITERS:
+                kw = {"mode": "refill", "iters": iters, "full": True}
+                got = pm.segment_chain(x, **kw)
+                torch.cuda.synchronize()
+                assert_same(got, pm.segment_chain_reference(x, **kw))
+                runs += 1
+    assert pm.segment_chain.launches == before + runs
+    a = pm.segment_attributes("refill", 64)
+    assert (a["lanes"], a["threads"], a["shared_bytes"],
+            a["local_bytes"]) == (128, 128, 0, 0)
 
 
 @pytest.mark.cuda
@@ -923,6 +983,8 @@ def test_segments_kernel_edges_on_card(cuda_device):
             assert_same(got, pm.segment_chain_reference(x, **kw))
             runs += 1
     assert pm.segment_chain.launches == before + runs
-    a = pm.segment_attributes()
+    a = pm.segment_attributes("segments", 2048)
     assert a["local_bytes"] == 0
     assert a["max_dynamic_shared"] == pm.MAX_SHARED
+    assert (a["lanes"], a["threads"], a["shared_bytes"]) == (
+        1, pm.SEGMENT_THREADS, pm.segment_block_bytes(2048))

@@ -246,14 +246,64 @@ def test_host_build_vote_chain(mode, lanes, host_lib):
                         pm3.vote_chain_reference(n0, **kw))
 
 
-@pytest.mark.parametrize("mode", pm3.BYTE_MODES)
-def test_host_build_byte_chain(mode, host_lib):
-    for i, lo_hi in enumerate((INT32, NEAR_LIMIT, (-4, 4))):
-        v0 = ints(130, 20 + i, lo_hi)
-        for iters in (0, 1, 64, 500):
+# byte_chain's first pick at its edges: every k = v & 3 against bytes with
+# their high bit set (so an arithmetic shift would carry sign bits into the
+# pick), and -1, INT32_MIN, INT32_MAX
+BYTE_EDGES = [b | k for k in range(4) for b in (0x80808080, 0xFFFFFF00,
+                                                0x7F80FF00, 0x00800000)]
+BYTE_EDGES = [v - 2**32 if v >= 2**31 else v for v in BYTE_EDGES] + [
+    -1, -2**31, 2**31 - 1]
+
+# byte_chain's lanes: the tool's 130-lane case, one lane, and either side
+# of a 128-thread block; iterations either side of a pass of four
+# (the remainder's 0-3 steps) and long runs
+BYTE_CASES = [(m, 130) for m in pm3.BYTE_MODES] + [
+    (m, n) for n in (1, 127, 128, 129) for m in pm3.BYTE_MODES]
+BYTE_ITERS = (0, 1, 3, 4, 5, 64, 131, 500)
+
+
+def byte_starts(lanes: int) -> list:
+    """byte_chain's starts at ``lanes`` lanes: seeded over the full range,
+    near +-2^31 and small, and the edge words (repeated to the lanes)."""
+    starts = [ints(lanes, 20 + i, lo_hi)
+              for i, lo_hi in enumerate((INT32, NEAR_LIMIT, (-4, 4)))]
+    edges = np.resize(np.array(BYTE_EDGES, dtype=np.int32), lanes)
+    return starts + [torch.from_numpy(edges)]
+
+
+@pytest.mark.parametrize(
+    "mode,lanes", BYTE_CASES,
+    ids=[m if n == 130 else f"{m}-{n}" for m, n in BYTE_CASES])
+def test_host_build_byte_chain(mode, lanes, host_lib):
+    """The card's order on the host: passes of four steps, then the
+    remainder, the pick by the byte permute (P11a) or the select of four
+    candidate bytes (P11b)."""
+    for v0 in byte_starts(lanes):
+        for iters in BYTE_ITERS:
             kw = {"mode": mode, "iters": iters, "full": True}
             assert_same(pm3.launch_byte_chain(host_lib, v0, **kw),
                         pm3.byte_chain_reference(v0, **kw))
+
+
+@pytest.mark.parametrize("k", (0, 1, 2, 3, "own"))
+def test_byte_perm_is_the_probes_shift(k, host_lib):
+    """The byte permute's rule, as the host build writes the card's PRMT:
+    by selector ``k | 0x4440`` it is ``(v >> 8 k) & 0xFF`` for 2^16 seeded
+    int32 ``v`` and the edge words; by P11a's own selector ``(v & 3) |
+    0x4440`` it is the probe's ``(v >> 8 (v & 3)) & 0xFF``."""
+    v = np.concatenate([
+        np.random.default_rng(90).integers(
+            -2**31, 2**31, size=1 << 16, dtype=np.int64).astype(np.int32),
+        np.array(BYTE_EDGES, dtype=np.int32)])
+    out = np.empty_like(v)
+    fn = host_lib.lzm3_byte_perm
+    fn.restype = None
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn(v.ctypes.data, v.size, -1 if k == "own" else k | 0x4440,
+       out.ctypes.data)
+    shift = (v & 3) * 8 if k == "own" else 8 * k
+    assert np.array_equal(out, (v >> shift) & 0xFF)
 
 
 @pytest.mark.parametrize("unroll", pm3.UNROLLS)
@@ -430,8 +480,10 @@ def test_a_call_is_one_launch(host_lib):
     calls = [(launch, mode) for kernel in ("onehot", "concat", "refill")
              for launch, _, mode in launches_of(kernel)]
     calls += [(pm3.launch_vote_chain, {"mode": m}) for m in pm3.VOTE_MODES]
+    calls += [(pm3.launch_byte_chain, {"mode": m}) for m in pm3.BYTE_MODES]
     for launch, mode in calls:
-        arg = x[0] if launch is pm3.launch_vote_chain else x
+        arg = x[0] if launch in (pm3.launch_vote_chain,
+                                 pm3.launch_byte_chain) else x
         for full in (False, True):
             with DispatchedOps() as ops:
                 launch(host_lib, arg, iters=64, full=full, **mode)
@@ -596,8 +648,9 @@ def test_a_call_is_one_launch_on_card(cuda_device):
              for r in pm3.REDUCES for u in pm3.UNROLLS]
     calls += [(pm3.window_chain, {"mode": m}) for m in pm3.WINDOW_MODES]
     calls += [(pm3.vote_chain, {"mode": m}) for m in pm3.VOTE_MODES]
+    calls += [(pm3.byte_chain, {"mode": m}) for m in pm3.BYTE_MODES]
     for wrapper, kw in calls:
-        arg = x[0] if wrapper is pm3.vote_chain else x
+        arg = x[0] if wrapper in (pm3.vote_chain, pm3.byte_chain) else x
         for full in (False, True):
             before = wrapper.launches
             with DispatchedOps() as ops:
@@ -605,6 +658,24 @@ def test_a_call_is_one_launch_on_card(cuda_device):
             torch.cuda.synchronize()
             assert wrapper.launches == before + 1
             assert ops.only_outputs(), (kw, ops.seen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", (1, 127, 128, 129, 130))
+def test_byte_kernel_edges_on_card(lanes, cuda_device):
+    """The host build's byte_chain cases on the card: each mode, its edge
+    and seeded starts, 0 to 500 iterations (the passes' remainders)."""
+    before, runs = pm3.byte_chain.launches, 0
+    for v0 in byte_starts(lanes):
+        v0 = v0.to(cuda_device)
+        for mode in pm3.BYTE_MODES:
+            for iters in BYTE_ITERS:
+                kw = {"mode": mode, "iters": iters, "full": True}
+                got = pm3.byte_chain(v0, **kw)
+                torch.cuda.synchronize()
+                assert_same(got, pm3.byte_chain_reference(v0, **kw))
+                runs += 1
+    assert pm3.byte_chain.launches == before + runs
 
 
 @pytest.mark.cuda
@@ -658,3 +729,7 @@ def test_kernel_attributes_on_card(cuda_device):
                         lanes, 32, 0, 0, 0)
     assert pm3.onehot_attributes(pm3.MAX_ONEHOT_ROWS, reduce="sum")[
         "shared_bytes"] == 232448
+    for mode in pm3.BYTE_MODES:  # a thread a lane, 128 a block
+        a = pm3.byte_attributes(mode=mode)
+        assert (a["lanes"], a["threads"], a["shared_bytes"],
+                a["local_bytes"]) == (128, 128, 0, 0)
